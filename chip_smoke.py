@@ -7,19 +7,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: CUDA is required (there is no CPU path); prints the card's name
    and power limit as nvidia-smi reports them.
-2. build: compiles every kernel of the inference slice from
-   coin_tpu_torch/csrc with nvcc (one process per source, all at once).
+2. build: compiles every kernel from coin_tpu_torch/csrc with nvcc (one
+   process per source, all at once).
 3. kernels: each kernel against its plain PyTorch version on the same card
-   inputs at the shapes of the main path (foggy_fast: 4 images on a
-   608 x 1216 canvas, 6000/1000 RPN boxes, 1024 box-head candidates),
-   with its median time, the plain version's and the card's bound.
+   inputs at the shapes of its main path (eval, foggy_fast: 4 images on a
+   608 x 1216 canvas, 6000/1000 RPN boxes, 1024 box-head candidates;
+   training, foggy.yaml: 3 images, 512 + 64 RoIs each), with its median
+   time, the plain version's and the card's bound.
 4. reference: the full-width detector in f32 on the card against the same
    weights on the CPU (plain versions throughout) on a small canvas.
-5. main path: evaluate_detector of the full-width CLIP-RN50
+5. step reference: one train_step_cached and one train_step of the
+   full-width f32 model on the card against the CPU, same weights and
+   draws, on a small canvas.
+6. eval path: evaluate_detector of the full-width CLIP-RN50
    OpenVocabularyRCNN (bf16, random weights from a seed) over a synthetic
    8-image Foggy-Cityscapes-classed VOC set read through
-   configs/coin/GDINO/foggy_fast.yaml; every kernel's launch count must
-   rise on this path.
+   configs/coin/GDINO/foggy_fast.yaml; K1, K3 and K4n must launch.
+7. training path: build_adaptation_steps at full width from
+   configs/coin/GDINO/foggy.yaml (bf16, batch 3 on 608 x 1216, 128 cloud
+   boxes per image): cached steps, then live and cached_two steps past a
+   moved burn-up; every kernel (K1, K1b, K3, K4, K4n) must launch; ms per
+   step of each flavor and a stage breakdown of the cached step.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or coin_tpu.
@@ -28,6 +36,7 @@ The second-to-last line is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -210,6 +219,105 @@ def phase_normalize(torch, dev, gen):
                 library_ms=None)
 
 
+def phase_roi_align_bwd(torch, dev, gen):
+    from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
+    from coin_tpu_torch.ops.roi_align import roi_align_backward_plain
+    # training path: res4 of 3 images at 608x1216, 512 sampled + 64 C
+    # boxes each, 14x14 crops, bf16 gradient
+    shape = (3, 38, 76, 1024)
+    rois = random_boxes(torch, gen, (3, 576), (608, 1216), 2.0, 600.0)
+    rois[:, :20] -= 40.0                     # partly outside the image
+    rois = rois.to(dev)
+    g = torch.randn((3, 576, 14, 14, 1024), generator=gen).to(
+        dev, torch.bfloat16)
+    args = (1.0 / 16.0, 14, 2)
+    # the arithmetic in f32 (both accumulate in f32, the kernel with
+    # atomics in no fixed order): within 1e-5 of the largest |d feature|
+    want = roi_align_backward_plain(g, rois, shape, torch.float32, *args)
+    got = roi_align_backward_cuda(g, rois, shape, torch.float32, *args)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 1e-5 * scale, f"roi_align_bwd: max abs err {err} > 1e-5 "
+          f"x {scale}")
+    ms = time_ms(torch, lambda: roi_align_backward_cuda(
+        g, rois, shape, torch.bfloat16, *args))
+    plain_ms = time_ms(torch, lambda: roi_align_backward_plain(
+        g, rois, shape, torch.bfloat16, *args), iters=3, warmup=1)
+    n = g.numel()
+    b_ms, b_by = bound(2 * n + rois.numel() * 4 + 2 * 3 * 38 * 76 * 1024,
+                       n * 4 * 4 * 2)          # 4 samples x 4 taps
+    print(f"[K1b roi_align_bwd] grad {tuple(g.shape)} bf16, rois "
+          f"{tuple(rois.shape)} -> {shape}: max abs err {err:.3g} (tol 1e-5 "
+          f"x max |d feature| {scale:.3g}, f32); {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="roi_align_bwd", route="cuda",
+                source="coin_tpu_torch/csrc/roi_align_bwd.cu",
+                replaces="coin_tpu/ops/roi_align.py:85", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def _augment_draws(torch, gen, gates):
+    """(B, 9) draws with the gates forced (1 = on) and the rest drawn."""
+    g = torch.tensor(gates, dtype=torch.float32)
+    on = torch.where(g != 0, 0.0, 0.99)
+    u = torch.rand((len(gates), 5), generator=gen)
+    lo = torch.tensor([0.6, 0.6, 0.6, -0.1, 0.1])
+    hi = torch.tensor([1.4, 1.4, 1.4, 0.1, 2.0])
+    return torch.cat([on, lo + u * (hi - lo)], 1)
+
+
+def phase_augment(torch, dev, gen):
+    from coin_tpu_torch.data.augment import (CLIP_MEAN, CLIP_STD,
+                                             augment_params,
+                                             preprocess_plain)
+    from coin_tpu_torch.kernels.augment import augment_cuda
+    # training path: the batch of 3 on the 608x1216 canvas
+    cells = torch.randint(0, 256, (3, 38, 76, 3), generator=gen,
+                          dtype=torch.uint8)
+    noise = torch.randint(0, 32, (3, 608, 1216, 3), generator=gen,
+                          dtype=torch.uint8)
+    images = (cells.repeat_interleave(16, 1).repeat_interleave(16, 2) // 2
+              + noise).to(dev)
+    cases = {"all_on": [[1, 1, 1, 1]] * 3,
+             "mixed": [[1, 0, 1, 0], [0, 1, 0, 1], [1, 1, 0, 1]]}
+    out = {}
+    for label, gates in cases.items():
+        params = augment_params(_augment_draws(torch, gen, gates).to(dev))
+        got = augment_cuda(images, params, CLIP_MEAN, CLIP_STD)
+        want = preprocess_plain(images, params)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        check(err <= 1e-5, f"augment {label}: max abs err {err} > 1e-5")
+        ms = time_ms(torch, lambda: augment_cuda(images, params, CLIP_MEAN,
+                                                 CLIP_STD))
+        plain_ms = time_ms(torch, lambda: preprocess_plain(images, params),
+                           iters=5, warmup=1)
+        n = images.numel()
+        on = torch.tensor(gates).sum(0).tolist()
+        # operations the function needs per channel value with these
+        # gates: jitter ~20, gray 5, the two 9-tap passes 36, solarize and
+        # the two normalisations 6 (the kernel's recomputation of the
+        # jitter for every tap row is its own cost, not the function's)
+        per = [20 * gates[i][0] + 5 * gates[i][1] + 36 * gates[i][2] + 6
+               for i in range(len(gates))]
+        flops = n / len(gates) * sum(per)
+        b_ms, b_by = bound(n + 2 * 4 * n, flops)
+        print(f"[K4 augment {label}] {tuple(images.shape)} u8 -> 2 x f32, "
+              f"gates on per (jitter, gray, blur, solarize) {on}: max abs "
+              f"err {err:.3g} (tol 1e-5); {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        out[label] = dict(case=label, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    a = out["all_on"]
+    return dict(name="augment", route="cuda",
+                source="coin_tpu_torch/csrc/augment.cu",
+                replaces="coin_tpu/data/augment.py:105",
+                max_abs_err=max(c["max_abs_err"] for c in out.values()),
+                ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                bound_by=a["bound_by"], library_ms=None,
+                cases=list(out.values()))
+
+
 # -------------------------------------------------------- reference phase
 def phase_reference(torch, dev, cfg, num_classes, tokens):
     """The f32 detector on the card (kernels) against the same weights on
@@ -269,6 +377,135 @@ def phase_reference(torch, dev, cfg, num_classes, tokens):
     torch.cuda.empty_cache()
 
 
+def to_dev(d, dev):
+    return d.map(lambda t: t.to(dev))
+
+
+def phase_step_reference(torch, dev, num_classes, tokens):
+    """train_step_cached, then train_step (burn-up at step 1: EMA + the
+    live teacher), of the full-width f32 model on the card (kernels)
+    against the CPU (plain versions): same weights, same injected draws,
+    2 x 128 x 256. The teacher's score threshold is above 1 here, so it
+    keeps no detection: near-tied random-init class scores would otherwise
+    order its detections differently on the two devices."""
+    import dataclasses
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.engine import pipelines
+    from coin_tpu_torch.engine import step_builder as sb
+    from coin_tpu_torch.engine.common import synthetic_detections
+    parity_numerics()
+    cfg = load_config(os.path.join(REPO, "configs/coin/GDINO/foggy.yaml"))
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    pcfg = dataclasses.replace(
+        pipelines.pipeline_config_from(cfg, num_classes),
+        pre_nms_topk_train=600, post_nms_topk_train=100,
+        pre_nms_topk_test=600, post_nms_topk_test=100, roi_batch_size=64)
+    teacher_pcfg = dataclasses.replace(pcfg, test_score_thresh=1.5)
+    hyper = dataclasses.replace(
+        sb.hyper_from_cfg(cfg), burn_up=1, proto_start=0, cap_c=16,
+        loss_weights=pipelines.loss_weights_from(cfg))
+    gen = torch.Generator().manual_seed(SEED + 2)
+    cells = torch.randint(0, 256, (2, 8, 16, 3), generator=gen,
+                          dtype=torch.uint8)
+    images = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    hw = torch.tensor([[128.0, 256.0], [128.0, 200.0]])
+    online = [synthetic_detections(gen, 2, 16, num_classes, (128, 200),
+                                   [9, 6]) for _ in range(2)]
+    offline = synthetic_detections(gen, 2, 24, num_classes, (128, 200),
+                                   [12, 16])
+    offline = offline.replace(boxes=torch.cat(
+        [online[0].boxes[:, :8] + 1.0, offline.boxes[:, 8:]], 1))
+    anchors = 8 * 16 * 15
+    draws = [sb.draw_step(gen, 2, anchors, sb.num_candidates(pcfg, 16, n))
+             for n in (24, teacher_pcfg.test_topk)]
+
+    tok = {d: torch.as_tensor(tokens, device=d).long() for d in (dev, "cpu")}
+    states, losses = {}, {}
+    for d in (dev, "cpu"):
+        model = pipelines.build_detector(cfg, num_classes, d)
+        if d == dev:
+            model.random_init(SEED)
+        else:
+            model.load_state_dict(states[dev].model.state_dict())
+        states[d] = sb.init_train_state(cfg, model, tok[d], SEED)
+    # the same starting prototypes on both sides, off the text features:
+    # at them the L1 text-align loss sits at its kink, where its gradient
+    # is the sign of rounding noise
+    protos = type(states["cpu"].prototypes)(
+        *(p + 0.05 * torch.randn(p.shape, generator=gen)
+          for p in dataclasses.astuple(states["cpu"].prototypes)))
+    states["cpu"].prototypes = protos
+    states[dev].prototypes = type(protos)(
+        *(p.to(dev) for p in dataclasses.astuple(protos)))
+    before = {n: p.detach().cpu().clone()
+              for n, p in states["cpu"].model.named_parameters()}
+    merge_before = {n: p.detach().clone() for n, p in
+                    states["cpu"].merge_model.named_parameters()}
+    for d in (dev, "cpu"):
+        live, cached, _ = sb.build_adaptation_steps(tok[d], pcfg,
+                                                    teacher_pcfg, hyper)
+        dd = lambda x: to_dev(x, d)
+        move = lambda s: sb.StepDraws(*(t.to(d) for t in
+                                        dataclasses.astuple(s)))
+        st, l1 = cached(states[d], images.to(d), hw.to(d), dd(online[0]),
+                        dd(online[1]), dd(offline), draws=move(draws[0]))
+        st, l2 = live(st, images.to(d), hw.to(d), dd(online[0]),
+                      dd(online[1]), draws=move(draws[1]))
+        losses[d] = {**{"cached/" + k: v.item() for k, v in l1.items()},
+                     **{"live/" + k: v.item() for k, v in l2.items()}}
+    gpu, cpu = states[dev], states["cpu"]
+
+    def rel(a, b, base=None):
+        """||a - b|| / ||b|| per tensor; an update (new - ``base``) less
+        the f32 rounding of the parameters it moved."""
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        norm = torch.linalg.vector_norm
+        slack = 0.0 if base is None else \
+            2 * torch.finfo(torch.float32).eps * norm(base.double()).item()
+        return max(norm(a - b).item() - slack, 0.0) / max(norm(b).item(),
+                                                           1e-30)
+
+    errs = {"losses": max(abs(losses[dev][k] - v) / max(abs(v), 1e-3)
+                          for k, v in losses["cpu"].items())}
+    gp = dict(gpu.model.named_parameters())
+    gt = dict(gpu.teacher.named_parameters())
+    ct = dict(cpu.teacher.named_parameters())
+    gm = gpu.optimizer.momentum_buffers()
+    cm = cpu.optimizer.momentum_buffers()
+    errs["params"] = max(rel(gp[n] - before[n].to(dev), p - before[n],
+                             before[n])
+                         for n, p in cpu.model.named_parameters()
+                         if p.requires_grad)
+    errs["momentum"] = max(rel(gm[n], cm[n]) for n in cm)
+    errs["teacher"] = max(rel(gt[n] - before[n].to(dev), ct[n] - before[n],
+                              before[n]) for n in ct)
+    errs["prototypes"] = max(rel(getattr(gpu.prototypes, f),
+                                 getattr(cpu.prototypes, f))
+                             for f in ("proto", "b_online", "b_offline"))
+    gmm = dict(gpu.merge_model.named_parameters())
+    errs["merge"] = max(rel(gmm[n] - merge_before[n].to(dev),
+                            p - merge_before[n], merge_before[n])
+                        for n, p in cpu.merge_model.named_parameters())
+    tol = {"merge": 1e-2}
+    print(f"[step reference] full-width f32, card vs CPU, 2 x 128 x 256, "
+          f"train_step_cached then train_step: largest relative errors "
+          f"(losses |card - CPU| / max(|CPU|, 1e-3); tensors ||card - "
+          f"CPU|| / ||CPU|| of the momentum, the parameter, teacher and "
+          f"merge updates, the prototypes) {json.dumps(errs)} (tol 1e-3; "
+          f"merge 1e-2: its second-order gradient keeps about three "
+          f"digits in f32); losses "
+          f"{json.dumps({k: round(v, 6) for k, v in losses['cpu'].items()})}")
+    check(all(v <= tol.get(k, 1e-3) for k, v in errs.items()),
+          f"step reference: {errs}")
+    check(gpu.step == cpu.step == 2 and losses["cpu"]["cached/loss_cls"] > 0,
+          "step reference: steps not taken")
+    del states, gpu, cpu
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- main path
 def phase_main_path(torch, dev, cfg, num_classes, tokens, counters):
     from coin_tpu_torch.data.augment import normalize_batch
@@ -299,10 +536,12 @@ def phase_main_path(torch, dev, cfg, num_classes, tokens, counters):
                pcfg.test_topk) == (6000, 1000, 100), f"{pcfg}")
         model = pipelines.build_detector(cfg, num_classes, dev)
         model.random_init(SEED)
-        check(next(model.backbone.parameters()).dtype == torch.bfloat16
+        check(model.compute_dtype == torch.bfloat16
+              and all(p.dtype == torch.float32 for p in model.parameters())
               and model.text_trunk.layers == 12
               and model.text_trunk.ln_final.normalized_shape == (512,),
-              "not the full-width bf16 RN50 detector")
+              "not the full-width RN50 detector with f32 master weights "
+              "computing in bf16")
         params = model.state_dict()
 
         for fn in counters:
@@ -378,6 +617,190 @@ def phase_main_path(torch, dev, cfg, num_classes, tokens, counters):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _snapshot(module):
+    return {n: p.detach().clone() for n, p in module.named_parameters()}
+
+
+def _moved(module, before):
+    """Names of the parameters that changed since ``before``."""
+    return [n for n, p in module.named_parameters()
+            if not bool((p.detach() == before[n]).all())]
+
+
+def phase_train_path(torch, dev, num_classes, tokens, counters):
+    """build_adaptation_steps at full width from foggy.yaml: N cached
+    steps on the teacher's own predictions, then live and cached_two
+    steps past a burn-up moved to step N. The optimizers start past
+    warmup (count 400, lr 0.001) and prototype updates from step 0, so
+    that a few steps move every state the step owns."""
+    import dataclasses
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.engine import pipelines
+    from coin_tpu_torch.engine import step_builder as sb
+    from coin_tpu_torch.engine.common import synthetic_detections
+    cfg = load_config(os.path.join(REPO, "configs/coin/GDINO/foggy.yaml"))
+    pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    batch = cfg.SOLVER.IMG_PER_BATCH_UNLABEL
+    hh, ww = cfg.TPU.IMAGE_HW
+    cap = cfg.TPU.CAP_TEACHER
+    check((batch, hh, ww, cap, cfg.TPU.CAP_C, pcfg.pre_nms_topk_train,
+           pcfg.post_nms_topk_train, pcfg.roi_batch_size,
+           cfg.get_path("TPU.INT8_TRAIN", False))
+          == (3, 608, 1216, 128, 64, 6000, 1000, 512, False),
+          "not the foggy.yaml training shapes")
+    n_cached, n_live, n_two = 3, 3, 2
+    hyper = dataclasses.replace(
+        sb.hyper_from_cfg(cfg), burn_up=n_cached, proto_start=0,
+        loss_weights=pipelines.loss_weights_from(cfg))
+    model = pipelines.build_detector(cfg, num_classes, dev).random_init(SEED)
+    check(model.compute_dtype == torch.bfloat16
+          and all(p.dtype == torch.float32 for p in model.parameters()),
+          "training model: f32 master weights, bf16 compute expected")
+    tok = torch.as_tensor(tokens, device=dev).long()
+    state = sb.init_train_state(cfg, model, tok, SEED)
+    state.optimizer.count = state.merge_optimizer.count = \
+        cfg.SOLVER.WARMUP_ITERS
+    live, cached, cached_two = sb.build_adaptation_steps(tok, pcfg, pcfg,
+                                                         hyper)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cells = torch.randint(0, 256, (batch, hh // 16, ww // 16, 3),
+                          generator=gen, dtype=torch.uint8)
+    noise = torch.randint(0, 32, (batch, hh, ww, 3), generator=gen,
+                          dtype=torch.uint8)
+    images = (cells.repeat_interleave(16, 1).repeat_interleave(16, 2) // 2
+              + noise).to(dev)
+    hw = torch.tensor([[hh, ww], [hh, 1100.0], [560.0, ww]], device=dev)
+    n_valid = [48, 31, 60]
+    online_rcnn = to_dev(synthetic_detections(gen, batch, cap, num_classes,
+                                              (hh, ww), n_valid), dev)
+    online_rpn = to_dev(synthetic_detections(
+        gen, batch, cap, num_classes, (hh, ww), [n + 9 for n in n_valid]),
+        dev)
+
+    def offline_now():
+        with torch.inference_mode():
+            return pipelines.inference(state.teacher, normalize_batch(images),
+                                       hw, tok, pcfg)
+
+    # part of the cloud's boxes agree with the teacher's top detections,
+    # half of those in class, so that A and B pairs form from step 0
+    first = offline_now()
+    k = min(24, first.capacity, cap)
+    near = first.boxes[:, :k] + (torch.rand((batch, k, 4), generator=gen)
+                                 * 4 - 2).to(dev)
+    cls = first.classes[:, :k].clamp_min(0)
+    cls = torch.where(torch.arange(k, device=dev) < k // 2, cls,
+                      (cls + 1) % num_classes)
+    probs = 0.05 + 0.75 * torch.nn.functional.one_hot(
+        cls.long(), num_classes + 1).float()
+    online_rcnn = online_rcnn.replace(
+        boxes=torch.cat([near, online_rcnn.boxes[:, k:]], 1),
+        classes=torch.cat([cls.int(), online_rcnn.classes[:, k:]], 1),
+        probs=torch.cat([probs / probs.sum(-1, keepdim=True),
+                         online_rcnn.probs[:, k:]], 1))
+    online_rcnn = online_rcnn.replace(
+        scores=online_rcnn.probs[..., :-1].amax(-1))
+    online_rpn = online_rpn.replace(boxes=torch.cat(
+        [first.boxes[:, :k // 2], online_rpn.boxes[:, k // 2:]], 1))
+
+    before = {"student": _snapshot(state.model),
+              "teacher": _snapshot(state.teacher),
+              "merge": _snapshot(state.merge_model)}
+    proto_before = state.prototypes.proto.clone()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_losses = []
+    for i in range(n_cached + n_live + n_two):
+        if i < n_cached:
+            state, losses = cached(state, images, hw, online_rcnn,
+                                   online_rpn, offline_now())
+        elif i < n_cached + n_live:
+            state, losses = live(state, images, hw, online_rcnn, online_rpn)
+        else:
+            state, losses = cached_two(state, images, hw, online_rcnn,
+                                       online_rpn, offline_now())
+        all_losses.append({k: v.item() for k, v in losses.items()})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"[training path] {n_cached} train_step_cached (offline from the "
+          f"teacher's inference on the weak view), {n_live} train_step, "
+          f"{n_two} train_step_cached_two; batch {batch} x {hh} x {ww}, "
+          f"bf16, {pcfg.roi_batch_size} + {hyper.cap_c} RoIs per image: "
+          f"{run_s:.3f} s; kernel launches {json.dumps(launches)}")
+    for i, l in enumerate(all_losses):
+        print(f"  step {i}: " + json.dumps({k: round(v, 5)
+                                            for k, v in l.items()}))
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the training path: {launches}")
+    check(all(math.isfinite(v) for l in all_losses for v in l.values()),
+          "a loss is not finite")
+    check(state.step == n_cached + n_live + n_two, "steps not counted")
+    moved = {k: len(_moved(m, before[k])) for k, m in
+             (("student", state.model), ("teacher", state.teacher),
+              ("merge", state.merge_model))}
+    n_train = len([p for p in state.model.parameters() if p.requires_grad])
+    print(f"[training path] parameter tensors that moved: {moved} (of "
+          f"{n_train} trainable, {len(before['merge'])} merge); prototypes "
+          f"moved by {(state.prototypes.proto - proto_before).abs().max().item():.3g}")
+    check(moved["student"] > 0 and moved["teacher"] > 0
+          and moved["merge"] > 0, f"state did not move: {moved}")
+    check(bool((state.prototypes.proto != proto_before).any()),
+          "prototypes did not move")
+
+    # ms per step of each flavor, and the cached step by stage
+    offline = offline_now()
+    flavors = {
+        "train_step_cached": lambda: cached(state, images, hw, online_rcnn,
+                                            online_rpn, offline),
+        "train_step": lambda: live(state, images, hw, online_rcnn,
+                                   online_rpn),
+        "train_step_cached_two": lambda: cached_two(
+            state, images, hw, online_rcnn, online_rpn, offline),
+    }
+    step_ms = {}
+    for name, fn in flavors.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[name] = statistics.median(times)
+    # the cached step again, with a CUDA event at the end of each stage
+    marks = []
+
+    def on_stage(name):
+        marks.append((name, torch.cuda.Event(enable_timing=True)))
+        marks[-1][1].record()
+    _, timed, _ = sb.build_adaptation_steps(tok, pcfg, pcfg, hyper,
+                                            on_stage=on_stage)
+    stages = []
+    for _ in range(3):
+        marks.clear()
+        on_stage("start")
+        timed(state, images, hw, online_rcnn, online_rpn, offline)
+        torch.cuda.synchronize()
+        stages.append({name: marks[i][1].elapsed_time(e)
+                       for i, (name, e) in enumerate(marks[1:])})
+    stage_ms = {k: statistics.median(s[k] for s in stages)
+                for k in stages[0]}
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[training path] ms per step (median of 3, host clock to a "
+          f"synchronize): {json.dumps(step_ms)}; images/s of the cached step "
+          f"{batch * 1000.0 / step_ms['train_step_cached']:.2f}; peak "
+          f"device memory {mem:.1f} GiB")
+    print(f"[training path] cached step by stage, ms (median of 3, CUDA "
+          f"events at build_adaptation_steps' stage marks; student_forward "
+          f"includes matching): {json.dumps(stage_ms)}")
+    return launches, step_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -409,13 +832,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    from coin_tpu_torch.kernels.augment import augment_cuda
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
-    from coin_tpu_torch.kernels.roi_align import roi_align_cuda
-    counters = [roi_align_cuda, nms_sorted_cuda, normalize_cuda]
+    from coin_tpu_torch.kernels.roi_align import (roi_align_backward_cuda,
+                                                  roi_align_cuda)
+    eval_counters = [roi_align_cuda, nms_sorted_cuda, normalize_cuda]
+    train_counters = eval_counters + [roi_align_backward_cuda, augment_cuda]
     gen = torch.Generator().manual_seed(SEED)
     with torch.inference_mode():
-        kernels = [phase_roi_align(torch, dev, gen), phase_nms(torch, dev, gen),
+        kernels = [phase_roi_align(torch, dev, gen),
+                   phase_roi_align_bwd(torch, dev, gen),
+                   phase_nms(torch, dev, gen), phase_augment(torch, dev, gen),
                    phase_normalize(torch, dev, gen)]
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.data.voc import CITYSCAPES_CLASSES
@@ -424,12 +852,21 @@ def main() -> int:
     num_classes = len(CITYSCAPES_CLASSES)
     tokens = simple_class_tokens(num_classes + 1)
     phase_reference(torch, dev, cfg, num_classes, tokens)
-    launches, _ = phase_main_path(torch, dev, cfg, num_classes, tokens,
-                                  counters)
-    by_fn = {"roi_align": "roi_align_cuda", "nms": "nms_sorted_cuda",
+    phase_step_reference(torch, dev, num_classes, tokens)
+    eval_launches, _ = phase_main_path(torch, dev, cfg, num_classes, tokens,
+                                       eval_counters)
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_train_path(torch, dev, num_classes, tokens,
+                                         train_counters)
+    by_fn = {"roi_align": "roi_align_cuda",
+             "roi_align_bwd": "roi_align_backward_cuda",
+             "nms": "nms_sorted_cuda", "augment": "augment_cuda",
              "normalize": "normalize_cuda"}
     for k in kernels:
-        k["launches"] = launches[by_fn[k["name"]]]
+        fn = by_fn[k["name"]]
+        k["launches"] = train_launches[fn]
+        k["launches_by_path"] = {"training": train_launches[fn],
+                                 "eval": eval_launches.get(fn, 0)}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,9 @@ follow the flax tree. Key ``a/b/leaf`` becomes ``a.b.<leaf>``:
   and biases (heads, head_dim), the ``out`` kernel (heads, head_dim, out);
 - ``LayerNorm`` ``scale`` and ``nn.Embed`` ``embedding`` → ``weight``;
 - FrozenBN's four tensors and raw parameters pass through unchanged.
+
+``load_train_state`` carries a whole JAX ``TrainState`` of the adaptation
+step (its fields as numpy arrays) into the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -60,3 +63,57 @@ def from_jax_variables(variables: Mapping[str, Any]
 
     walk(tree, ())
     return out
+
+
+def _merge_trees(a: Mapping, b: Mapping) -> Dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = (_merge_trees(out[k], v)
+                  if k in out and isinstance(v, Mapping) else v)
+    return out
+
+
+def _chain_states(opt_state):
+    """(trace tree or None, update count) of an optax chain of
+    add_decayed_weights / trace / scale_by_learning_rate / a multiplier."""
+    trace, count = None, 0
+    for s in opt_state:
+        fields = getattr(s, "_fields", ())      # optax states: NamedTuples
+        if "trace" in fields:
+            trace = s.trace
+        if "count" in fields:
+            count = int(np.asarray(s.count))
+    return trace, count
+
+
+def _load_optimizer(opt, opt_state) -> None:
+    trace, count = _chain_states(opt_state)
+    opt.count = count
+    if trace is not None:
+        opt.set_momentum_buffers(from_jax_variables(trace))
+
+
+@torch.no_grad()
+def load_train_state(state, jstate: Any) -> Any:
+    """Load a JAX adaptation ``TrainState`` (``jax.device_get`` of it, or
+    any object with its fields as numpy trees) into the port's
+    ``engine.state.TrainState`` ``state``, built for the same model and
+    config: student parameters and frozen leaves, SGD momentum and update
+    count, the EMA teacher, the prototypes, the CKG parameters with their
+    momentum and count, and the step number."""
+    dev = next(state.model.parameters()).device
+    student = from_jax_variables(_merge_trees(jstate.params, jstate.frozen))
+    state.model.load_state_dict(student, strict=True)
+    teacher = from_jax_variables(_merge_trees(jstate.teacher_params,
+                                              jstate.frozen))
+    state.teacher.load_state_dict(teacher, strict=True)
+    state.merge_model.load_state_dict(from_jax_variables(
+        jstate.merge_params), strict=True)
+    _load_optimizer(state.optimizer, jstate.opt_state)
+    _load_optimizer(state.merge_optimizer, jstate.merge_opt_state)
+    p = jstate.prototypes
+    state.prototypes = type(state.prototypes)(
+        *(torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+          for x in (p.proto, p.b_online, p.b_offline)))
+    state.step = int(np.asarray(jstate.step))
+    return state

@@ -1,11 +1,11 @@
-"""Detector construction and the inference pipeline (counterparts of
-coin_tpu/engine/pipelines.py:23-83,154-191 and coin_tpu/engine/base.py:
-27-53,126-152)."""
+"""Detector construction, the pipeline configuration and the inference
+pipeline (counterparts of coin_tpu/engine/pipelines.py:23-83,154-191 and
+coin_tpu/engine/base.py:27-70,126-152)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,30 +20,79 @@ from coin_tpu_torch.structures import Detections
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The inference fields of coin_tpu's PipelineConfig."""
+    """coin_tpu's PipelineConfig, less the inference levers that are off
+    in every shipped config (crop sharing, the fast head)."""
     num_classes: int
+    # RPN
+    rpn_batch_size: int = 256
+    rpn_positive_fraction: float = 0.5
+    rpn_thresholds: Tuple[float, float] = (0.3, 0.7)
     rpn_nms_thresh: float = 0.7
+    pre_nms_topk_train: int = 6000
+    post_nms_topk_train: int = 1000
     pre_nms_topk_test: int = 6000
     post_nms_topk_test: int = 1000
+    # ROI
+    roi_batch_size: int = 512
+    roi_positive_fraction: float = 0.25
+    roi_iou_threshold: float = 0.5
     pooler_resolution: int = 14
+    # test
     test_score_thresh: float = 0.05
     test_nms_thresh: float = 0.5
     test_topk: int = 100
+    # losses (CLOUD.* in the reference config)
+    bg_weight: float = 1.0
+    loss_type: str = "MILCrossEntropy"
+    classes_weight: Optional[Tuple[float, ...]] = None
+    bg_train: bool = True
     stride: int = 16
+    cls_agnostic_bbox_reg: bool = True
 
 
 def pipeline_config_from(cfg, num_classes: int) -> PipelineConfig:
     m = cfg.MODEL
+    cw = cfg.CLOUD.CLASSES_WEIGHT
     return PipelineConfig(
         num_classes=num_classes,
+        rpn_batch_size=m.RPN.BATCH_SIZE_PER_IMAGE,
+        rpn_positive_fraction=m.RPN.POSITIVE_FRACTION,
+        rpn_thresholds=tuple(m.RPN.IOU_THRESHOLDS),
         rpn_nms_thresh=m.RPN.NMS_THRESH,
+        pre_nms_topk_train=m.RPN.PRE_NMS_TOPK_TRAIN,
+        post_nms_topk_train=m.RPN.POST_NMS_TOPK_TRAIN,
         pre_nms_topk_test=m.RPN.PRE_NMS_TOPK_TEST,
         post_nms_topk_test=m.RPN.POST_NMS_TOPK_TEST,
+        roi_batch_size=m.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+        roi_positive_fraction=m.ROI_HEADS.POSITIVE_FRACTION,
+        roi_iou_threshold=m.ROI_HEADS.IOU_THRESHOLDS[0],
         pooler_resolution=m.ROI_BOX_HEAD.POOLER_RESOLUTION,
         test_score_thresh=m.ROI_HEADS.SCORE_THRESH_TEST,
         test_nms_thresh=m.ROI_HEADS.NMS_THRESH_TEST,
         test_topk=cfg.TEST.DETECTIONS_PER_IMAGE,
+        bg_weight=cw[-1] if cw else 1.0,
+        loss_type=cfg.CLOUD.LOSS_TYPE,
+        classes_weight=tuple(cw) if cw else None,
+        bg_train=cfg.CLOUD.BG_TRAIN,
+        cls_agnostic_bbox_reg=m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG,
     )
+
+
+def loss_weights_from(cfg) -> Dict[str, float]:
+    c = cfg.CLOUD
+    return {
+        "loss_box_reg": c.LOSS_BOX_REG_WEIGHT,
+        "loss_box_reg_offline": c.LOSS_BOX_REG_OFFLINE_WEIGHT,
+        "loss_box_reg_online": c.LOSS_BOX_REG_ONLINE_WEIGHT,
+        "loss_cls": c.LOSS_CLS_WEIGHT,
+        "loss_text_align": c.LOSS_TEXT_ALIGN_WEIGHT,
+        "loss_distillation": c.LOSS_DISTILLATION_WEIGHT,
+        "loss_cls_b": c.LOSS_CLS_B_WEIGHT,
+        "loss_rpn_distillation": c.LOSS_DISTILLATION_WEIGHT,
+        "loss_rpn_cls": cfg.MODEL.RPN.LOSS_WEIGHT,
+        "loss_rpn_loc": (cfg.MODEL.RPN.BBOX_REG_LOSS_WEIGHT
+                         * cfg.MODEL.RPN.LOSS_WEIGHT),
+    }
 
 
 def build_detector(cfg, num_classes: int, device="cuda"
@@ -81,12 +130,15 @@ def anchors_for(images: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 
 def rpn_forward(model: OpenVocabularyRCNN, feats: torch.Tensor,
                 images_hw: torch.Tensor, anchors: torch.Tensor,
-                cfg: PipelineConfig):
-    """RPN head + test-time proposals."""
+                cfg: PipelineConfig, train: bool = False):
+    """RPN head + proposals (the train or test top-k), predicted from the
+    detached logits and deltas."""
     obj, deltas = model.rpn(feats)
     proposals = rpn_lib.predict_proposals(
-        anchors, obj, deltas, images_hw, cfg.pre_nms_topk_test,
-        cfg.post_nms_topk_test, cfg.rpn_nms_thresh)
+        anchors, obj.detach(), deltas.detach(), images_hw,
+        cfg.pre_nms_topk_train if train else cfg.pre_nms_topk_test,
+        cfg.post_nms_topk_train if train else cfg.post_nms_topk_test,
+        cfg.rpn_nms_thresh)
     return obj, deltas, proposals
 
 

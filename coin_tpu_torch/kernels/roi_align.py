@@ -1,8 +1,10 @@
-"""Launcher of K1, the RoIAlign forward kernel (csrc/roi_align.cu).
+"""Launchers of K1, the RoIAlign forward kernel (csrc/roi_align.cu), and
+K1b, its backward (csrc/roi_align_bwd.cu).
 
-Counterpart of the TPU-shaped op ``coin_tpu/ops/roi_align.py:53``
-``roi_align``; the plain PyTorch version and the public function are in
-``coin_tpu_torch/ops/roi_align.py``.
+Counterparts of the TPU-shaped op ``coin_tpu/ops/roi_align.py:53``
+``roi_align`` and of the autodiff transpose of its einsums (``:85-94``);
+the plain PyTorch versions, the autograd function and the public function
+are in ``coin_tpu_torch/ops/roi_align.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _fn():
     fn = library("roi_align").coin_roi_align_fwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = library("roi_align_bwd").coin_roi_align_bwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -61,3 +73,41 @@ def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
 
 
 roi_align_cuda.launches = 0
+
+
+def roi_align_backward_cuda(grad: torch.Tensor, rois: torch.Tensor,
+                            features_shape, features_dtype: torch.dtype,
+                            spatial_scale: float, resolution: int,
+                            sampling_ratio: int) -> torch.Tensor:
+    """grad (B, N, R, R, C) f32/bf16 and rois (B, N, 4) f32 on a CUDA
+    device → the features' gradient (B, H, W, C) in ``features_dtype``,
+    accumulated in f32."""
+    if not grad.is_cuda or rois.device != grad.device:
+        raise ValueError("roi_align_backward_cuda: grad and rois must be on "
+                         "one CUDA device")
+    if grad.dtype not in _DTYPES or rois.dtype != torch.float32:
+        raise TypeError(f"roi_align_backward_cuda: grad {grad.dtype} (f32 "
+                        f"or bf16), rois {rois.dtype} (f32)")
+    b, h, w, c = features_shape
+    n = rois.shape[1]
+    if (grad.shape != (b, n, resolution, resolution, c)
+            or rois.shape != (b, n, 4)):
+        raise ValueError(f"roi_align_backward_cuda: shapes "
+                         f"{tuple(grad.shape)}, {tuple(rois.shape)} for "
+                         f"features {tuple(features_shape)}")
+    grad = grad.contiguous()
+    rois = rois.contiguous()
+    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32,
+                        device=grad.device)
+    if b * n == 0:
+        return dfeat.to(features_dtype)
+    err = _bwd_fn()(grad.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
+                    h, w, c, b * n, n, float(spatial_scale), resolution,
+                    sampling_ratio, _DTYPES[grad.dtype],
+                    torch.cuda.current_stream(grad.device).cuda_stream)
+    check(err, "roi_align_bwd")
+    roi_align_backward_cuda.launches += 1
+    return dfeat.to(features_dtype)
+
+
+roi_align_backward_cuda.launches = 0

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coin_tpu_torch.models.layers import Conv2d
+
 # channel/stride tables per depth (coin_tpu/models/clip_resnet.py:27-34)
 DEPTH_CFG = {
     50: dict(layers=(3, 4, 6, 3), width=64, heads=32, out_dim=1024),
@@ -26,10 +28,10 @@ DEPTH_CFG = {
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1,
-         bias: bool = False) -> nn.Conv2d:
+         bias: bool = False) -> Conv2d:
     """Conv with flax's explicit symmetric padding k // 2 (stride-2 stem
-    conv included)."""
-    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias)
+    conv included); f32 weights, cast to the compute dtype per call."""
+    return Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias)
 
 
 class FrozenBN(nn.Module):

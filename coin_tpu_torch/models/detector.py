@@ -4,9 +4,10 @@
 CLIP-ResNet C4 backbone → RPN head → RoIAlign(res4) → res5 on the
 collapsed B·N crop batch → mean pool → cosine classifier against
 learnable-prompt text features + class-agnostic box regression.
-Convolutions and the text tower's linears hold their weights in the
-compute dtype; FrozenBN statistics, embeddings, LayerNorms and the box
-predictor stay in f32, as the JAX package computes them.
+Every parameter is held in f32, as flax keeps them; convolutions and the
+text tower's linears cast their weights to the compute dtype at each call
+(``models/layers.py``), while FrozenBN statistics, embeddings, LayerNorms
+and the box predictor compute in f32, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch import nn
 
 from coin_tpu_torch.models.clip_resnet import (DEPTH_CFG, CLIPResNetBackbone,
                                                Res5Head)
+from coin_tpu_torch.models.layers import Conv2d
 from coin_tpu_torch.models.roi_heads import BoxPredictor
 from coin_tpu_torch.models.rpn import RPNHead
 from coin_tpu_torch.models.text_encoder import (PromptedTextEncoder,
@@ -48,12 +50,12 @@ class OpenVocabularyRCNN(nn.Module):
         self.prompted_text = PromptedTextEncoder(text_width, prompt_tmp_len,
                                                  add_prompt_num)
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(compute_dtype)
+            if isinstance(m, Conv2d):
+                m.compute_dtype = compute_dtype
             elif isinstance(m, ResidualAttentionBlock):
                 for lin in (m.attn.query, m.attn.key, m.attn.value,
                             m.attn.out, m.mlp_c_fc, m.mlp_c_proj):
-                    lin.to(compute_dtype)
+                    lin.compute_dtype = compute_dtype
 
     @torch.no_grad()
     def random_init(self, seed: int) -> "OpenVocabularyRCNN":

@@ -1,16 +1,30 @@
-"""Box predictor and box inference (counterpart of
-coin_tpu/models/roi_heads.py:38-68 and :286-346). Proposal sampling and
-the ROI losses belong to the training slice."""
+"""Box predictor, proposal sampling, the ROI losses and box inference
+(counterpart of coin_tpu/models/roi_heads.py:38-346), batched over images.
+
+Sampled proposals are a fixed-size block per image with group tags:
+0 = A/fg, 1 = B (inconsistent), 2 = background, -1 = padding. Only
+class-agnostic box regression is ported (every shipped config).
+"""
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from coin_tpu_torch.models.rpn import _take, topk_stable
+from coin_tpu_torch.ops import boxes as box_ops
+from coin_tpu_torch.ops import losses as L
+from coin_tpu_torch.ops import matcher as M
 from coin_tpu_torch.ops import nms as nms_ops
-from coin_tpu_torch.structures import Detections
+from coin_tpu_torch.structures import Detections, concatenate
+
+GROUP_A = 0
+GROUP_B = 1
+GROUP_BG = 2
+GROUP_PAD = -1
 
 BOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
@@ -44,6 +58,157 @@ class BoxPredictor(nn.Module):
         txt = text_features / torch.linalg.vector_norm(
             text_features, dim=-1, keepdim=True).clamp_min(1e-8)
         return (img @ txt.T) / self.logit_scale
+
+
+class SampledProposals(NamedTuple):
+    boxes: torch.Tensor          # (..., S, 4)
+    group: torch.Tensor          # (..., S) int8
+    gt_boxes: torch.Tensor       # (..., S, 4) matched target box
+    cls_offline: torch.Tensor    # (..., S) int32 (bg rows = num_classes)
+    cls_online: torch.Tensor     # (..., S) int32
+    probs_offline: torch.Tensor  # (..., S, C+1)
+    probs_online: torch.Tensor   # (..., S, C+1)
+
+
+def sample_proposals(proposals: Detections, gt_a: Detections,
+                     gt_b: Optional[Detections], gt_c: Optional[Detections],
+                     num_classes: int, priorities: torch.Tensor,
+                     batch_size: int = 512, positive_fraction: float = 0.25,
+                     iou_threshold: float = 0.5,
+                     b_cls_online: Optional[torch.Tensor] = None,
+                     b_probs_online: Optional[torch.Tensor] = None,
+                     bg_train: bool = True) -> SampledProposals:
+    """``sample_proposals_single`` over a batch. proposals (B, P); gt_a
+    (B, Na) with probs; gt_b (B, Nb) (classes/probs = the offline view,
+    with ``b_cls_online`` / ``b_probs_online``) or None; gt_c (B, Nc), whose
+    matches are ignored, or None; priorities (B, 2, P + Na + Nb) uniform
+    draws of the (pos, neg) picks. The gt boxes (A, then B) join the
+    candidates."""
+    c1 = num_classes + 1
+    cand = concatenate(proposals, gt_a.replace(probs=None))
+    if gt_b is not None:
+        cand = concatenate(cand, gt_b.replace(probs=None))
+    parts = [gt_a] + [g for g in (gt_b, gt_c) if g is not None]
+    union_boxes = torch.cat([g.boxes for g in parts], 1)
+    union_valid = torch.cat([g.valid for g in parts], 1)
+    na = gt_a.capacity
+    nb = gt_b.capacity if gt_b is not None else 0
+
+    quality = box_ops.pairwise_iou(union_boxes, cand.boxes)
+    quality = torch.where(cand.valid[:, None, :], quality,
+                          torch.zeros_like(quality))
+    matched_idx, labels = M.match(quality, union_valid, (iou_threshold,),
+                                  (0, 1), allow_low_quality=False)
+    neg1 = torch.full_like(labels, -1)
+    if gt_c is not None:
+        fg_c = (matched_idx >= na + nb) & (labels != 0)
+        labels = torch.where(fg_c, neg1, labels)
+    labels = torch.where(cand.valid, labels, neg1)
+    pos, neg = M.subsample_labels(labels, batch_size, positive_fraction,
+                                  priorities[:, 0], priorities[:, 1])
+    sampled = pos | neg
+    order = torch.sort((~sampled).to(torch.uint8), dim=-1,
+                       stable=True).indices[:, :batch_size]
+
+    def take(a, idx=order):
+        i = idx.reshape(idx.shape + (1,) * (a.dim() - 2))
+        return torch.gather(a, 1, i.expand(idx.shape + a.shape[2:]))
+    sel_valid = take(sampled)
+    boxes = take(cand.boxes)
+    midx = take(matched_idx)
+    is_pos = take(pos)
+    in_a = is_pos & (midx < na)
+    in_b = is_pos & (midx >= na) & (midx < na + nb)
+    group = torch.full(order.shape, GROUP_PAD, dtype=torch.int8,
+                       device=order.device)
+    group = torch.where(in_a & sel_valid, GROUP_A, group)
+    group = torch.where(in_b & sel_valid, GROUP_B, group)
+    if bg_train:
+        group = torch.where(take(neg) & sel_valid, GROUP_BG, group)
+
+    a_idx = midx.clamp(0, na - 1)
+    gt_boxes = take(gt_a.boxes, a_idx)
+    cls_off = take(gt_a.classes, a_idx)
+    probs_off = (take(gt_a.probs, a_idx) if gt_a.probs is not None
+                 else torch.zeros(order.shape + (c1,), device=order.device))
+    cls_on, probs_on = cls_off, probs_off
+    if gt_b is not None:
+        b_idx = (midx - na).clamp(0, nb - 1)
+        inb = in_b[..., None]
+        gt_boxes = torch.where(inb, take(gt_b.boxes, b_idx), gt_boxes)
+        cls_off = torch.where(in_b, take(gt_b.classes, b_idx), cls_off)
+        probs_off = torch.where(inb, take(gt_b.probs, b_idx), probs_off)
+        cls_on = torch.where(in_b, take(b_cls_online, b_idx), cls_on)
+        probs_on = torch.where(inb, take(b_probs_online, b_idx), probs_on)
+
+    is_fg = (group == GROUP_A) | (group == GROUP_B)
+    pad = group == GROUP_PAD
+
+    def label(cls):
+        cls = torch.where(is_fg, cls, torch.full_like(cls, num_classes))
+        return torch.where(pad, torch.full_like(cls, -1), cls)
+    return SampledProposals(boxes, group, gt_boxes, label(cls_off),
+                            label(cls_on), probs_off, probs_on)
+
+
+def one_hot_c1(classes: torch.Tensor, num_classes: int) -> torch.Tensor:
+    return F.one_hot(classes.long().clamp(0, num_classes),
+                     num_classes + 1).float()
+
+
+def classification_loss(scores: torch.Tensor, sp: SampledProposals,
+                        num_classes: int, bg_weight: float,
+                        loss_type: str = "MILCrossEntropy",
+                        classes_weight: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """MIL CE (or, by CLOUD.LOSS_TYPE, MIL focal) over fg (A) and bg rows.
+    The pre-train slice's probability-weighted variant is not ported."""
+    rows = (sp.group == GROUP_A) | (sp.group == GROUP_BG)
+    target = one_hot_c1(sp.cls_offline, num_classes)
+    weights = torch.where(sp.group == GROUP_BG, bg_weight, 1.0)
+    if loss_type == "MILFocalLoss":
+        return L.mil_focal_loss(scores, target, rows, alpha=classes_weight,
+                                avg_positives=True)
+    return L.mil_cross_entropy(scores, target, rows, weights=weights,
+                               avg_positives=True)
+
+
+def box_reg_loss(sp: SampledProposals, deltas: torch.Tensor,
+                 num_classes: int, use_online_classes: bool = True,
+                 normalizer=None) -> torch.Tensor:
+    """L1 class-agnostic box regression over fg rows, normalised by the
+    sampled count (or ``normalizer``)."""
+    if deltas.shape[-1] != 4:
+        raise NotImplementedError("per-class box regression is not ported")
+    cls = sp.cls_online if use_online_classes else sp.cls_offline
+    fg = (cls >= 0) & (cls < num_classes)
+    gt_deltas = box_ops.encode_deltas(sp.boxes, sp.gt_boxes, BOX_REG_WEIGHTS)
+    per_row = L.smooth_l1(deltas, gt_deltas, beta=0.0).sum(-1)
+    total = torch.where(fg, per_row, torch.zeros_like(per_row)).sum()
+    if normalizer is None:
+        normalizer = (sp.group != GROUP_PAD).sum().clamp_min(1)
+    return total / normalizer
+
+
+def kl_mean_elements(log_p: torch.Tensor, q: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """torch KLDivLoss(reduction='mean') over valid rows: Σ q·(log q −
+    log p) / (#valid rows × C)."""
+    per_elem = q * (torch.log(q.clamp_min(1e-20)) - log_p)
+    total = torch.where(valid[:, None], per_elem,
+                        torch.zeros_like(per_elem)).sum()
+    cnt = valid.sum() * log_p.shape[-1]
+    return torch.where(cnt > 0, total / cnt.clamp_min(1),
+                       torch.zeros_like(total))
+
+
+def masked_mse(p: torch.Tensor, q: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    se = (p - q) ** 2
+    total = torch.where(valid[:, None], se, torch.zeros_like(se)).sum()
+    cnt = valid.sum() * p.shape[-1]
+    return torch.where(cnt > 0, total / cnt.clamp_min(1),
+                       torch.zeros_like(total))
 
 
 def fast_rcnn_inference(boxes: torch.Tensor, scores: torch.Tensor,

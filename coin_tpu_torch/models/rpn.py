@@ -1,14 +1,24 @@
-"""RPN head and proposal prediction (counterpart of
-coin_tpu/models/rpn.py:33-51 and :182-223). Anchor labeling and the RPN
-losses belong to the training slice."""
+"""RPN head, anchor labeling, the RPN losses and proposal prediction
+(counterpart of coin_tpu/models/rpn.py:33-223), batched over images.
+
+In the dual-teacher step the anchors are labeled against the A set;
+anchors whose best match is a C (private) box are ignored for the cls/loc
+losses and become distillation targets whose soft objectness is the C
+box's foreground probability mass.
+"""
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coin_tpu_torch.models.layers import Conv2d
 from coin_tpu_torch.ops import boxes as box_ops
+from coin_tpu_torch.ops import losses as L
+from coin_tpu_torch.ops import matcher as M
 from coin_tpu_torch.ops import nms as nms_ops
 from coin_tpu_torch.structures import Detections
 
@@ -22,9 +32,9 @@ class RPNHead(nn.Module):
     def __init__(self, channels: int, num_anchors: int):
         super().__init__()
         self.num_anchors = num_anchors
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
-        self.objectness_logits = nn.Conv2d(channels, num_anchors, 1)
-        self.anchor_deltas = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.objectness_logits = Conv2d(channels, num_anchors, 1)
+        self.anchor_deltas = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feat: torch.Tensor):
         """feat (B, H, W, C) NHWC → objectness (B, H·W·A) and deltas
@@ -36,6 +46,100 @@ class RPNHead(nn.Module):
         b = obj.shape[0]
         return (obj.reshape(b, -1).float(),
                 deltas.reshape(b, -1, 4).float())
+
+
+class RPNTargets(NamedTuple):
+    labels: torch.Tensor            # (B, R) int8: -1 ignore / 0 neg / 1 pos
+    matched_boxes: torch.Tensor     # (B, R, 4) matched gt box per anchor
+    distill_labels: torch.Tensor    # (B, R) bool: anchors distilled from C
+    teacher_probs: torch.Tensor     # (B, R) soft objectness target
+
+
+def label_anchors(anchors: torch.Tensor, gt_a: Detections,
+                  gt_c: Optional[Detections], priorities: torch.Tensor,
+                  batch_size: int = 256, positive_fraction: float = 0.5,
+                  thresholds=(0.3, 0.7)) -> RPNTargets:
+    """``label_anchors_single`` over a batch: anchors (R, 4), gt_a (B, Na),
+    gt_c (B, Nc) with probs or None, priorities (B, 2, R) uniform draws of
+    the (pos, neg) subsampling picks."""
+    if gt_c is not None:
+        all_boxes = torch.cat([gt_a.boxes, gt_c.boxes], 1)
+        all_valid = torch.cat([gt_a.valid, gt_c.valid], 1)
+    else:
+        all_boxes, all_valid = gt_a.boxes, gt_a.valid
+    quality = box_ops.pairwise_iou(all_boxes, anchors[None])
+    matched_idx, labels = M.match(quality, all_valid, thresholds,
+                                  (0, -1, 1), allow_low_quality=True)
+    del quality
+    na = gt_a.capacity
+    neg1 = torch.full_like(labels, -1)
+    if gt_c is not None:
+        is_c = matched_idx >= na
+        fg_c = is_c & (labels != 0)
+        labels = torch.where(fg_c, neg1, labels)
+        c_fg_prob = gt_c.probs[..., :-1].sum(-1)
+        t_probs = torch.where(
+            fg_c, torch.gather(c_fg_prob, 1, (matched_idx - na).clamp_min(0)),
+            torch.zeros_like(c_fg_prob[:, :1]))
+        distill = fg_c
+        matched_idx = torch.where(is_c, torch.zeros_like(matched_idx),
+                                  matched_idx)
+        fallback = torch.where(is_c & (labels == 0),
+                               torch.zeros_like(labels), neg1)
+    else:
+        distill = torch.zeros_like(labels, dtype=torch.bool)
+        t_probs = torch.zeros(labels.shape, device=labels.device)
+        fallback = neg1
+    # no positive gt at all: everything ignored, except anchors whose best
+    # match is a C box yet labeled background
+    labels = torch.where(gt_a.valid.any(-1, keepdim=True), labels, fallback)
+    pos, neg = M.subsample_labels(labels, batch_size, positive_fraction,
+                                  priorities[:, 0], priorities[:, 1])
+    labels = torch.where(pos, torch.ones_like(labels),
+                         torch.where(neg, torch.zeros_like(labels), neg1))
+    idx = matched_idx.clamp(0, na - 1)
+    matched_boxes = torch.gather(gt_a.boxes, 1,
+                                 idx[..., None].expand(-1, -1, 4))
+    return RPNTargets(labels, matched_boxes, distill, t_probs)
+
+
+def rpn_losses(anchors: torch.Tensor, obj_logits: torch.Tensor,
+               deltas: torch.Tensor, targets: RPNTargets,
+               batch_size: int = 256, calc_bg: bool = True,
+               with_distillation: bool = False) -> dict:
+    """Batched RPN losses: obj_logits (B, R), deltas (B, R, 4)."""
+    labels = targets.labels
+    pos = labels == 1
+    valid = (labels >= 0) if calc_bg else pos
+    y = pos.to(obj_logits.dtype)
+    bce = -(y * F.logsigmoid(obj_logits)
+            + (1.0 - y) * F.logsigmoid(-obj_logits))
+    obj_loss = torch.where(valid, bce, torch.zeros_like(bce)).sum()
+    normalizer = batch_size * labels.shape[0]
+    cls_norm = normalizer if calc_bg else valid.sum().clamp_min(1)
+    gt_deltas = box_ops.encode_deltas(anchors[None], targets.matched_boxes,
+                                      RPN_DELTA_WEIGHTS)
+    loc = L.smooth_l1(deltas, gt_deltas, beta=0.0).sum(-1)
+    loc_loss = torch.where(pos, loc, torch.zeros_like(loc)).sum()
+    out = {"loss_rpn_cls": obj_loss / cls_norm,
+           "loss_rpn_loc": loc_loss / normalizer}
+    if with_distillation:
+        # KL between (q, 1-q) and (p, 1-p) on distilled anchors, averaged
+        # over elements (2 per anchor), as torch KLDivLoss('mean')
+        p = torch.sigmoid(obj_logits)
+        q = targets.teacher_probs
+        mask = targets.distill_labels
+
+        def kl_term(qq, pp):
+            return qq * (torch.log(qq.clamp_min(1e-20))
+                         - torch.log(pp + 1e-7))
+        kl = kl_term(q, p) + kl_term(1.0 - q, 1.0 - p)
+        cnt = mask.sum()
+        total = torch.where(mask, kl, torch.zeros_like(kl)).sum()
+        out["loss_rpn_distillation"] = torch.where(
+            cnt > 0, total / (2.0 * cnt).clamp_min(1.0),
+            torch.zeros_like(total))
+    return out
 
 
 def topk_stable(x: torch.Tensor, k: int):

@@ -3,7 +3,8 @@ coin_tpu/models/text_encoder.py:30-144).
 
 As in the JAX package the residual stream stays in the dtype of the token
 embeddings (f32); the attention and MLP linears run in the compute dtype;
-LayerNorm (flax's ε = 1e-6) runs in f32 and casts back. The text feature
+LayerNorm (flax's ε = 1e-6) runs in f32 and casts back. Every parameter
+is held in f32. The text feature
 is taken at the EOT position, the argmax token id.
 """
 
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from coin_tpu_torch.models.layers import Linear
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 
@@ -27,10 +30,10 @@ class SelfAttention(nn.Module):
     def __init__(self, width: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.query = nn.Linear(width, width)
-        self.key = nn.Linear(width, width)
-        self.value = nn.Linear(width, width)
-        self.out = nn.Linear(width, width)
+        self.query = Linear(width, width)
+        self.key = Linear(width, width)
+        self.value = Linear(width, width)
+        self.out = Linear(width, width)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         n, l, d = x.shape
@@ -51,11 +54,11 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_1 = nn.LayerNorm(width, eps=LN_EPS)
         self.attn = SelfAttention(width, heads)
         self.ln_2 = nn.LayerNorm(width, eps=LN_EPS)
-        self.mlp_c_fc = nn.Linear(width, width * 4)
-        self.mlp_c_proj = nn.Linear(width * 4, width)
+        self.mlp_c_fc = Linear(width, width * 4)
+        self.mlp_c_proj = Linear(width * 4, width)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        dtype = self.mlp_c_fc.weight.dtype
+        dtype = self.mlp_c_fc.compute_dtype or x.dtype
         h = self.ln_1(x.float()).to(x.dtype)
         x = x + self.attn(h.to(dtype), mask)
         h = self.ln_2(x.float()).to(x.dtype)

@@ -1,5 +1,5 @@
-"""Box algebra: areas, pairwise IoU, delta transforms (counterpart of
-coin_tpu/ops/boxes.py:19-110).
+"""Box algebra: areas, pairwise IoU, centers and cxcywh conversions, delta
+transforms (counterpart of coin_tpu/ops/boxes.py:19-110).
 
 ``pairwise_iou`` uses half-open widths (x2 - x1), ``pairwise_iou_plus1``
 the inclusive pixel convention (x2 - x1 + 1); both return 0 where the
@@ -40,6 +40,20 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def pairwise_iou_plus1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """IoU matrix (..., Na, Nb), inclusive +1 pixel convention."""
     return _pairwise_iou(a, b, 1.0)
+
+
+def centers(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., :2] + boxes[..., 2:]) / 2.0
+
+
+def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
 
 
 def encode_deltas(src: torch.Tensor, target: torch.Tensor,

@@ -1,5 +1,6 @@
 """Exact greedy hard NMS (counterpart of coin_tpu/ops/nms.py:42-131,
-``nms_keep_mask``), batched over leading image dims.
+``nms_keep_mask``), batched over leading image dims, and the pairwise
+score-weighted box fusion of the dual-teacher matching (``:250``).
 
 On a CUDA tensor the sorted-box suppression runs in kernel K3
 (csrc/nms.cu, launched by kernels/nms.py); on a CPU tensor it runs in
@@ -86,3 +87,14 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty_like(keep_sorted)
     keep.scatter_(1, order, keep_sorted)
     return (keep & valid).reshape(lead + (n,))
+
+
+def weighted_box_fusion_pair(box_a: torch.Tensor, box_b: torch.Tensor,
+                             score_a: torch.Tensor,
+                             score_b: torch.Tensor) -> torch.Tensor:
+    """Score-weighted average of two aligned box sets
+    (coin_tpu/ops/nms.py:250)."""
+    total = (score_a + score_b).clamp_min(1e-20)
+    wa = (score_a / total)[..., None]
+    wb = (score_b / total)[..., None]
+    return box_a * wa + box_b * wb

@@ -1,10 +1,14 @@
-"""RoIAlign forward, aligned=True with a static sampling ratio
+"""RoIAlign, aligned=True with a static sampling ratio, and its gradient
 (counterpart of coin_tpu/ops/roi_align.py:28-104).
 
-On a CUDA tensor it runs kernel K1 (csrc/roi_align.cu, launched by
-kernels/roi_align.py), a direct bilinear gather; on a CPU tensor it runs
-:func:`roi_align_plain`, the plain PyTorch version, which keeps the JAX
-package's separable interpolation-matrix form in f32.
+The forward runs kernel K1 (csrc/roi_align.cu) on a CUDA tensor and
+:func:`roi_align_plain` on a CPU tensor; the plain version keeps the JAX
+package's separable interpolation-matrix form in f32. The backward, the
+features' gradient, runs kernel K1b (csrc/roi_align_bwd.cu) on a CUDA
+tensor and :func:`roi_align_backward_plain`, the explicit transpose of the
+plain version's two einsums, on a CPU tensor; the RoIs get no gradient
+(the JAX package computes them under stop_gradient). Both kernels are
+launched by kernels/roi_align.py.
 
 Semantics: rois * spatial_scale - 0.5; sample k of cell r at
 start + (r + (k + 0.5) / s) * bin; samples outside [-1, size] are 0, the
@@ -75,17 +79,83 @@ def roi_align_plain(features: torch.Tensor, rois: torch.Tensor,
     return out
 
 
+def roi_align_backward_plain(grad: torch.Tensor, rois: torch.Tensor,
+                             features_shape, features_dtype: torch.dtype,
+                             spatial_scale: float, resolution: int = 14,
+                             sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain version of K1b: grad (B, N, R, R, C), rois (B, N, 4) → the
+    gradient of the features (B, H, W, C) in ``features_dtype``, computed
+    in f32 as Σ ay·ax·grad."""
+    b, h, w, c = features_shape
+    out = torch.zeros((b, h, w, c), dtype=torch.float32, device=grad.device)
+    for i in range(b):
+        for s in range(0, rois.shape[1], _CHUNK):
+            r = rois[i, s:s + _CHUNK].float() * spatial_scale - 0.5
+            x1, y1, x2, y2 = r.unbind(-1)
+            ax = _interp_matrix(x1, _div(x2 - x1, resolution), resolution,
+                                sampling_ratio, w)
+            ay = _interp_matrix(y1, _div(y2 - y1, resolution), resolution,
+                                sampling_ratio, h)
+            g = grad[i, s:s + _CHUNK].float()
+            tmp = torch.einsum("nrh,nrsc->nhsc", ay, g)
+            out[i] += torch.einsum("nsw,nhsc->hwc", ax, tmp)
+    return out.to(features_dtype)
+
+
+def _forward(features, rois, spatial_scale, resolution, sampling_ratio):
+    if features.is_cuda:
+        from coin_tpu_torch.kernels.roi_align import roi_align_cuda
+        return roi_align_cuda(features, rois, spatial_scale, resolution,
+                              sampling_ratio)
+    return roi_align_plain(features, rois, spatial_scale, resolution,
+                           sampling_ratio)
+
+
+def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
+                       features_shape, features_dtype: torch.dtype,
+                       spatial_scale: float, resolution: int = 14,
+                       sampling_ratio: int = 2) -> torch.Tensor:
+    """The features' gradient: K1b on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    if grad.is_cuda:
+        from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
+        return roi_align_backward_cuda(grad, rois, features_shape,
+                                       features_dtype, spatial_scale,
+                                       resolution, sampling_ratio)
+    return roi_align_backward_plain(grad, rois, features_shape,
+                                    features_dtype, spatial_scale,
+                                    resolution, sampling_ratio)
+
+
+class RoIAlign(torch.autograd.Function):
+    """RoIAlign with the features' gradient; the RoIs are constants."""
+
+    @staticmethod
+    def forward(ctx, features, rois, spatial_scale, resolution,
+                sampling_ratio):
+        ctx.save_for_backward(rois)
+        ctx.meta = (tuple(features.shape), features.dtype, spatial_scale,
+                    resolution, sampling_ratio)
+        return _forward(features, rois, spatial_scale, resolution,
+                        sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        rois, = ctx.saved_tensors
+        shape, dtype, scale, res, sampling = ctx.meta
+        return (roi_align_backward(grad, rois, shape, dtype, scale, res,
+                                   sampling), None, None, None, None)
+
+
 def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
                       spatial_scale: float, resolution: int = 14,
                       sampling_ratio: int = 2) -> torch.Tensor:
     """features (B, H, W, C) NHWC, rois (B, N, 4) xyxy image coordinates
-    → (B, N, R, R, C)."""
-    if features.is_cuda:
-        from coin_tpu_torch.kernels.roi_align import roi_align_cuda
-        return roi_align_cuda(features, rois.float(), spatial_scale,
-                              resolution, sampling_ratio)
-    return roi_align_plain(features, rois, spatial_scale, resolution,
-                           sampling_ratio)
+    → (B, N, R, R, C), differentiable in the features."""
+    return RoIAlign.apply(features, rois.detach().float(), spatial_scale,
+                          resolution, sampling_ratio)
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor,

@@ -1,0 +1,185 @@
+"""Kernel-level profile of the port on one CUDA card.
+
+    python -m coin_tpu_torch.profile_device [--path eval|train] [--iters 5]
+
+``--path eval``: the full-width bf16 detector of
+configs/coin/GDINO/foggy_fast.yaml with random weights from a seed,
+``--iters`` calls of ``normalize_batch`` + ``engine.pipelines.inference``
+on one batch of 4 random u8 images already on the card (host decode
+excluded; the text features are computed once beforehand, as
+``evaluate_detector`` does).
+
+``--path train``: ``--iters`` calls of ``train_step_cached`` of
+configs/coin/GDINO/foggy.yaml at full width (bf16, batch 3 on the
+608 x 1216 canvas, 128 synthetic cloud boxes per image, the teacher's own
+predictions as the cached ones), with the optimizers past warmup.
+
+Prints the device time per call by kernel group and the top kernels, and
+the device's busy share of the window: the kernels' summed time over the
+host's wall time (the port launches on one stream, so kernels do not
+overlap). Raises without a card, and when the profiler records no device
+time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from coin_tpu_torch.config import load_config
+from coin_tpu_torch.data.augment import normalize_batch
+from coin_tpu_torch.data.voc import CITYSCAPES_CLASSES
+from coin_tpu_torch.device import resolve_device
+from coin_tpu_torch.engine import pipelines
+from coin_tpu_torch.engine.common import (simple_class_tokens,
+                                          synthetic_detections)
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs/coin/GDINO")
+SEED = 2024
+
+# kernel name fragment → group, first match wins
+GROUPS = (
+    ("port kernels", ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
+                      "nms_mask_kernel", "nms_sweep_kernel",
+                      "normalize_kernel", "gray_mean_kernel",
+                      "vertical_kernel", "horizontal_kernel")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("reduction", ("reduce",)),
+    ("sort / top-k", ("sort", "radix", "topk", "scan")),
+    ("pooling", ("pool",)),
+    ("convolution", ("fprop", "conv", "implicit")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "cublas")),
+    ("copy / layout", ("memcpy", "memset", "copy", "nchw", "nhwc")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, frags in GROUPS:
+        if any(f in low for f in frags):
+            return group
+    return "other"
+
+
+def eval_call(device):
+    """One eval batch of foggy_fast.yaml, as a closure."""
+    cfg = load_config(os.path.join(CONFIGS, "foggy_fast.yaml"))
+    num_classes = len(CITYSCAPES_CLASSES)
+    pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    model = pipelines.build_detector(cfg, num_classes, device)
+    model.random_init(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    h, w = cfg.TPU.IMAGE_HW
+    images_u8 = torch.randint(0, 256, (4, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(device)
+    image_hw = torch.tensor([[h, w]] * 4, dtype=torch.float32, device=device)
+    tokens = torch.as_tensor(simple_class_tokens(num_classes + 1),
+                             device=device)
+    with torch.inference_mode():
+        text = model.text_features(tokens)
+
+    @torch.inference_mode()
+    def call():
+        return pipelines.inference(model, normalize_batch(images_u8),
+                                   image_hw, tokens, pcfg,
+                                   text_features=text)
+    return call
+
+
+def train_call(device):
+    """One ``train_step_cached`` of foggy.yaml at full width, as a
+    closure."""
+    import dataclasses
+    from coin_tpu_torch.engine import step_builder as sb
+    cfg = load_config(os.path.join(CONFIGS, "foggy.yaml"))
+    num_classes = len(CITYSCAPES_CLASSES)
+    pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    model = pipelines.build_detector(cfg, num_classes, device)
+    model.random_init(SEED)
+    tokens = torch.as_tensor(simple_class_tokens(num_classes + 1),
+                             device=device).long()
+    state = sb.init_train_state(cfg, model, tokens, SEED)
+    state.optimizer.count = state.merge_optimizer.count = \
+        cfg.SOLVER.WARMUP_ITERS
+    hyper = dataclasses.replace(sb.hyper_from_cfg(cfg), proto_start=0,
+                                loss_weights=pipelines.loss_weights_from(cfg))
+    _, cached, _ = sb.build_adaptation_steps(tokens, pcfg, pcfg, hyper)
+    gen = torch.Generator().manual_seed(SEED)
+    b, (h, w) = cfg.SOLVER.IMG_PER_BATCH_UNLABEL, cfg.TPU.IMAGE_HW
+    images_u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(device)
+    image_hw = torch.tensor([[h, w]] * b, dtype=torch.float32, device=device)
+    cap = cfg.TPU.CAP_TEACHER
+    online = [synthetic_detections(gen, b, cap, num_classes, (h, w),
+                                   [48] * b).map(lambda t: t.to(device))
+              for _ in range(2)]
+    with torch.inference_mode():
+        offline = pipelines.inference(state.teacher,
+                                      normalize_batch(images_u8), image_hw,
+                                      tokens, pcfg)
+
+    def call():
+        return cached(state, images_u8, image_hw, *online, offline)
+    return call
+
+
+def profile_calls(path: str, iters: int, device="cuda"):
+    """(wall ms per call, {kernel name: (ms per call, launches per
+    call)}) over ``iters`` profiled calls of ``path``."""
+    device = resolve_device(device)
+    call = {"eval": eval_call, "train": train_call}[path](device)
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = (e.self_device_time_total / 1e3 / iters,
+                              e.count / iters)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    return wall_ms, kernels
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("eval", "train"), default="eval")
+    parser.add_argument("--iters", type=int, default=5)
+    args = parser.parse_args()
+    wall_ms, kernels = profile_calls(args.path, args.iters)
+    busy = sum(ms for ms, _ in kernels.values())
+    what = {"eval": "one eval batch (4 images, bf16)",
+            "train": "one train_step_cached (3 images, bf16)"}[args.path]
+    print(f"{torch.cuda.get_device_name(0)}: {what} {wall_ms:.3f} ms wall, "
+          f"{busy:.3f} ms of kernels: device busy "
+          f"{100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f}"
+          f" % (over {args.iters} calls)")
+    groups = defaultdict(float)
+    for name, (ms, _) in kernels.items():
+        groups[group_of(name)] += ms
+    print("device ms per call by kernel group:")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:16s} {ms:9.3f} ms  {100 * ms / busy:5.1f} %")
+    print("top kernels, ms and launches per call:")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, n) in top:
+        print(f"  {ms:9.3f} ms  {n:5.1f}x  [{group_of(name)}] {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,7 +7,10 @@ JAX, so it also runs where JAX is not installed:
         tests/test_torch_kernels_cuda.py -q
 
 Tolerances: RoIAlign 1e-5 in f32 (the same arithmetic summed in another
-order), NMS keep masks equal, normalisation 1e-6.
+order), NMS keep masks equal, normalisation 1e-6; the RoIAlign backward
+(K1b) 1e-5 of the largest |d features| in f32 (its atomics add in no fixed
+order); the strong and weak views (K4) 1e-5 (the canvas mean sums in
+another order).
 """
 
 import numpy as np
@@ -88,3 +91,51 @@ def test_kernel_matches_plain_version_on_card(cuda_device, which):
         torch.testing.assert_close(taug.normalize_batch(images),
                                    taug.normalize_plain(images),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _augment_draws(rng, gates):
+    """(B, 9) draws with the four gates forced per image (1 = on)."""
+    g = np.asarray(gates, np.float32)
+    on = np.where(g != 0, 0.0, 0.99)
+    rest = np.stack([rng.uniform(0.6, 1.4, len(g)),
+                     rng.uniform(0.6, 1.4, len(g)),
+                     rng.uniform(0.6, 1.4, len(g)),
+                     rng.uniform(-0.1, 0.1, len(g)),
+                     rng.uniform(0.1, 2.0, len(g))], 1)
+    return torch.from_numpy(np.concatenate([on, rest], 1).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["roi_align_bwd", "augment"])
+def test_training_kernel_matches_plain_version_on_card(cuda_device, which):
+    rng = np.random.RandomState(1)
+    if which == "roi_align_bwd":
+        for feats, rois in _roi_align_cases(rng, cuda_device):
+            b, h, w, c = feats.shape
+            g = torch.from_numpy(rng.randn(b, rois.shape[1], 14, 14, c)
+                                 .astype(np.float32)).to(cuda_device)
+            for dtype in (torch.float32, torch.bfloat16):
+                got = troi.roi_align_backward(g.to(dtype), rois, feats.shape,
+                                              torch.float32, 1 / 16, 14, 2)
+                want = troi.roi_align_backward_plain(
+                    g.to(dtype), rois, feats.shape, torch.float32, 1 / 16,
+                    14, 2)
+                tol = 1e-5 * float(want.abs().max())
+                assert float((got - want).abs().max()) <= tol, dtype
+            # through the autograd function, in f32
+            want = troi.roi_align_backward_plain(g, rois, feats.shape,
+                                                 torch.float32, 1 / 16, 14, 2)
+            f = feats.clone().requires_grad_(True)
+            troi.roi_align_batched(f, rois, 1 / 16, 14, 2).backward(g)
+            torch.testing.assert_close(f.grad, want, rtol=0,
+                                       atol=1e-5 * float(want.abs().max()))
+    else:
+        images = torch.from_numpy(rng.randint(0, 256, (16, 37, 53, 3))
+                                  .astype(np.uint8)).to(cuda_device)
+        gates = [[(i >> k) & 1 for k in range(4)] for i in range(16)]
+        draws = _augment_draws(rng, gates)
+        got = taug.preprocess_batch(images, draws)
+        params = taug.augment_params(draws.to(cuda_device))
+        want = taug.preprocess_plain(images, params)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

@@ -1,0 +1,325 @@
+"""The adaptation step as a whole against the JAX package on the CPU: one
+step of each flavor (``train_step_cached``, ``train_step`` past burn-up
+with the EMA and the live teacher, ``train_step_cached_two``) from one JAX
+``TrainState``, carried into the port by ``load_train_state``, with JAX's
+random draws injected (``StepDraws``).
+
+The model is the tiny f32 build of ``__graft_entry__._build(tiny=True)``
+(full-width RN50 trunk, a 2-layer 64-wide text tower, 3 classes) on a
+64 x 128 canvas, the recipe foggy.yaml's; each JAX step is compiled once
+per module. Blocky images keep near ties out of top-k and NMS.
+Tolerances: losses rtol 1e-4 (atol 1e-6); every updated tensor (the
+momentum, the parameter and teacher updates, the prototypes) to 1e-4 of
+its largest entry, an update also to the f32 rounding (2 ulp) of the
+parameters it moved; counts and steps equal. The CKG parameters' momentum
+and update to 5e-3, as tests/test_merge_grad_parity.py holds the same
+gradient: its second-order term loses about three digits in f32 (the
+port's own f32 and f64 merge gradients differ by 1.5e-3 on these inputs).
+"""
+
+import dataclasses
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coin_tpu.engine import state as jstate
+from coin_tpu.engine.step_builder import StepHyper as JHyper
+from coin_tpu.engine.step_builder import build_adaptation_steps as jbuild
+from coin_tpu.models.ckg import CKGNet as JCKGNet
+from coin_tpu.solver import build as jsolver
+from coin_tpu.structures import Detections as JDet
+from coin_tpu_torch.config import load_config
+from coin_tpu_torch.convert_from_jax import load_train_state
+from coin_tpu_torch.engine import pipelines as tpipe
+from coin_tpu_torch.engine import step_builder as tsb
+from coin_tpu_torch.models.detector import OpenVocabularyRCNN
+from coin_tpu_torch.structures import Detections
+from tests.test_torch_augment import jax_augment_draws
+from tests.test_torch_models import CANVAS, NUM_CLASSES, tiny_pair
+from tests.test_torch_train_ops import priorities
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+C = NUM_CLASSES
+B = 2
+CAP_ONLINE, CAP_OFFLINE = 8, 20
+BURN_UP = 10
+STEP = {"cached": 3, "live": BURN_UP, "cached_two": BURN_UP + 1}
+REL = 1e-4
+REL_MERGE = 5e-3
+
+
+def _cfg():
+    cfg = load_config(os.path.join(REPO, "configs/coin/GDINO/foggy.yaml"))
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.CLOUD.BURN_UP_STEP = BURN_UP
+    cfg.CLOUD.PROTOTYPE_UPDATE_START = 0
+    cfg.TPU.CAP_C = 8
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def _dets(rng, n_valid, cap, anchor_boxes=None):
+    """Batched detections with confident probs; the first boxes sit on
+    ``anchor_boxes`` (so that online and offline sets pair up)."""
+    xy = rng.uniform(0, 100, (B, cap, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(10, 40, (B, cap, 2))], -1)
+    boxes[..., 1::2] = np.minimum(boxes[..., 1::2], 63.0)
+    if anchor_boxes is not None:
+        k = anchor_boxes.shape[1]
+        boxes[:, :k] = anchor_boxes + rng.uniform(-1.5, 1.5, (B, k, 4))
+    classes = rng.randint(0, C, (B, cap))
+    probs = rng.dirichlet(np.ones(C + 1), (B, cap)) * 0.3
+    probs[np.arange(B)[:, None], np.arange(cap), classes] += 0.7
+    valid = np.arange(cap)[None] < np.asarray(n_valid)[:, None]
+    return dict(boxes=boxes.astype(np.float32),
+                scores=probs[..., :C].max(-1).astype(np.float32),
+                classes=np.where(valid, classes, -1).astype(np.int32),
+                valid=valid, probs=probs.astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jmodel, pcfg, tokens, variables, _ = tiny_pair()
+    cfg = _cfg()
+    rng = np.random.RandomState(4)
+    params, frozen = jstate.partition_params(
+        variables, jstate.default_freeze_predicate(True))
+    mm = JCKGNet(hidden_size=cfg.MODEL.MERGE_DIM, num_classes=C + 1)
+    shapes = jax.eval_shape(mm.init, jax.random.key(0),
+                            jnp.zeros((2, 1024)), jnp.zeros((C + 1, 1024)),
+                            jnp.zeros((C + 1, 1024)), jnp.zeros((2, C + 1)),
+                            jnp.zeros((2, C + 1)))
+    merge_params = jax.tree.map(
+        lambda s: (rng.randn(*s.shape) / np.sqrt(s.shape[0])
+                   ).astype(np.float32), shapes["params"])
+    tx, _ = jsolver.build_optimizer(params, cfg)
+    mtx, _ = jsolver.build_optimizer(merge_params, cfg, overrides={})
+
+    def with_trace(opt_state, tree, scale):
+        """Nonzero momentum and a nonzero update count."""
+        trace = jax.tree.map(lambda p: jnp.asarray(
+            scale * rng.randn(*p.shape), jnp.float32), tree)
+        fields = lambda s: getattr(s, "_fields", ())
+        return tuple(s._replace(trace=trace) if "trace" in fields(s) else
+                     s._replace(count=jnp.asarray(3, jnp.int32))
+                     if "count" in fields(s) else s for s in opt_state)
+
+    text = np.asarray(jmodel.apply(variables, tokens,
+                                   method="text_features"))
+    protos = [text + 0.05 * rng.randn(*text.shape).astype(np.float32)
+              for _ in range(3)]
+    teacher = jax.tree.map(lambda p: p + jnp.asarray(
+        0.01 * rng.randn(*p.shape), jnp.float32), params)
+    base = jstate.TrainState(
+        params=params, frozen=frozen,
+        opt_state=with_trace(tx.init(params), params, 1e-3), step=None,
+        rng=jax.random.key(21),
+        prototypes=jstate.Prototypes(*map(jnp.asarray, protos)),
+        teacher_params=teacher, merge_params=merge_params,
+        merge_opt_state=with_trace(mtx.init(merge_params), merge_params,
+                                   1e-3))
+    base = jax.tree.map(jnp.asarray, base)
+    hyper = JHyper(burn_up=BURN_UP, proto_start=0, cap_c=8,
+                   loss_weights=tpipe.loss_weights_from(cfg))
+    steps = dict(zip(("live", "cached", "cached_two"), jbuild(
+        jmodel, mm, tx, mtx, tokens, pcfg, pcfg, hyper,
+        with_cached_two=True)))
+
+    cells = rng.randint(0, 256, (B, CANVAS[0] // 16, CANVAS[1] // 16, 3))
+    images = cells.repeat(16, 1).repeat(16, 2).astype(np.uint8)
+    hw = np.asarray([CANVAS, (CANVAS[0], 100)], np.float32)
+    offline = _dets(rng, [12, 15], CAP_OFFLINE)
+    online_rcnn = _dets(rng, [6, 5], CAP_ONLINE, offline["boxes"][:, :4])
+    online_rpn = _dets(rng, [7, 4], CAP_ONLINE, offline["boxes"][:, 2:5])
+    online_rcnn["classes"][:, 2:4] = offline["classes"][:, 2:4]  # A pairs
+    inputs = dict(images=images, hw=hw, online_rcnn=online_rcnn,
+                  online_rpn=online_rpn, offline=offline)
+    return types.SimpleNamespace(cfg=cfg, pcfg=pcfg, tokens=tokens,
+                                 base=base, steps=steps, hyper=hyper,
+                                 inputs=inputs)
+
+
+def _port_cfg(pcfg):
+    fields = {f.name for f in dataclasses.fields(tpipe.PipelineConfig)}
+    return tpipe.PipelineConfig(**{k: v for k, v in
+                                   dataclasses.asdict(pcfg).items()
+                                   if k in fields})
+
+
+def _draws(rng_state, pcfg, n_offline):
+    """The values the JAX step draws from ``state.rng``."""
+    _, rng_aug, rng_fwd = jax.random.split(rng_state, 3)
+    rng_rpn, rng_roi = jax.random.split(rng_fwd)
+    anchors = (CANVAS[0] // 16) * (CANVAS[1] // 16) * 15
+    cand = tsb.num_candidates(pcfg, CAP_ONLINE, n_offline)
+    return tsb.StepDraws(
+        augment=torch.from_numpy(jax_augment_draws(rng_aug, B)),
+        rpn=torch.from_numpy(np.stack([priorities(k, anchors) for k in
+                                       jax.random.split(rng_rpn, B)])),
+        roi=torch.from_numpy(np.stack([priorities(k, cand) for k in
+                                       jax.random.split(rng_roi, B)])))
+
+
+_RUNS = {}
+
+
+def run(setup, flavor):
+    """(JAX state before, JAX state after, JAX losses, port state after,
+    port losses) of one step of ``flavor``, computed once per module."""
+    if flavor in _RUNS:
+        return _RUNS[flavor]
+    s = setup
+    j0 = s.base.replace(step=jnp.asarray(STEP[flavor]))
+    inp = s.inputs
+    jd = lambda d: JDet(**{k: jnp.asarray(v) for k, v in d.items()})
+    td = lambda d: Detections(**{k: torch.from_numpy(v)
+                                 for k, v in d.items()})
+    args = [jnp.asarray(inp["images"]), jnp.asarray(inp["hw"]),
+            jd(inp["online_rcnn"]), jd(inp["online_rpn"])]
+    if flavor != "live":
+        args.append(jd(inp["offline"]))
+    j1, jlosses = s.steps[flavor](j0, *args)
+
+    tokens = torch.from_numpy(np.asarray(s.tokens)).long()
+    model = OpenVocabularyRCNN(num_classes=C, text_layers=2, text_width=64,
+                               text_heads=2)
+    state = tsb.init_train_state(s.cfg, model, tokens, seed=0)
+    load_train_state(state, jax.device_get(dataclasses.replace(
+        j0, rng=None)))
+    pcfg = _port_cfg(s.pcfg)
+    steps = dict(zip(("live", "cached", "cached_two"),
+                     tsb.build_adaptation_steps(
+                         tokens, pcfg, pcfg,
+                         tsb.StepHyper(**dataclasses.asdict(s.hyper)))))
+    targs = [torch.from_numpy(inp["images"]), torch.from_numpy(inp["hw"]),
+             td(inp["online_rcnn"]), td(inp["online_rpn"])]
+    if flavor != "live":
+        targs.append(td(inp["offline"]))
+    n_off = s.pcfg.test_topk if flavor == "live" else CAP_OFFLINE
+    state, tlosses = steps[flavor](state, *targs,
+                                   draws=_draws(j0.rng, s.pcfg, n_off))
+    _RUNS[flavor] = (j0, j1, jlosses, state, tlosses)
+    return _RUNS[flavor]
+
+
+def _flat(tree, prefix=""):
+    """{dotted port name: numpy array in the port's layout}."""
+    from coin_tpu_torch.convert_from_jax import from_jax_variables
+    return {k: v.numpy() for k, v in from_jax_variables(
+        jax.device_get(tree)).items()}
+
+
+def _close(got, want, what, base=None, rel=REL):
+    """max |got − want| ≤ rel · max |want|; an update (new − ``base``) may
+    also differ by the f32 rounding of the parameters it was taken from."""
+    scale = max(float(np.abs(want).max()), 1e-12)
+    ulps = 0.0 if base is None else 2 * float(np.spacing(
+        np.abs(base).max().astype(np.float32)))
+    err = float(np.abs(np.asarray(got) - want).max())
+    assert err <= rel * scale + ulps, f"{what}: max err {err:.3g} vs max " \
+        f"{scale:.3g}"
+
+
+def _trace(opt_state):
+    return next(s.trace for s in opt_state
+                if "trace" in getattr(s, "_fields", ()))
+
+
+FLAVORS = ["cached", "live", "cached_two"]
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_step_losses_match_jax(setup, flavor):
+    _, _, jl, state, tl = run(setup, flavor)
+    assert set(tl) == set(jl)
+    for k in jl:
+        np.testing.assert_allclose(float(tl[k]), float(jl[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    assert state.step == STEP[flavor] + 1
+    assert float(jl["loss_cls"]) > 0 and float(jl["loss_rpn_cls"]) > 0
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_step_student_update_and_momentum_match_jax(setup, flavor):
+    j0, j1, _, state, _ = run(setup, flavor)
+    p0, p1 = _flat(j0.params), _flat(j1.params)
+    m1 = _flat(_trace(j1.opt_state))
+    got = dict(state.model.named_parameters())
+    buffers = state.optimizer.momentum_buffers()
+    assert set(buffers) == set(p1)
+    for name in p1:
+        _close(got[name].detach().numpy() - p0[name], p1[name] - p0[name],
+               f"update of {name}", base=p0[name])
+        _close(buffers[name].numpy(), m1[name], f"momentum of {name}")
+    assert state.optimizer.count == 4
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_step_teacher_prototypes_and_merge_match_jax(setup, flavor):
+    j0, j1, _, state, _ = run(setup, flavor)
+    t0, t1 = _flat(j0.teacher_params), _flat(j1.teacher_params)
+    got = dict(state.teacher.named_parameters())
+    moved = 0
+    for name in t1:
+        d = t1[name] - t0[name]
+        moved += int(np.abs(d).max() > 0)
+        _close(got[name].numpy() - t0[name], d, f"teacher {name}",
+               base=t0[name])
+    assert (moved > 0) == (flavor != "cached")
+    for f in ("proto", "b_online", "b_offline"):
+        _close(getattr(state.prototypes, f).numpy(),
+               np.asarray(getattr(j1.prototypes, f)), f"prototype {f}")
+    mp0, mp1 = _flat(j0.merge_params), _flat(j1.merge_params)
+    mm1 = _flat(_trace(j1.merge_opt_state))
+    got = dict(state.merge_model.named_parameters())
+    buffers = state.merge_optimizer.momentum_buffers()
+    for name in mp1:
+        _close(got[name].detach().numpy() - mp0[name],
+               mp1[name] - mp0[name], f"merge update of {name}",
+               base=mp0[name], rel=REL_MERGE)
+        _close(buffers[name].numpy(), mm1[name], f"merge momentum {name}",
+               rel=REL_MERGE)
+    assert state.merge_optimizer.count == 4
+
+
+def test_load_train_state_carries_every_field(setup):
+    """The converted state equals the JAX one before any step: student
+    and frozen leaves, momentum and update count, teacher, CKG parameters
+    and momentum, prototypes and the step."""
+    j0 = setup.base.replace(step=jnp.asarray(7))
+    tokens = torch.from_numpy(np.asarray(setup.tokens)).long()
+    model = OpenVocabularyRCNN(num_classes=C, text_layers=2, text_width=64,
+                               text_heads=2)
+    state = tsb.init_train_state(setup.cfg, model, tokens, seed=0)
+    load_train_state(state, jax.device_get(dataclasses.replace(j0, rng=None)))
+    merged = jstate.merge_params(j0.params, j0.frozen)
+    for module, tree in ((state.model, merged),
+                         (state.teacher, jstate.merge_params(
+                             j0.teacher_params, j0.frozen)),
+                         (state.merge_model, j0.merge_params)):
+        want = _flat(tree)
+        got = module.state_dict()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    for opt, jopt in ((state.optimizer, j0.opt_state),
+                      (state.merge_optimizer, j0.merge_opt_state)):
+        want = _flat(_trace(jopt))
+        got = opt.momentum_buffers()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+        assert opt.count == 3
+    for f in ("proto", "b_online", "b_offline"):
+        np.testing.assert_array_equal(getattr(state.prototypes, f).numpy(),
+                                      np.asarray(getattr(j0.prototypes, f)))
+    assert state.step == 7
+    frozen = {n for n, p in state.model.named_parameters()
+              if not p.requires_grad}
+    assert frozen and set(_flat(j0.params)).isdisjoint(frozen)

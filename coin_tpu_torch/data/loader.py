@@ -1,13 +1,16 @@
-"""Test loader: host decode/resize onto a static padded canvas (copy of
-coin_tpu/data/loader.py's ``Batch``, ``_BaseLoader`` and ``TestLoader``
-with the PIL decode path only; the native libjpeg decoder and the train
-loader belong to later slices).
+"""Data loaders: host decode/resize onto a static padded canvas (copy of
+coin_tpu/data/loader.py's ``Batch``, ``_BaseLoader``, ``TestLoader`` and
+``TrainLoader`` with the PIL decode path only; the native libjpeg decoder
+is ROADMAP item 8b). Everything photometric happens on the device
+(``data/augment.py``).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import queue as queue_mod
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -29,12 +32,17 @@ class Batch:
     image_hw: np.ndarray        # (B, 2) valid (h, w) on the canvas
     orig_hw: np.ndarray         # (B, 2) original image size
     scale: np.ndarray           # (B,) resize factor orig→canvas
+    flip: np.ndarray            # (B,) bool (train only)
     image_ids: List[str]
     indices: np.ndarray         # (B,) dataset indices
     gt_boxes: np.ndarray        # (B, G, 4) canvas coords
     gt_classes: np.ndarray      # (B, G)
     gt_valid: np.ndarray        # (B, G)
     gt_difficult: np.ndarray    # (B, G)
+    # cached cloud views attached by a ResultStore-backed TrainLoader:
+    # {"RCNN": {boxes, classes, scores, probs, valid}, "RPN": {...}}, each
+    # batched (B, cap, ...) in canvas coordinates
+    online: Optional[dict] = None
 
 
 def _resize_factor(h: int, w: int, min_size: int, max_size: int) -> float:
@@ -44,12 +52,9 @@ def _resize_factor(h: int, w: int, min_size: int, max_size: int) -> float:
     return scale
 
 
-class TestLoader:
-    """Sequential fixed-batch loader (pads the tail by repeating the last
-    index; consumers mask with ``n_valid``)."""
-
-    def __init__(self, dataset_name: str, root: str, batch_size: int = 8,
-                 min_size: int = 600, max_size: int = 1333,
+class _BaseLoader:
+    def __init__(self, dataset_name: str, root: str, min_size: int = 600,
+                 max_size: int = 1333,
                  canvas_hw: Optional[Tuple[int, int]] = None,
                  gt_capacity: int = 64):
         spec = get_dataset(dataset_name)
@@ -57,7 +62,6 @@ class TestLoader:
         self.records = load_voc_instances(
             os.path.join(root, spec.dirname), spec.split, spec.class_names,
             spec.image_ext)
-        self.batch_size = batch_size
         self.min_size = min_size
         self.max_size = max_size
         self.gt_capacity = gt_capacity
@@ -98,7 +102,8 @@ class TestLoader:
         canvas[:nh, :nw] = np.asarray(im, np.uint8)
         return canvas, scale, (nh, nw)
 
-    def pack_batch(self, indices: Sequence[int]) -> Batch:
+    def pack_batch(self, indices: Sequence[int],
+                   flips: Optional[np.ndarray] = None) -> Batch:
         b, g = len(indices), self.gt_capacity
         images = np.zeros((b, *self.canvas_hw, 3), np.uint8)
         image_hw = np.zeros((b, 2), np.float32)
@@ -108,6 +113,8 @@ class TestLoader:
         gt_classes = np.full((b, g), -1, np.int32)
         gt_valid = np.zeros((b, g), bool)
         gt_diff = np.zeros((b, g), bool)
+        flips = (np.zeros(b, bool) if flips is None
+                 else np.asarray(flips, bool))
         with ThreadPoolExecutor(DECODE_THREADS) as pool:
             loaded = list(pool.map(
                 lambda i: self.load_image(self.records[i]), indices))
@@ -116,19 +123,39 @@ class TestLoader:
             rec = self.records[i]
             img, scale, (nh, nw) = loaded[j]
             images[j] = img
+            if flips[j]:
+                # flip the VALID region only (the reference flips before
+                # padding to the canvas), and the boxes around nw
+                images[j, :nh, :nw] = images[j, :nh, :nw][:, ::-1]
             image_hw[j] = (nh, nw)
             orig_hw[j] = (rec["height"], rec["width"])
             scales[j] = scale
             ids.append(rec["image_id"])
             n = min(len(rec["boxes"]), g)
             if n:
-                gt_boxes[j, :n] = rec["boxes"][:n] * scale
+                boxes = rec["boxes"][:n] * scale
+                if flips[j]:
+                    flipped = boxes.copy()
+                    flipped[:, 0] = nw - boxes[:, 2]
+                    flipped[:, 2] = nw - boxes[:, 0]
+                    boxes = flipped
+                gt_boxes[j, :n] = boxes
                 gt_classes[j, :n] = rec["classes"][:n]
                 gt_valid[j, :n] = True
                 gt_diff[j, :n] = rec["difficult"][:n]
-        return Batch(images, image_hw, orig_hw, scales, ids,
+        return Batch(images, image_hw, orig_hw, scales, flips, ids,
                      np.asarray(indices), gt_boxes, gt_classes, gt_valid,
                      gt_diff)
+
+
+class TestLoader(_BaseLoader):
+    """Sequential fixed-batch loader (pads the tail by repeating the last
+    index; consumers mask with ``n_valid``)."""
+
+    def __init__(self, dataset_name: str, root: str, batch_size: int = 8,
+                 **kw):
+        super().__init__(dataset_name, root, **kw)
+        self.batch_size = batch_size
 
     def __len__(self):
         return -(-len(self.records) // self.batch_size)
@@ -141,3 +168,75 @@ class TestLoader:
             while len(idx) < self.batch_size:
                 idx.append(idx[-1])
             yield self.pack_batch(idx), n_valid
+
+
+class TrainLoader(_BaseLoader):
+    """Infinite shuffled loader with random horizontal flips and a
+    background prefetch thread. The order and the flips come from
+    ``np.random.RandomState(seed)`` in the JAX loader's sequence of draws,
+    so both packages see the same batches for one seed."""
+
+    def __init__(self, dataset_name: str, root: str, batch_size: int = 3,
+                 seed: int = 2024, flip: bool = True, prefetch: int = 2,
+                 store=None, store_cap: int = 128, **kw):
+        super().__init__(dataset_name, root, **kw)
+        self.batch_size = batch_size
+        self.rng = np.random.RandomState(seed)
+        self.flip = flip
+        self.prefetch = prefetch
+        self.store = store
+        self.store_cap = store_cap
+
+    def _attach_store(self, batch: Batch) -> Batch:
+        """Pack the cached cloud results of each image, rescaled and
+        flipped to the canvas."""
+        views = {}
+        for view in ("RCNN", "RPN"):
+            per_img = [self.store.pack_view(
+                batch.image_ids[j], view, self.store_cap,
+                float(batch.scale[j]), bool(batch.flip[j]),
+                float(batch.image_hw[j][1]))
+                for j in range(len(batch.image_ids))]
+            views[view] = {k: np.stack([p[k] for p in per_img])
+                           for k in per_img[0]}
+        batch.online = views
+        return batch
+
+    def _gen(self):
+        n = len(self.records)
+        order = self.rng.permutation(n)
+        pos = 0
+        while True:
+            # the JAX loader draws its (here single) aspect group first
+            self.rng.choice(1, p=[1.0])
+            if pos + self.batch_size > n:
+                order = self.rng.permutation(n)
+                pos = 0
+                if n < self.batch_size:
+                    # tiny dataset: sample with replacement
+                    idx = self.rng.choice(n, self.batch_size)
+                else:
+                    idx = order[:self.batch_size]
+                    pos = self.batch_size
+            else:
+                idx = order[pos:pos + self.batch_size]
+                pos += self.batch_size
+            flips = (self.rng.rand(len(idx)) < 0.5) if self.flip \
+                else np.zeros(len(idx), bool)
+            batch = self.pack_batch(idx, flips)
+            if self.store is not None:
+                batch = self._attach_store(batch)
+            yield batch
+
+    def __iter__(self):
+        q = queue_mod.Queue(maxsize=self.prefetch)
+        gen = self._gen()
+
+        def worker():
+            for item in gen:
+                q.put(item)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            yield q.get()

@@ -1,13 +1,22 @@
-"""Synthetic inputs for runs without CLIP assets or a cloud store: a copy
-of ``simple_class_tokens`` (coin_tpu/engine/common.py:34-55) and
-``synthetic_detections``."""
+"""Shared engine utilities (counterpart of coin_tpu/engine/common.py):
+``simple_class_tokens`` (:34-55), ``lr_value`` and ``MetricLogger``
+(:65-147), and ``synthetic_detections`` for runs without a cloud store."""
 
 from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from collections import defaultdict
+from typing import Dict
 
 import numpy as np
 import torch
 
 from coin_tpu_torch.structures import Detections
+
+logger = logging.getLogger(__name__)
 
 
 def simple_class_tokens(num_classes_with_bg: int, context_length: int = 77,
@@ -56,3 +65,75 @@ def synthetic_detections(generator: torch.Generator, batch: int, cap: int,
     return Detections(boxes=boxes, scores=probs[..., :-1].amax(-1),
                       classes=torch.where(valid, classes, -1).int(),
                       valid=valid, probs=probs)
+
+
+def lr_value(schedule, step: int) -> float:
+    """The learning rate of ``step`` for logging (the port's schedules are
+    host functions already)."""
+    return float(schedule(step))
+
+
+class MetricLogger:
+    """Console + metrics.json (+ optional TensorBoard) writer. Values may be
+    device scalars (the step's losses): they are buffered as they are and
+    read back only at a flush, every ``period`` steps, so the loop does not
+    wait for the card at every step."""
+
+    def __init__(self, output_dir: str, max_iter: int, period: int = 20,
+                 tensorboard: bool = False):
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, "metrics.json")
+        self.period = period
+        self.max_iter = max_iter
+        self._window = defaultdict(list)
+        self._t0 = time.perf_counter()
+        self._last_step = None    # last flushed step (iter-time base)
+        self._last_logged = None  # last step passed to log()
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir=output_dir)
+            except Exception as e:  # keep training alive without TB
+                logger.warning("TensorBoard writer unavailable: %s", e)
+
+    def _means(self) -> Dict[str, float]:
+        means = {k: float(np.mean([float(v) for v in vs]))
+                 for k, vs in self._window.items()}
+        self._window.clear()
+        return means
+
+    def log(self, step: int, metrics: Dict[str, float]):
+        for k, v in metrics.items():
+            self._window[k].append(v)
+        self._last_logged = step
+        if step % self.period != 0:
+            return
+        means = self._means()
+        now = time.perf_counter()
+        if self._last_step is not None:
+            it_time = (now - self._t0) / max(step - self._last_step, 1)
+            means["iter_time"] = it_time
+            means["eta_min"] = it_time * (self.max_iter - step) / 60.0
+        self._t0, self._last_step = now, step
+        loss_str = "  ".join(f"{k}: {v:.4g}" for k, v in sorted(
+            means.items()) if k.startswith("loss"))
+        logger.info("iter %d  %s  it/s %.2f", step, loss_str,
+                    1.0 / means["iter_time"] if means.get("iter_time")
+                    else 0.0)
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"iteration": step, **means}) + "\n")
+        if self._tb is not None:
+            for k, v in means.items():
+                self._tb.add_scalar(k, v, step)
+
+    def close(self):
+        """Flush the residual window, stamped with the last logged step."""
+        if self._window:
+            step = self._last_logged if self._last_logged is not None else 0
+            with open(self.path, "a") as f:
+                f.write(json.dumps({"iteration": step, **self._means()})
+                        + "\n")
+        if self._tb is not None:
+            self._tb.flush()
+            self._tb.close()

@@ -95,20 +95,40 @@ def loss_weights_from(cfg) -> Dict[str, float]:
     }
 
 
+def int8_train_mode(cfg) -> int:
+    """``quant_train_res5`` from the TPU.INT8_TRAIN* knobs
+    (coin_tpu/engine/base.py:142-150): 0 off; 4 int8 forward only
+    (INT8_TRAIN_DGRAD false); 3 per-sample scales (INT8_TRAIN_SCALE
+    sample); 1 full int8 (INT8_TRAIN_WGRAD true); 2 exact wgrad."""
+    g = cfg.get_path
+    if not g("TPU.INT8_TRAIN", False):
+        return 0
+    if not g("TPU.INT8_TRAIN_DGRAD", True):
+        return 4
+    if g("TPU.INT8_TRAIN_SCALE", "tensor") == "sample":
+        return 3
+    return 1 if g("TPU.INT8_TRAIN_WGRAD", True) else 2
+
+
 def build_detector(cfg, num_classes: int, device="cuda"
                    ) -> OpenVocabularyRCNN:
-    """The detector a config describes, on ``device``, in eval mode.
+    """The detector a config describes, on ``device``, in eval mode, as
+    the JAX package's trainers build it: its res5 trains in int8 under
+    ``TPU.INT8_TRAIN`` (:func:`int8_train_mode`). ``TPU.INT8_INFERENCE``
+    is the evaluator's (``DetectorTrainerBase.evaluate`` takes the int8
+    clone).
 
     Raises for the configurations whose code waits for a later slice:
-    attention pooling, per-class box regression and int8 serving convs.
+    attention pooling, per-class box regression and the int8 RoIAlign.
     """
     device = resolve_device(device)
     if cfg.MODEL.ROI_HEADS.POOLING_TYPE != "meanpool":
         raise NotImplementedError("POOLING_TYPE attnpool is not ported yet")
     if not cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG:
         raise NotImplementedError("per-class box regression is not ported")
-    if cfg.get_path("TPU.INT8_INFERENCE", False):
-        raise NotImplementedError("TPU.INT8_INFERENCE is not ported yet")
+    if cfg.get_path("TPU.INT8_ROI", False):
+        raise NotImplementedError("TPU.INT8_ROI (the int8 RoIAlign, K5) is "
+                                  "not ported yet")
     model = OpenVocabularyRCNN(
         num_classes=num_classes,
         depth=cfg.MODEL.RESNETS.DEPTH,
@@ -116,7 +136,8 @@ def build_detector(cfg, num_classes: int, device="cuda"
         text_layers=cfg.get_path("TPU.TEXT_LAYERS", 12),
         text_width=cfg.get_path("TPU.TEXT_WIDTH", 512),
         text_heads=cfg.get_path("TPU.TEXT_HEADS", 8),
-        compute_dtype=compute_dtype(cfg))
+        compute_dtype=compute_dtype(cfg),
+        quant_train_res5=int8_train_mode(cfg))
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

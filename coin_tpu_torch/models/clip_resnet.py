@@ -8,6 +8,13 @@ Public tensors are NHWC as in the JAX package; the convolutions run on
 channels_last NCHW views of them, which is the same memory. Module and
 parameter names follow the JAX parameter tree, so
 ``coin_tpu_torch.convert_from_jax`` maps it mechanically.
+
+Every conv is a :class:`QConv2d`, whose two switches are ``_conv``'s
+(clip_resnet.py:120-143): ``qt`` 1-4 picks the int8 training conv
+(``Int8TrainConv``, K2; res5 under ``TPU.INT8_TRAIN``) and wins over
+``quant``, the int8 serving conv (``Int8Conv``, K2s; backbone and res5 under
+``quant_convs``). Both quantise the f32 master weight, as flax hands it to
+them, never its bf16 cast.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from coin_tpu_torch.models.layers import Conv2d
+from coin_tpu_torch.ops.qconv import int8_conv, int8_train_conv
 
 # channel/stride tables per depth (coin_tpu/models/clip_resnet.py:27-34)
 DEPTH_CFG = {
@@ -27,11 +35,37 @@ DEPTH_CFG = {
 }
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1,
-         bias: bool = False) -> Conv2d:
+class QConv2d(Conv2d):
+    """A bias-free conv with flax's symmetric padding k // 2 and the int8
+    switches of ``_conv``. Off, it is the plain conv in the compute dtype;
+    ``qt`` (0 off, 1 full int8, 2 exact wgrad, 3 per-sample scales with an
+    exact wgrad, 4 per-sample int8 forward only) selects ``Int8TrainConv``,
+    else ``quant`` selects ``Int8Conv``; either returns the compute
+    dtype."""
+    quant: bool = False
+    qt: int = 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+        if not (self.qt or self.quant):
+            return super().forward(x)
+        dtype = self.compute_dtype or x.dtype
+        x = x.to(dtype).permute(0, 2, 3, 1)
+        stride = self.stride[0]
+        if self.qt:
+            qt = int(self.qt)
+            out = int8_train_conv(x, self.weight, stride,
+                                  wgrad_int8=qt == 1,
+                                  per_sample=qt in (3, 4),
+                                  dgrad_int8=qt != 4)
+        else:
+            out = int8_conv(x, self.weight, stride)
+        return out.to(dtype).permute(0, 3, 1, 2)
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1) -> QConv2d:
     """Conv with flax's explicit symmetric padding k // 2 (stride-2 stem
     conv included); f32 weights, cast to the compute dtype per call."""
-    return Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias)
+    return QConv2d(cin, cout, k, stride, padding=k // 2, bias=False)
 
 
 class FrozenBN(nn.Module):

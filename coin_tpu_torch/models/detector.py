@@ -12,11 +12,14 @@ and the box predictor compute in f32, as the JAX package does.
 
 from __future__ import annotations
 
+import copy
+import itertools
+
 import torch
 from torch import nn
 
 from coin_tpu_torch.models.clip_resnet import (DEPTH_CFG, CLIPResNetBackbone,
-                                               Res5Head)
+                                               QConv2d, Res5Head)
 from coin_tpu_torch.models.layers import Conv2d
 from coin_tpu_torch.models.roi_heads import BoxPredictor
 from coin_tpu_torch.models.rpn import RPNHead
@@ -34,7 +37,8 @@ class OpenVocabularyRCNN(nn.Module):
                  num_anchors: int = 15, add_prompt_num: int = 4,
                  prompt_tmp_len: int = 4, text_layers: int = 12,
                  text_width: int = 512, text_heads: int = 8,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quant_convs: bool = False, quant_train_res5: int = 0):
         super().__init__()
         cfg = DEPTH_CFG[depth]
         self.num_classes = num_classes
@@ -56,6 +60,32 @@ class OpenVocabularyRCNN(nn.Module):
                 for lin in (m.attn.query, m.attn.key, m.attn.value,
                             m.attn.out, m.mlp_c_fc, m.mlp_c_proj):
                     lin.compute_dtype = compute_dtype
+        self.set_quant(quant_convs, quant_train_res5)
+
+    def set_quant(self, quant_convs: bool, quant_train_res5: int) -> None:
+        """The int8 switches of coin_tpu/models/detector.py:52-62:
+        ``quant_convs`` makes every backbone and res5 conv the int8 serving
+        conv (K2s); ``quant_train_res5`` (0-4, ``_conv``'s ``qt``) makes the
+        res5 convs the int8 training conv (K2), which wins over
+        ``quant_convs`` there."""
+        self.quant_convs = bool(quant_convs)
+        self.quant_train_res5 = int(quant_train_res5)
+        for m in self.backbone.modules():
+            if isinstance(m, QConv2d):
+                m.quant = self.quant_convs
+        for m in self.res5.modules():
+            if isinstance(m, QConv2d):
+                m.quant, m.qt = self.quant_convs, self.quant_train_res5
+
+    def clone(self, quant_convs: bool) -> "OpenVocabularyRCNN":
+        """flax's ``model.clone(quant_convs=...)``: the same detector with
+        other int8 switches, sharing every parameter and buffer with this
+        one (no copy; an update of either is seen by both)."""
+        memo = {id(t): t for t in itertools.chain(self.parameters(),
+                                                  self.buffers())}
+        twin = copy.deepcopy(self, memo)
+        twin.set_quant(quant_convs, self.quant_train_res5)
+        return twin
 
     @torch.no_grad()
     def random_init(self, seed: int) -> "OpenVocabularyRCNN":

@@ -10,9 +10,10 @@ excluded; the text features are computed once beforehand, as
 ``evaluate_detector`` does).
 
 ``--path train``: ``--iters`` calls of ``train_step_cached`` of
-configs/coin/GDINO/foggy.yaml at full width (bf16, batch 3 on the
-608 x 1216 canvas, 128 synthetic cloud boxes per image, the teacher's own
-predictions as the cached ones), with the optimizers past warmup.
+configs/coin/GDINO/foggy_fast.yaml at full width (bf16 with the int8 res5
+of ``TPU.INT8_TRAIN``, batch 3 on the 608 x 1216 canvas, 128 synthetic
+cloud boxes per image, the teacher's own predictions at its 512-proposal
+budget as the cached ones), with the optimizers past warmup.
 
 Prints the device time per call by kernel group and the top kernels, and
 the device's busy share of the window: the kernels' summed time over the
@@ -49,7 +50,9 @@ GROUPS = (
     ("port kernels", ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
                       "nms_mask_kernel", "nms_sweep_kernel",
                       "normalize_kernel", "gray_mean_kernel",
-                      "vertical_kernel", "horizontal_kernel")),
+                      "vertical_kernel", "horizontal_kernel",
+                      "qconv_kernel", "wgrad_kernel", "finish_kernel",
+                      "absmax_kernel", "quantize_kernel", "weight_kernel")),
     ("elementwise", ("elementwise", "vectorized")),
     ("reduction", ("reduce",)),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
@@ -94,13 +97,16 @@ def eval_call(device):
 
 
 def train_call(device):
-    """One ``train_step_cached`` of foggy.yaml at full width, as a
+    """One ``train_step_cached`` of foggy_fast.yaml at full width, as a
     closure."""
     import dataclasses
     from coin_tpu_torch.engine import step_builder as sb
-    cfg = load_config(os.path.join(CONFIGS, "foggy.yaml"))
+    cfg = load_config(os.path.join(CONFIGS, "foggy_fast.yaml"))
     num_classes = len(CITYSCAPES_CLASSES)
     pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    teacher_pcfg = dataclasses.replace(
+        pcfg, pre_nms_topk_test=cfg.TPU.TEACHER_PRE_NMS_TOPK,
+        post_nms_topk_test=cfg.TPU.TEACHER_POST_NMS_TOPK)
     model = pipelines.build_detector(cfg, num_classes, device)
     model.random_init(SEED)
     tokens = torch.as_tensor(simple_class_tokens(num_classes + 1),
@@ -110,7 +116,8 @@ def train_call(device):
         cfg.SOLVER.WARMUP_ITERS
     hyper = dataclasses.replace(sb.hyper_from_cfg(cfg), proto_start=0,
                                 loss_weights=pipelines.loss_weights_from(cfg))
-    _, cached, _ = sb.build_adaptation_steps(tokens, pcfg, pcfg, hyper)
+    _, cached, _ = sb.build_adaptation_steps(tokens, pcfg, teacher_pcfg,
+                                             hyper)
     gen = torch.Generator().manual_seed(SEED)
     b, (h, w) = cfg.SOLVER.IMG_PER_BATCH_UNLABEL, cfg.TPU.IMAGE_HW
     images_u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen,
@@ -123,7 +130,7 @@ def train_call(device):
     with torch.inference_mode():
         offline = pipelines.inference(state.teacher,
                                       normalize_batch(images_u8), image_hw,
-                                      tokens, pcfg)
+                                      tokens, teacher_pcfg)
 
     def call():
         return cached(state, images_u8, image_hw, *online, offline)
@@ -163,7 +170,8 @@ def main() -> int:
     wall_ms, kernels = profile_calls(args.path, args.iters)
     busy = sum(ms for ms, _ in kernels.values())
     what = {"eval": "one eval batch (4 images, bf16)",
-            "train": "one train_step_cached (3 images, bf16)"}[args.path]
+            "train": "one train_step_cached (3 images, bf16, int8 "
+                     "res5)"}[args.path]
     print(f"{torch.cuda.get_device_name(0)}: {what} {wall_ms:.3f} ms wall, "
           f"{busy:.3f} ms of kernels: device busy "
           f"{100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f}"

@@ -10,7 +10,10 @@ Tolerances: RoIAlign 1e-5 in f32 (the same arithmetic summed in another
 order), NMS keep masks equal, normalisation 1e-6; the RoIAlign backward
 (K1b) 1e-5 of the largest |d features| in f32 (its atomics add in no fixed
 order); the strong and weak views (K4) 1e-5 (the canvas mean sums in
-another order).
+another order); the int8 convolutions (K2, K2s) and their quantisation bit
+for bit: the same s8 values and scales (a NaN input gives a NaN scale and
+s8 zeros on both), the same s32 sums (wrapping past 2**31), the same f32
+rescale.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 
 from coin_tpu_torch.data import augment as taug
 from coin_tpu_torch.ops import nms as tnms
+from coin_tpu_torch.ops import qconv as tq
 from coin_tpu_torch.ops import roi_align as troi
 
 
@@ -139,3 +143,116 @@ def test_training_kernel_matches_plain_version_on_card(cuda_device, which):
         want = taug.preprocess_plain(images, params)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _s8(rng, shape, dev, lo=-127, hi=128):
+    return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int8)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["quantize", "quantize_nan", "qconv",
+                                   "qconv_wgrad"])
+def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
+    from coin_tpu_torch.kernels import qconv as kq
+    rng = np.random.RandomState(2)
+    dev = cuda_device
+
+    def same(a, b):                       # NaN scales count as equal
+        return (torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    if which == "quantize_nan":
+        # a NaN makes its segment's scale NaN and its s8 values 0, as JAX
+        for shape in ((5, 6, 6, 64), (3, 5, 7, 3)):
+            x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            x[1, 2, 3, 1] = float("nan")
+            for dtype in (torch.float32, torch.bfloat16):
+                for per_sample in (False, True):
+                    xd = x.to(dev, dtype)
+                    q, s = kq.quantize_cuda(xd, per_sample)
+                    wq, ws = tq.quantize_plain(xd, per_sample)
+                    assert torch.equal(q, wq) and same(s, ws)
+                    assert int(s.isnan().sum()) == 1 and not q[1].any()
+        w = torch.from_numpy(rng.randn(24, 36, 3, 3).astype(np.float32))
+        w[5, 7, 1, 2] = float("nan")
+        for per_input in (False, True):
+            got = kq.quantize_weight_cuda(w.to(dev), per_input)
+            want = tq.quantize_weight_plain(w.to(dev), per_input)
+            assert torch.equal(got[0], want[0]) and same(got[1], want[1])
+            assert int(got[1].isnan().sum()) == 1
+    elif which == "quantize":
+        # vector path (sizes a multiple of 8) and the scalar one (odd)
+        for shape in ((5, 6, 6, 64), (3, 5, 7, 3)):
+            x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            x[1] *= 1e-3
+            for dtype in (torch.float32, torch.bfloat16):
+                for per_sample in (False, True):
+                    xd = x.to(dev, dtype)
+                    q, s = kq.quantize_cuda(xd, per_sample)
+                    wq, ws = tq.quantize_plain(xd, per_sample)
+                    assert torch.equal(q, wq) and torch.equal(s, ws)
+        for o, i, k in ((8, 16, 3), (40, 3, 3), (24, 36, 1)):
+            w = torch.from_numpy(rng.randn(o, i, k, k).astype(np.float32))
+            for per_input in (False, True):
+                got = kq.quantize_weight_cuda(w.to(dev), per_input)
+                want = tq.quantize_weight_plain(w.to(dev), per_input)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+    elif which == "qconv":
+        # (N, H, W, C, O, k, stride): res5-like, ragged tiles, the stem
+        for n, h, w, c, o, k, st in ((3, 14, 14, 64, 200, 3, 1),
+                                     (2, 7, 9, 32, 48, 1, 1),
+                                     (2, 19, 23, 3, 32, 3, 2),
+                                     (1, 12, 12, 48, 136, 3, 2)):
+            xq = _s8(rng, (n, h, w, c), dev)
+            wq = _s8(rng, (o, k, k, c), dev)
+            cs = torch.from_numpy(rng.uniform(1e-3, 1e-2, o)
+                                  .astype(np.float32)).to(dev)
+            for rs in (torch.tensor([0.02], device=dev),
+                       torch.from_numpy(rng.uniform(1e-3, 1e-1, n)
+                                        .astype(np.float32)).to(dev)):
+                got = kq.qconv_fwd_cuda(xq, wq, rs, cs, st, k // 2)
+                want = tq.qconv_plain(xq, wq, rs, cs, st, k // 2)
+                assert torch.equal(got, want), (n, h, w, c, o, k, st)
+    else:
+        for n, h, w, i, o, k in ((5, 14, 14, 64, 136, 3), (3, 7, 7, 36, 20, 1),
+                                 (40, 14, 14, 16, 8, 3)):
+            xq, gq = _s8(rng, (n, h, w, i), dev), _s8(rng, (n, h, w, o), dev)
+            xs = torch.tensor([0.03], device=dev)
+            gs = torch.tensor([1e-4], device=dev)
+            got = kq.qconv_wgrad_cuda(xq, gq, xs, gs, k)
+            want = tq.qconv_wgrad_plain(xq, gq, xs, gs, k)
+            assert torch.equal(got, want), (n, h, w, i, o, k)
+        # sums past 2**31 wrap as s32 sums do
+        xq = torch.full((35, 64, 64, 4), 127, dtype=torch.int8, device=dev)
+        one = torch.ones(1, device=dev)
+        got = kq.qconv_wgrad_cuda(xq, xq, one, one, 1)
+        want = tq.qconv_wgrad_plain(xq, xq, one, one, 1)
+        assert torch.equal(got, want) and float(want.max()) < 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qt", [1, 2, 3, 4])
+def test_int8_train_conv_on_card_matches_cpu(cuda_device, qt):
+    """The autograd function on the card (kernels) against the CPU (plain
+    versions) on bf16 res5-like inputs: forward and int8 gradients bit for
+    bit; the exact gradients (cuDNN against the CPU) within two bf16 ulps
+    of their largest entry."""
+    rng = np.random.RandomState(qt)
+    x = torch.from_numpy(rng.randn(6, 14, 14, 64).astype(np.float32))
+    w = torch.from_numpy((rng.randn(96, 64, 3, 3) / 24).astype(np.float32))
+    g = torch.from_numpy(rng.randn(6, 14, 14, 96).astype(np.float32))
+    flags = (qt == 1, qt in (3, 4), qt != 4)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xd = x.to(dev, torch.bfloat16).requires_grad_(True)
+        wd = w.to(dev).requires_grad_(True)
+        y = tq.int8_train_conv(xd, wd, 1, *flags)
+        y.backward(g.to(dev))
+        res[dev.type] = [t.detach().float().cpu() for t in (y, xd.grad,
+                                                             wd.grad)]
+    for name, a, b, exact in zip(("y", "dx", "dw"), res["cuda"], res["cpu"],
+                                 (True, flags[2], flags[0])):
+        if exact:
+            assert torch.equal(a, b), name
+        else:
+            tol = 2.0 ** -7 * float(b.abs().max())
+            assert float((a - b).abs().max()) <= tol, name

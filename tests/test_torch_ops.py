@@ -190,14 +190,23 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
         build_detector(cfg, 8)
 
 
-@pytest.mark.parametrize("which", ["roi_align", "nms", "normalize"])
+@pytest.mark.parametrize("which", ["roi_align", "nms", "normalize",
+                                   "quantize", "qconv", "qconv_wgrad"])
 def test_cuda_launchers_refuse_cpu_tensors(which):
     """A launcher never falls back: a CPU tensor is refused before any
     build or launch."""
+    from coin_tpu_torch.kernels import qconv as kq
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
     from coin_tpu_torch.kernels.roi_align import roi_align_cuda
+    s8 = torch.zeros(1, 4, 4, 16, dtype=torch.int8)
+    one = torch.ones(1)
     call = {
+        "quantize": lambda: kq.quantize_cuda(torch.zeros(1, 4, 4, 8), False),
+        "qconv": lambda: kq.qconv_fwd_cuda(
+            s8, torch.zeros(8, 3, 3, 16, dtype=torch.int8), one,
+            torch.ones(8), 1, 1),
+        "qconv_wgrad": lambda: kq.qconv_wgrad_cuda(s8, s8, one, one, 3),
         "roi_align": lambda: roi_align_cuda(torch.zeros(1, 4, 4, 8),
                                             torch.zeros(1, 2, 4), 1.0, 7, 2),
         "nms": lambda: nms_sorted_cuda(torch.zeros(1, 8, 4),

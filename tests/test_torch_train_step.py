@@ -15,6 +15,18 @@ parameters it moved; counts and steps equal. The CKG parameters' momentum
 and update to 5e-3, as tests/test_merge_grad_parity.py holds the same
 gradient: its second-order term loses about three digits in f32 (the
 port's own f32 and f64 merge gradients differ by 1.5e-3 on these inputs).
+
+``cached_int8`` is the cached step with foggy_fast.yaml's int8 res5
+(``quant_train_res5 = 1``: int8 forward, dgrad and wgrad). Under ``jit``
+XLA computes the int8 scales with a reciprocal product where the port
+divides (tests/test_torch_qconv.py), so a few s8 values of res5's
+activations and gradients round to the neighbouring step, each a whole
+quantisation step away (about 1e-3 of res5's input values,
+tests/test_torch_trainer.py). Its losses, updates, momentum and
+prototypes are held to INT8_REL of their largest entry (measured: losses
+1.3e-4, the update and momentum of the box predictor's bias 8.7e-3), the
+CKG's to INT8_REL_MERGE (measured: 3.8e-2: the second-order merge gradient
+amplifies the flips in res5's features).
 """
 
 import dataclasses
@@ -48,9 +60,20 @@ C = NUM_CLASSES
 B = 2
 CAP_ONLINE, CAP_OFFLINE = 8, 20
 BURN_UP = 10
-STEP = {"cached": 3, "live": BURN_UP, "cached_two": BURN_UP + 1}
+STEP = {"cached": 3, "live": BURN_UP, "cached_two": BURN_UP + 1,
+        "cached_int8": 3}
 REL = 1e-4
 REL_MERGE = 5e-3
+INT8_REL = 2e-2
+INT8_REL_MERGE = 0.1
+# XLA's CPU int8 convolution is slow: the int8 step samples 8 RoIs per
+# image (16 res5 crops with the C boxes) instead of 32
+ROI_BATCH = {"cached_int8": 8}
+
+
+def _flavor_pcfg(pcfg, flavor):
+    return dataclasses.replace(
+        pcfg, roi_batch_size=ROI_BATCH.get(flavor, pcfg.roi_batch_size))
 
 
 def _cfg():
@@ -81,6 +104,17 @@ def _dets(rng, n_valid, cap, anchor_boxes=None):
                 scores=probs[..., :C].max(-1).astype(np.float32),
                 classes=np.where(valid, classes, -1).astype(np.int32),
                 valid=valid, probs=probs.astype(np.float32))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: the suite runs these tests beside other pytest
+    workers, where torch's default of one thread per core oversubscribes
+    the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -127,9 +161,13 @@ def setup():
     base = jax.tree.map(jnp.asarray, base)
     hyper = JHyper(burn_up=BURN_UP, proto_start=0, cap_c=8,
                    loss_weights=tpipe.loss_weights_from(cfg))
-    steps = dict(zip(("live", "cached", "cached_two"), jbuild(
-        jmodel, mm, tx, mtx, tokens, pcfg, pcfg, hyper,
-        with_cached_two=True)))
+    build = lambda m: dict(zip(("live", "cached", "cached_two"), jbuild(
+        m, mm, tx, mtx, tokens, pcfg, pcfg, hyper, with_cached_two=True)))
+    steps = build(jmodel)
+    pcfg8 = _flavor_pcfg(pcfg, "cached_int8")
+    steps["cached_int8"] = dict(zip(("live", "cached"), jbuild(
+        jmodel.clone(quant_train_res5=1), mm, tx, mtx, tokens, pcfg8, pcfg8,
+        hyper)))["cached"]
 
     cells = rng.randint(0, 256, (B, CANVAS[0] // 16, CANVAS[1] // 16, 3))
     images = cells.repeat(16, 1).repeat(16, 2).astype(np.uint8)
@@ -188,22 +226,25 @@ def run(setup, flavor):
 
     tokens = torch.from_numpy(np.asarray(s.tokens)).long()
     model = OpenVocabularyRCNN(num_classes=C, text_layers=2, text_width=64,
-                               text_heads=2)
+                               text_heads=2,
+                               quant_train_res5=int(flavor == "cached_int8"))
     state = tsb.init_train_state(s.cfg, model, tokens, seed=0)
     load_train_state(state, jax.device_get(dataclasses.replace(
         j0, rng=None)))
-    pcfg = _port_cfg(s.pcfg)
+    jpcfg = _flavor_pcfg(s.pcfg, flavor)
+    pcfg = _port_cfg(jpcfg)
     steps = dict(zip(("live", "cached", "cached_two"),
                      tsb.build_adaptation_steps(
                          tokens, pcfg, pcfg,
                          tsb.StepHyper(**dataclasses.asdict(s.hyper)))))
+    steps["cached_int8"] = steps["cached"]
     targs = [torch.from_numpy(inp["images"]), torch.from_numpy(inp["hw"]),
              td(inp["online_rcnn"]), td(inp["online_rpn"])]
     if flavor != "live":
         targs.append(td(inp["offline"]))
-    n_off = s.pcfg.test_topk if flavor == "live" else CAP_OFFLINE
+    n_off = jpcfg.test_topk if flavor == "live" else CAP_OFFLINE
     state, tlosses = steps[flavor](state, *targs,
-                                   draws=_draws(j0.rng, s.pcfg, n_off))
+                                   draws=_draws(j0.rng, jpcfg, n_off))
     _RUNS[flavor] = (j0, j1, jlosses, state, tlosses)
     return _RUNS[flavor]
 
@@ -231,7 +272,13 @@ def _trace(opt_state):
                 if "trace" in getattr(s, "_fields", ()))
 
 
-FLAVORS = ["cached", "live", "cached_two"]
+FLAVORS = ["cached", "live", "cached_two", "cached_int8"]
+
+
+def _rel(flavor, rel=REL):
+    if flavor != "cached_int8":
+        return rel
+    return INT8_REL_MERGE if rel == REL_MERGE else INT8_REL
 
 
 @pytest.mark.parametrize("flavor", FLAVORS)
@@ -239,8 +286,8 @@ def test_step_losses_match_jax(setup, flavor):
     _, _, jl, state, tl = run(setup, flavor)
     assert set(tl) == set(jl)
     for k in jl:
-        np.testing.assert_allclose(float(tl[k]), float(jl[k]), rtol=1e-4,
-                                   atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(float(tl[k]), float(jl[k]),
+                                   rtol=_rel(flavor), atol=1e-6, err_msg=k)
     assert state.step == STEP[flavor] + 1
     assert float(jl["loss_cls"]) > 0 and float(jl["loss_rpn_cls"]) > 0
 
@@ -255,8 +302,9 @@ def test_step_student_update_and_momentum_match_jax(setup, flavor):
     assert set(buffers) == set(p1)
     for name in p1:
         _close(got[name].detach().numpy() - p0[name], p1[name] - p0[name],
-               f"update of {name}", base=p0[name])
-        _close(buffers[name].numpy(), m1[name], f"momentum of {name}")
+               f"update of {name}", base=p0[name], rel=_rel(flavor))
+        _close(buffers[name].numpy(), m1[name], f"momentum of {name}",
+               rel=_rel(flavor))
     assert state.optimizer.count == 4
 
 
@@ -271,10 +319,11 @@ def test_step_teacher_prototypes_and_merge_match_jax(setup, flavor):
         moved += int(np.abs(d).max() > 0)
         _close(got[name].numpy() - t0[name], d, f"teacher {name}",
                base=t0[name])
-    assert (moved > 0) == (flavor != "cached")
+    assert (moved > 0) == (STEP[flavor] >= BURN_UP)
     for f in ("proto", "b_online", "b_offline"):
         _close(getattr(state.prototypes, f).numpy(),
-               np.asarray(getattr(j1.prototypes, f)), f"prototype {f}")
+               np.asarray(getattr(j1.prototypes, f)), f"prototype {f}",
+               rel=_rel(flavor))
     mp0, mp1 = _flat(j0.merge_params), _flat(j1.merge_params)
     mm1 = _flat(_trace(j1.merge_opt_state))
     got = dict(state.merge_model.named_parameters())
@@ -282,9 +331,9 @@ def test_step_teacher_prototypes_and_merge_match_jax(setup, flavor):
     for name in mp1:
         _close(got[name].detach().numpy() - mp0[name],
                mp1[name] - mp0[name], f"merge update of {name}",
-               base=mp0[name], rel=REL_MERGE)
+               base=mp0[name], rel=_rel(flavor, REL_MERGE))
         _close(buffers[name].numpy(), mm1[name], f"merge momentum {name}",
-               rel=REL_MERGE)
+               rel=_rel(flavor, REL_MERGE))
     assert state.merge_optimizer.count == 4
 
 

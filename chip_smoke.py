@@ -13,10 +13,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    inputs at the shapes of its main path (eval, foggy_fast: 4 images on a
    608 x 1216 canvas, 6000/1000 RPN boxes, 1024 box-head candidates;
    training: 3 images, 512 + 64 RoIs each, so 1728 crops through res5;
-   collection: 4 images, the stem and a backbone 3x3 conv), with its
-   median time, the plain version's, a library call's where PyTorch has
-   one, and the card's bound. The int8 kernels (quantisation, K2 forward,
-   dgrad and wgrad at each res5 shape, K2s) must agree bit for bit.
+   collection: 4 images, the stem and a backbone 3x3 conv; the GDINO
+   collection batch: K9 at every Swin-B stage, K7 at the encoder's and the
+   decoder's shape, K6 on 4 x 256 rows), with its median time, the plain
+   version's, a library call's where PyTorch has one, and the card's
+   bound. The int8 kernels (quantisation, K2 forward, dgrad and wgrad at
+   each res5 shape, K2s) must agree bit for bit.
 4. reference: the full-width detector in f32 on the card against the same
    weights on the CPU (plain versions throughout) on a small canvas.
 5. step reference: one train_step_cached and one train_step of the
@@ -43,6 +45,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel must launch. Prints ms per step of each flavor, a stage split of
    the cached step, the collection pass per image with INT8_COLLECT on and
    off, peak memory, and checks a checkpoint save and restore.
+9. GDINO reference: the full-width Swin-B GroundingDINO and BERT-base in
+   f32 on the card against the CPU, stage by stage, on 2 x 192 x 256.
+10. collection path: build_cloud_detector of foggy_fast.yaml's GDINO
+   teacher from a random checkpoint file in the official layout (Swin-B,
+   900 queries, 6 + 6 layers, BERT-base, bf16 over f32 parameters), then
+   collect_cloud with the Probabilistic-Fusion NMS over the 12 synthetic
+   1024 x 2048 images; the npz read back as the trainer reads it. K4n, K6,
+   K7 and K9 must launch. Prints ms per image, device ms per batch, a
+   stage split and detections before and after K6.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or coin_tpu.
@@ -64,6 +75,7 @@ SEED = 2024
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12         # dense bf16 tensor-core operations
 INT8_OPS = 1979e12          # dense int8 tensor-core operations
 
 
@@ -151,7 +163,7 @@ def phase_roi_align(torch, dev, gen):
           f"{b_ms:.4f} ms ({b_by})")
     return dict(name="roi_align", route="cuda",
                 source="coin_tpu_torch/csrc/roi_align.cu",
-                replaces="coin_tpu/ops/roi_align.py:53",
+                replaces="coin_tpu/ops/roi_align.py:54",
                 max_abs_err=max(err.max().item(), e32), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -230,7 +242,7 @@ def phase_normalize(torch, dev, gen):
           f"bound {b_ms:.4f} ms ({b_by})")
     return dict(name="normalize", route="cuda",
                 source="coin_tpu_torch/csrc/normalize.cu",
-                replaces="coin_tpu/data/augment.py:122", max_abs_err=err,
+                replaces="coin_tpu/data/augment.py:123", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -327,7 +339,7 @@ def phase_augment(torch, dev, gen):
     a = out["all_on"]
     return dict(name="augment", route="cuda",
                 source="coin_tpu_torch/csrc/augment.cu",
-                replaces="coin_tpu/data/augment.py:105",
+                replaces="coin_tpu/data/augment.py:106",
                 max_abs_err=max(c["max_abs_err"] for c in out.values()),
                 ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                 bound_by=a["bound_by"], library_ms=None,
@@ -1341,6 +1353,564 @@ def phase_trainer_path(torch, dev, num_classes, counters):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------- collection-path kernels
+# Swin-B on the 4 x 608 x 1216 canvas: (windows per image, heads, width,
+# padded H, padded W, blocks) of each stage; windows of 12 x 12 tokens
+SWINB_STAGES = ((338, 4, 128, 156, 312, 2), (91, 8, 256, 84, 156, 2),
+                (28, 16, 512, 48, 84, 18), (8, 32, 1024, 24, 48, 2))
+# GDINO's levels on that canvas: strides 8, 16, 32 and the extra one
+GDINO_LEVELS = ((76, 152), (38, 76), (19, 38), (10, 19))
+# the cloud teacher at full width: Swin-B, 900 queries, 6 encoder and 6
+# decoder layers, BERT-base with 30 522 rows
+GDINO = dict(variant="swinB", queries=900, layers=6, bert_layers=12,
+             bert_vocab=30522)
+
+
+def _sum_cases(cases, weight):
+    """The kernels-line numbers of one forward: each case times its
+    launches per forward."""
+    out = {k: sum(c[k] * c[weight] for c in cases)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    by = max(cases, key=lambda c: c["bound_ms"] * c[weight])["bound_by"]
+    return dict(bound_by=by, **out)
+
+
+def phase_window_attention(torch, dev, gen):
+    """K9 at every Swin-B stage of the collection batch, shifted and not,
+    in f32 and bf16, against its plain version. Library yardstick:
+    scaled_dot_product_attention with the bias plus the shift mask as a
+    float mask (timed only). Bound: qkv read and the output written once,
+    against the two products at the bf16 tensor-core rate."""
+    from coin_tpu_torch.kernels.window_attention import window_attention_cuda
+    from coin_tpu_torch.models import swin
+    F = torch.nn.functional
+    n, d = 144, 32
+    index = torch.from_numpy(swin._rel_pos_index(12)).to(dev)
+    cases, worst = [], 0.0
+    for nw, heads, dim, hp, wp, blocks in SWINB_STAGES:
+        bn = 4 * nw
+        qkv = torch.randn((bn, n, 3, heads, d), generator=gen).to(dev)
+        table = (torch.randn((23 * 23, heads), generator=gen) * 0.5).to(dev)
+        mask = torch.from_numpy(swin._attn_mask(hp, wp, 12, 6)).to(dev)
+        check(mask.shape[0] == nw, f"window_attention: {mask.shape[0]} "
+              f"windows, expected {nw}")
+        errs = {}
+        for shifted in (False, True):
+            m = mask if shifted else None
+            for dtype in (torch.float32, torch.bfloat16):
+                q = qkv.to(dtype)
+                got = window_attention_cuda(q, table, index, m).float()
+                want = swin.window_attention_plain(q, table, index,
+                                                   m).float()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * scale
+                check(err <= tol, f"window_attention width {dim} shifted "
+                      f"{shifted} {dtype}: max abs err {err} > {tol}")
+                errs[f"{'shift' if shifted else 'plain'} "
+                     f"{str(dtype)[6:]}"] = err
+                worst = max(worst, err)
+        q = qkv.to(torch.bfloat16)
+        ms = time_ms(torch, lambda: window_attention_cuda(q, table, index,
+                                                          mask))
+        plain_ms = time_ms(torch, lambda: swin.window_attention_plain(
+            q, table, index, mask), iters=3, warmup=1)
+        bias = table[index.reshape(-1).long()].reshape(n, n, heads)
+        amask = (bias.permute(2, 0, 1)[None] + mask[:, None]).to(
+            torch.bfloat16)
+        amask = amask[None].expand(4, -1, -1, -1, -1).reshape(bn, heads, n, n)
+        qs, ks, vs = (q[:, :, i].transpose(1, 2) for i in range(3))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=amask))
+        nbytes = q.numel() * 2 + bn * n * dim * 2 + mask.numel() * 4 \
+            + table.numel() * 4 + index.numel() * 4
+        b_ms, b_by = bound(nbytes, 4 * n * n * d * bn * heads, BF16_FLOPS)
+        cases.append(dict(case=f"stage width {dim}", blocks=blocks,
+                          windows=bn, heads=heads, max_abs_err=errs, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        print(f"[K9 window_attention] width {dim}: {bn} windows x {heads} "
+              f"heads of {n} tokens (x{blocks} blocks per forward): max abs "
+              f"err {json.dumps(errs)} (tol f32 1e-5, bf16 2**-7 x max "
+              f"|out|); shifted bf16 {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del qkv, q, amask, qs, ks, vs
+    torch.cuda.empty_cache()
+    tot = _sum_cases(cases, "blocks")
+    print(f"[K9 window_attention] one Swin-B forward (24 launches): "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, SDPA "
+          f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.4f} ms")
+    return dict(name="window_attention", route="cuda",
+                source="coin_tpu_torch/csrc/window_attention.cu",
+                replaces="coin_tpu/models/swin.py:57", max_abs_err=worst,
+                cases=cases, **tot)
+
+
+def _grid_sample_deform(torch, values, shapes, loc, weights):
+    """The official PyTorch fallback of MSDeformAttn (one grid_sample per
+    level), the library yardstick of K7; used nowhere in the port."""
+    F = torch.nn.functional
+    b, _, h, d = values.shape
+    q, nl, npt = loc.shape[1], loc.shape[3], loc.shape[4]
+    splits = values.split([hh * ww for hh, ww in shapes], dim=1)
+    grids = (2 * loc - 1).to(values.dtype)
+    sampled = []
+    for lvl, (hh, ww) in enumerate(shapes):
+        v = splits[lvl].flatten(2).transpose(1, 2).reshape(b * h, d, hh, ww)
+        g = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)
+        sampled.append(F.grid_sample(v, g, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False))
+    w = weights.transpose(1, 2).reshape(b * h, 1, q, nl * npt).to(
+        values.dtype)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * w).sum(-1)
+    return out.view(b, h * d, q).transpose(1, 2).reshape(b, q, h, d)
+
+
+def phase_ms_deform(torch, dev, gen):
+    """K7 at the encoder's shape (4 x 15 352 queries over the 4 levels)
+    and the decoder's (4 x 900), f32 and bf16, against its plain version;
+    library yardstick: grid_sample per level. Bound: values, locations and
+    weights read once, the output written once, against the f32
+    operations of the taps."""
+    from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
+    from coin_tpu_torch.models import deformable as dfm
+    shapes = [list(s) for s in GDINO_LEVELS]
+    starts = [0]
+    for hh, ww in shapes[:-1]:
+        starts.append(starts[-1] + hh * ww)
+    total = starts[-1] + shapes[-1][0] * shapes[-1][1]
+    shapes_t, starts_t, _ = dfm._level_tensors(shapes, starts, dev)
+    values = torch.randn((4, total, 8, 32), generator=gen).to(dev)
+    cases, worst = [], 0.0
+    for label, q in (("encoder", total), ("decoder", 900)):
+        loc = (torch.rand((4, q, 8, 4, 4, 2), generator=gen) * 1.2
+               - 0.1).to(dev)
+        w = torch.softmax(torch.randn((4, q, 8, 16), generator=gen),
+                          -1).reshape(4, q, 8, 4, 4).to(dev)
+        # f32: the kernel repeats the plain version's rounding (1e-5). bf16:
+        # the kernel reads bf16 values and computes in f32, so it is within
+        # one bf16 rounding of the plain version run in f32 on the same
+        # bf16 values; JAX's order (the plain version in bf16) rounds every
+        # tap, product and sum to bf16, about 150 roundings per output
+        v = values.to(torch.bfloat16)
+        want32 = dfm.ms_deform_sample_plain(values, shapes, starts, loc, w)
+        got32 = ms_deform_cuda(values, shapes_t, starts_t, loc, w)
+        scale = want32.abs().max().item()
+        errs = {"float32": (got32 - want32).abs().max().item()}
+        check(errs["float32"] <= 1e-5 * max(scale, 1.0),
+              f"ms_deform {label} f32: max abs err {errs['float32']}")
+        want_b = dfm.ms_deform_sample_plain(v.float(), shapes, starts, loc, w)
+        got_b = ms_deform_cuda(v, shapes_t, starts_t, loc, w).float()
+        ulp = torch.ldexp(torch.ones_like(want_b), torch.frexp(
+            want_b.abs()).exponent - 8)
+        over = (got_b - want_b).abs() > ulp + 1e-5 * max(scale, 1.0)
+        errs["bfloat16"] = (got_b - want_b).abs().max().item()
+        check(not bool(over.any()), f"ms_deform {label} bf16: "
+              f"{int(over.sum())} values off by more than one bf16 rounding")
+        jax_order = dfm.ms_deform_sample_plain(v, shapes, starts, loc,
+                                               w).float()
+        errs["bfloat16_vs_jax_order"] = (got_b - jax_order).abs().max().item()
+        check(errs["bfloat16_vs_jax_order"] <= 5e-2 * scale,
+              f"ms_deform {label}: bf16 kernel vs JAX's bf16 order "
+              f"{errs['bfloat16_vs_jax_order']}")
+        worst = max(worst, errs["float32"], errs["bfloat16"])
+        lib_err = (_grid_sample_deform(torch, values, shapes, loc, w)
+                   - ms_deform_cuda(values, shapes_t, starts_t, loc, w)
+                   ).abs().max().item()
+        ms = time_ms(torch, lambda: ms_deform_cuda(v, shapes_t, starts_t,
+                                                   loc, w))
+        plain_ms = time_ms(torch, lambda: dfm.ms_deform_sample_plain(
+            v, shapes, starts, loc, w), iters=3, warmup=1)
+        lib_ms = time_ms(torch, lambda: _grid_sample_deform(
+            torch, v, shapes, loc, w))
+        nbytes = v.numel() * 2 + loc.numel() * 4 + w.numel() * 4 \
+            + 4 * q * 8 * 32 * 2
+        b_ms, b_by = bound(nbytes, 4 * q * 8 * 16 * (32 * 9 + 20))
+        cases.append(dict(case=label, per_forward=6, queries=q,
+                          max_abs_err=errs, grid_sample_err_f32=lib_err,
+                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        print(f"[K7 ms_deform {label}] values {tuple(v.shape)}, 4 x {q} "
+              f"queries x 8 heads x 4 levels x 4 points: max abs err "
+              f"{json.dumps(errs)} (tol f32 1e-5 x max(1, max |out|); bf16 one "
+              f"bf16 rounding of the f32 result on the same values; against "
+              f"JAX's order, which rounds each tap to bf16, 5e-2 x max "
+              f"|out|); grid_sample's f32 result differs by "
+              f"{lib_err:.3g}; bf16 {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"grid_sample {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del values
+    tot = _sum_cases(cases, "per_forward")
+    print(f"[K7 ms_deform] one GDINO forward (6 encoder + 6 decoder "
+          f"launches): {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, "
+          f"grid_sample {tot['library_ms']:.3f}, bound "
+          f"{tot['bound_ms']:.4f} ms")
+    return dict(name="ms_deform", route="cuda",
+                source="coin_tpu_torch/csrc/ms_deform.cu",
+                replaces="coin_tpu/models/deformable.py:20",
+                max_abs_err=worst, cases=cases, **tot)
+
+
+def _fusion_inputs(torch, gen, b=4, n=256, c1=9):
+    """GDINO-like rows on the 608 x 1216 canvas: boxes around 48 centres
+    per image (so clusters form), probs with a zero background column
+    renormalised as postprocess_gdino leaves them, 80 % valid."""
+    centres = torch.rand((b, 48, 2), generator=gen) * torch.tensor(
+        [1100.0, 540.0])
+    pick = torch.randint(0, 48, (b, n), generator=gen)
+    xy = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) \
+        + torch.randn((b, n, 2), generator=gen) * 6
+    wh = 24 + torch.rand((b, n, 2), generator=gen) * 96
+    boxes = torch.cat([xy, xy + wh], -1)
+    fg = torch.softmax(torch.randn((b, n, c1 - 1), generator=gen) * 2, -1)
+    probs = torch.cat([fg, torch.zeros((b, n, 1))], -1)
+    classes = fg.argmax(-1).int()
+    valid = torch.rand((b, n), generator=gen) < 0.8
+    classes = torch.where(valid, classes, torch.full_like(classes, -1))
+    return boxes, probs, classes, valid
+
+
+def phase_fusion_nms(torch, dev, gen):
+    """K6 on 4 x 256 x 9 (the collection batch: capacity 256, 8 Foggy
+    classes + background) with the 'ms' pair (max score, s-avg box) and one
+    case for each other method, against the plain version on the CPU: the
+    same rows and classes, values within 1e-5 of max(1, |value|). No
+    PyTorch call computes this function (library: none). Bound: the rows
+    read and written once against the operations this run's clusters
+    need, at the f32 rate."""
+    from coin_tpu_torch.kernels.fusion_nms import fusion_nms_cuda
+    from coin_tpu_torch.ops import nms as nms_ops
+    from coin_tpu_torch.structures import Detections
+    boxes, probs, classes, valid = _fusion_inputs(torch, gen)
+    det = Detections(boxes=boxes, scores=probs[..., :-1].amax(-1),
+                     classes=classes, valid=valid, probs=probs)
+    ddev = det.map(lambda t: t.to(dev))
+    cases = []
+    for sm, bm in (("max", "s-avg"), ("probEn", "avg"), ("avg", "max")):
+        got = nms_ops.fusion_nms(ddev, 0.6, sm, bm).map(lambda t: t.cpu())
+        want = nms_ops.fusion_nms(det, 0.6, sm, bm)
+        check(torch.equal(got.valid, want.valid)
+              and torch.equal(got.classes, want.classes),
+              f"fusion_nms {sm}/{bm}: rows or classes differ")
+        err = max(((getattr(got, f) - getattr(want, f)).abs()
+                   / getattr(want, f).abs().clamp_min(1.0)).max().item()
+                  for f in ("boxes", "scores", "probs"))
+        check(err <= 1e-5, f"fusion_nms {sm}/{bm}: relative err {err}")
+        kept = want.valid.sum(-1).tolist()
+        si, bi = nms_ops.SCORE_METHODS.index(sm), nms_ops.BOX_METHODS.index(bm)
+        args = (ddev.boxes, ddev.probs, ddev.classes, ddev.valid, 0.6)
+        ms = time_ms(torch, lambda: fusion_nms_cuda(*args, si, bi))
+        plain_ms = time_ms(torch, lambda: nms_ops.fusion_nms_plain(
+            *args, sm, bm), iters=3, warmup=1)
+        b_, n, c1 = probs.shape
+        nbytes = 2 * b_ * n * (4 + c1 + 2) * 4
+        # per emitted cluster: n IoUs (~15 operations) and the cluster's
+        # sums over n rows of c1 + 5 values; the logs of probEn once
+        b_ms, b_by = bound(nbytes, sum(kept) * n * (15 + 2 * (c1 + 5))
+                           + b_ * n * c1 * 10)
+        cases.append(dict(case=f"{sm}/{bm}", clusters=kept,
+                          max_rel_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"[K6 fusion_nms {sm}/{bm}] 4 x {n} rows x {c1} probs, IoU "
+              f"0.6, {int(valid.sum())} valid -> clusters per image {kept}: "
+              f"rows and classes identical, max rel err {err:.3g} (tol "
+              f"1e-5); {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})")
+    a = cases[0]
+    return dict(name="fusion_nms", route="cuda",
+                source="coin_tpu_torch/csrc/fusion_nms.cu",
+                replaces="coin_tpu/ops/nms.py:137",
+                max_abs_err=max(c["max_rel_err"] for c in cases),
+                ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                bound_by=a["bound_by"], library_ms=None, cases=cases)
+
+
+# ------------------------------------------------ the GDINO teacher
+def gdino_checkpoint():
+    """A random Swin-B GroundingDINO checkpoint (900 queries, 6 + 6
+    layers, BERT-base with 30 522 rows) in the official key layout:
+    manifests.gdino_manifest with synth_state_dict's N(0, 0.02²) values,
+    the norms' scales moved near 1 so that activations stay away from
+    zero. numpy arrays, about 0.9 GB."""
+    import numpy as np
+    from coin_tpu_torch.models.manifests import (gdino_manifest,
+                                                 synth_state_dict)
+    keys, _ = gdino_manifest(GDINO["variant"], GDINO["layers"],
+                             GDINO["layers"], GDINO["queries"],
+                             GDINO["bert_layers"], GDINO["bert_vocab"])
+    sd = synth_state_dict(keys, seed=SEED)
+    rng = np.random.RandomState(SEED + 7)
+    for k, v in sd.items():
+        if v.ndim == 1 and k.endswith(".weight") and (
+                "norm" in k or "LayerNorm" in k or ".1.weight" in k):
+            sd[k] = (1.0 + 0.1 * rng.randn(*v.shape)).astype(np.float32)
+    return sd
+
+
+def phase_gdino_reference(torch, dev, sd):
+    """The full-width Swin-B GDINO and BERT-base in f32 on the card
+    (kernels) against the same weights on the CPU (plain versions), TF32
+    off, on 2 x 192 x 256 (the smallest canvas of the 32-multiple ones
+    near 128 x 256 whose 1020 encoder tokens cover the 900 queries):
+    stage by stage, the decoder from the CPU's selected boxes on both
+    sides."""
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.models.bert import BertModel
+    from coin_tpu_torch.models.convert_gdino import (bert_state_dict,
+                                                     convert_gdino)
+    from coin_tpu_torch.models.gdino import GroundingDINO
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    parity_numerics()
+    variant, nq, nl = GDINO["variant"], GDINO["queries"], GDINO["layers"]
+    gsd = convert_gdino(sd, variant, nl, nl)
+    bcfg, bsd = bert_state_dict(sd)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    cells = torch.randint(0, 256, (2, 12, 16, 3), generator=gen,
+                          dtype=torch.uint8)
+    images_u8 = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    ids = torch.randint(1000, 30000, (2, 14), generator=gen)
+    tmask = torch.ones((2, 14), dtype=torch.bool)
+    tmask[1, 11:] = False
+    smask = tmask[:, None, None, :].expand(2, 1, 14, 14).clone()
+    out = {}
+    for name, d in (("cpu", "cpu"), ("gpu", dev)):
+        model = GroundingDINO(variant, nq, nl, nl).to(d)
+        model.load_state_dict(gsd, strict=True)
+        bert = BertModel(bcfg).to(d)
+        bert.load_state_dict(bsd, strict=True)
+        t = lambda x: x.to(d)
+        with torch.inference_mode():
+            emb = bert(t(ids), t(tmask))
+            images = normalize_batch(t(images_u8), IMAGENET_MEAN,
+                                     IMAGENET_STD)
+            feats = model.backbone(images)
+            src, pos, shapes, starts = model.project(feats)
+            src, lang = model.enhance(src, pos, shapes, starts, emb,
+                                      t(tmask), t(smask))
+            ref = model.select_queries(src, lang, t(tmask), shapes)
+            ref_cpu = ref if name == "cpu" else out["cpu"]["ref"].to(d)
+            logits, boxes = model.decode(src, lang, t(tmask), ref_cpu,
+                                         shapes, starts)
+        out[name] = {k: v.cpu() if isinstance(v, torch.Tensor) else
+                     [f.cpu() for f in v] for k, v in dict(
+                         bert=emb, feats=feats, src=src, lang=lang, ref=ref,
+                         logits=logits, boxes=boxes).items()}
+        del model, bert
+    torch.cuda.empty_cache()
+    check(shapes == [(24, 32), (12, 16), (6, 8), (3, 4)], f"{shapes}")
+
+    def rel(a, b):
+        finite = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), finite), "non-finite mismatch")
+        return ((a - b)[finite].abs().max() / b[finite].abs().max()).item()
+    g, c = out["gpu"], out["cpu"]
+    errs = {"bert": rel(g["bert"], c["bert"]),
+            "swin": max(rel(a, b) for a, b in zip(g["feats"], c["feats"])),
+            "enhanced_image": rel(g["src"], c["src"]),
+            "enhanced_text": rel(g["lang"], c["lang"]),
+            "logits": rel(g["logits"], c["logits"]),
+            "boxes": rel(g["boxes"], c["boxes"])}
+    same_sel = ((g["ref"] - c["ref"]).abs().amax(-1) < 1e-4).float().mean()
+    print(f"[GDINO reference] Swin-B GDINO + BERT-base in f32, card vs "
+          f"CPU, 2 x 192 x 256, 14 tokens (3 padded): relative max errors "
+          f"{json.dumps(errs)} (tol 1e-3; the decoder from the CPU's "
+          f"selected boxes); selected boxes that agree within 1e-4: "
+          f"{same_sel.item():.4f}")
+    check(all(v <= 1e-3 for v in errs.values()), f"GDINO reference: {errs}")
+    check(same_sel.item() >= 0.99, "GDINO reference: query selection")
+
+
+def _synthetic_vocab(path, class_names):
+    """A vocab.txt of BERT-base's 30 522 rows: the special tokens where
+    bert-base-uncased has them, the class words, '.', and filler."""
+    words = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] \
+        + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", "."]
+    for name in class_names:
+        words += [w for w in name.lower().split() if w not in words]
+    words += [f"tok{i}" for i in range(30522 - len(words))]
+    with open(path, "w") as f:
+        f.write("\n".join(words) + "\n")
+
+
+def phase_collect_path(torch, dev, sd, counters):
+    """The collection pass with the cloud teacher: build_cloud_detector
+    of foggy_fast.yaml's GDINO teacher (Swin-B, 900 queries, 6 + 6
+    layers, BERT-base; bf16 over f32 parameters) from a checkpoint file
+    in the official layout, then collect_cloud with CLOUD.NMS_METHOD 'ms'
+    over the 12 synthetic 1024 x 2048 images of the trainer path (3
+    batches of 4 on 608 x 1216); the npz saved, loaded and packed as the
+    trainer reads it. K4n, K6, K7 and K9 must launch."""
+    import tempfile
+    import numpy as np
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.data.loader import TestLoader, _resize_factor
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES,
+                                         make_synthetic_voc,
+                                         register_pascal_voc)
+    from coin_tpu_torch.engine import collect as collect_mod
+    from coin_tpu_torch.engine.cloud_factory import build_cloud_detector
+    from coin_tpu_torch.engine.results_store import ResultStore
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD,
+                                                      postprocess_gdino)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gdino_")
+    root = os.path.join(REPO, "output", "chip_smoke_collect")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ckpt = os.path.join(tmp, "groundingdino_swinb_random.pth")
+        t0 = time.perf_counter()
+        torch.save({"model": {k: torch.from_numpy(v)
+                              for k, v in sd.items()}}, ckpt)
+        save_s = time.perf_counter() - t0
+        vocab = os.path.join(tmp, "vocab.txt")
+        _synthetic_vocab(vocab, CITYSCAPES_CLASSES)
+        make_synthetic_voc(os.path.join(root, "foggy"), num_images=12,
+                           class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED, split="train")
+        register_pascal_voc("chip_smoke_collect", "foggy", "train",
+                            CITYSCAPES_CLASSES, ".jpg")
+        cfg = load_config(os.path.join(REPO,
+                                       "configs/coin/GDINO/foggy_fast.yaml"))
+        cfg.MODEL.TEACHER_CLOUD.WEIGHT = ckpt
+        cfg.TPU.BERT_VOCAB = vocab
+        tc, ctc = cfg.MODEL.TEACHER_CLOUD, cfg.CLOUD.TEACHER_CLOUD
+        itc = cfg.INPUT.TEACHER_CLOUD
+        check((tc.META_ARCHITECTURE, tc.TYPE, tc.TEST_THRESHOLD,
+               cfg.CLOUD.NMS_METHOD, ctc.COLLECT_NMS_THRESH,
+               ctc.RCNN_THRESH, itc.MIN_SIZE_TEST)
+              == ("GDINO", GDINO["variant"], 0.25, "ms", 0.6, 0.25, 600),
+              "not foggy_fast.yaml's cloud teacher")
+        t0 = time.perf_counter()
+        det = build_cloud_detector(cfg, "GDINO", CITYSCAPES_CLASSES,
+                                   device=dev)
+        build_s = time.perf_counter() - t0
+        model = det.model
+        nl = GDINO["layers"]
+        check(model.dtype == torch.bfloat16
+              and model.num_queries == GDINO["queries"]
+              and (model.enc_layers, model.dec_layers) == (nl, nl)
+              and model.variant == GDINO["variant"]
+              and all(p.dtype == torch.float32 for p in model.parameters())
+              and det.bert.config.num_hidden_layers == GDINO["bert_layers"]
+              and det.bert.config.vocab_size == GDINO["bert_vocab"]
+              and det.capacity == 256,
+              "not the full-width Swin-B GDINO with BERT-base")
+        loader = TestLoader("chip_smoke_collect", root, batch_size=4,
+                            min_size=itc.MIN_SIZE_TEST,
+                            max_size=itc.get("MAX_SIZE_TEST", 1333))
+        check(tuple(loader.canvas_hw) == (608, 1216), f"{loader.canvas_hw}")
+        kw = dict(nms_method=cfg.CLOUD.NMS_METHOD,
+                  collect_nms_thresh=ctc.COLLECT_NMS_THRESH,
+                  rcnn_thresh=ctc.RCNN_THRESH,
+                  rpn_thresh=(ctc.RPN_THRESH if ctc.RPN_SEPARATE_COLLECT
+                              else ctc.RCNN_THRESH))
+        kw["device"] = dev
+        collect_mod.collect_cloud(det, loader, 8, **kw)        # warm-up
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = collect_mod.collect_cloud(det, loader, 8, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        npz = os.path.join(root, "GDINO_collect.npz")
+        store.save(npz)
+        back = ResultStore.load(npz)
+        ids = [r["image_id"] for r in loader.records]
+        check(sorted(back.image_ids()) == sorted(ids), "store image ids")
+        counts = {"RCNN": [], "RPN": []}
+        for rec in loader.records:
+            for view in counts:
+                v = back.get_view(rec["image_id"], view)
+                n = len(v["scores"])
+                counts[view].append(n)
+                check(v["probs"].shape == (n, 9) and bool(np.isfinite(
+                    v["boxes"]).all()) and bool((v["scores"] >= 0.25).all())
+                      and bool((v["scores"] <= 1.0).all()),
+                      f"store view {view} of {rec['image_id']}")
+                scale = _resize_factor(rec["height"], rec["width"],
+                                       loader.min_size, loader.max_size)
+                packed = back.pack_view(rec["image_id"], view, 128, scale,
+                                        False, float(loader.canvas_hw[1]))
+                check(int(packed["valid"].sum()) == min(n, 128),
+                      "pack_view")
+        check(sum(counts["RCNN"]) > 0, "the collection stored nothing")
+
+        # one batch on the device: the whole call, then stage by stage
+        fusion = collect_mod.parse_nms_method(cfg.CLOUD.NMS_METHOD)
+        batch, _ = next(iter(loader))
+        u8 = torch.from_numpy(batch.images).to(dev)
+        hw = torch.from_numpy(batch.image_hw).to(dev)
+        b = u8.shape[0]
+        with torch.inference_mode():
+            batch_ms = time_ms(torch, lambda: collect_mod.postprocess(
+                det(u8, hw), fusion, 0.6), iters=5, warmup=1)
+            emb = det.embeds.expand(b, -1, -1)
+            tmask = det.text_mask.expand(b, -1)
+            smask = det.self_mask.expand(b, -1, -1, -1)
+            marks, splits = [], []
+            for _ in range(4):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                ev[0].record()
+                images = normalize_batch(u8, IMAGENET_MEAN, IMAGENET_STD)
+                feats = model.backbone(images.to(model.dtype))
+                ev[1].record()
+                src, pos, shapes, starts = model.project(feats)
+                src, lang = model.enhance(src, pos, shapes, starts, emb,
+                                          tmask, smask)
+                ev[2].record()
+                ref = model.select_queries(src, lang, tmask, shapes)
+                logits, boxes = model.decode(src, lang, tmask, ref, shapes,
+                                             starts)
+                ev[3].record()
+                raw = postprocess_gdino(logits, boxes, det.positive_map, hw,
+                                        det.threshold, det.capacity)
+                fused = collect_mod.postprocess(raw, fusion, 0.6)
+                ev[4].record()
+                torch.cuda.synchronize()
+                splits.append([ev[i].elapsed_time(ev[i + 1])
+                               for i in range(4)])
+        stage_ms = dict(zip(("normalize_and_swin",
+                             "projections_and_enhancer",
+                             "query_selection_and_decoder",
+                             "postprocess_and_fusion_nms"),
+                            (statistics.median(s[i] for s in splits[1:])
+                             for i in range(4))))
+        check(shapes == [tuple(s) for s in GDINO_LEVELS],
+              f"feature levels {shapes}")
+        before = raw.valid.sum(-1).tolist()
+        after = fused.valid.sum(-1).tolist()
+        print(f"[collect path] build_cloud_detector(foggy_fast.yaml, "
+              f"'GDINO') from a {os.path.getsize(ckpt) / 2 ** 30:.2f} GiB "
+              f"checkpoint (written in {save_s:.1f} s) in {build_s:.1f} s; "
+              f"collect_cloud over 12 images (3 batches of 4 on 608 x 1216, "
+              f"NMS_METHOD ms): {run_s:.3f} s, "
+              f"{run_s * 1e3 / 12:.2f} ms per image with host decode; "
+              f"device {batch_ms:.3f} ms per batch of 4 "
+              f"({batch_ms / 4:.3f} ms per image); peak device memory "
+              f"{mem:.2f} GiB; kernel launches {json.dumps(launches)}")
+        print(f"[collect path] one batch by stage, ms (median of 3 after a "
+              f"warm-up, CUDA events): {json.dumps(stage_ms)}; detections "
+              f"per image before fusion NMS {before}, after {after}; stored "
+              f"per image RCNN {counts['RCNN']}, RPN {counts['RPN']}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel was not launched on the collection path: "
+              f"{launches}")
+        return launches, dict(ms_per_image=run_s * 1e3 / 12,
+                              batch_ms=batch_ms, stage_ms=stage_ms,
+                              peak_gib=mem)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1373,6 +1943,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     from coin_tpu_torch.kernels.augment import augment_cuda
+    from coin_tpu_torch.kernels.fusion_nms import fusion_nms_cuda
+    from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
     from coin_tpu_torch.kernels.qconv import (int8_conv_cuda,
@@ -1383,6 +1955,7 @@ def main() -> int:
                                               quantize_weight_cuda)
     from coin_tpu_torch.kernels.roi_align import (roi_align_backward_cuda,
                                                   roi_align_cuda)
+    from coin_tpu_torch.kernels.window_attention import window_attention_cuda
     quant = [quantize_cuda, quantize_weight_cuda]
     eval_counters = [roi_align_cuda, nms_sorted_cuda, normalize_cuda,
                      qconv_fwd_cuda] + quant
@@ -1390,6 +1963,8 @@ def main() -> int:
                       roi_align_backward_cuda, augment_cuda]
     trainer_counters = train_counters + quant + [
         qconv_fwd_cuda, qconv_dgrad_cuda, qconv_wgrad_cuda, int8_conv_cuda]
+    collect_counters = [normalize_cuda, window_attention_cuda,
+                        ms_deform_cuda, fusion_nms_cuda]
     gen = torch.Generator().manual_seed(SEED)
     with torch.inference_mode():
         kernels = [phase_roi_align(torch, dev, gen),
@@ -1398,7 +1973,10 @@ def main() -> int:
                    phase_normalize(torch, dev, gen),
                    phase_quantize(torch, dev),
                    *phase_qconv(torch, dev),
-                   phase_int8_conv(torch, dev)]
+                   phase_int8_conv(torch, dev),
+                   phase_window_attention(torch, dev, gen),
+                   phase_ms_deform(torch, dev, gen),
+                   phase_fusion_nms(torch, dev, gen)]
     torch.cuda.empty_cache()
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.data.voc import CITYSCAPES_CLASSES
@@ -1417,7 +1995,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer_launches, _ = phase_trainer_path(torch, dev, num_classes,
                                              trainer_counters)
-    # the kernels line: launches are the main path's (the trainer path);
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sd = gdino_checkpoint()
+    print(f"[GDINO checkpoint] {len(sd)} tensors, "
+          f"{sum(v.size for v in sd.values()) / 1e6:.1f} M values, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    phase_gdino_reference(torch, dev, sd)
+    collect_launches, _ = phase_collect_path(torch, dev, sd,
+                                             collect_counters)
+    del sd
+    # the kernels line: launches are those of each kernel's main path (the
+    # collection path for K6, K7 and K9, the trainer path for the rest);
     # an entry of several wrappers counts them all
     by_fn = {"roi_align": ["roi_align_cuda"],
              "roi_align_bwd": ["roi_align_backward_cuda"],
@@ -1427,12 +2016,18 @@ def main() -> int:
              "qconv_fwd": ["qconv_fwd_cuda"],
              "qconv_dgrad": ["qconv_dgrad_cuda"],
              "qconv_wgrad": ["qconv_wgrad_cuda"],
-             "int8_conv": ["int8_conv_cuda"]}
+             "int8_conv": ["int8_conv_cuda"],
+             "window_attention": ["window_attention_cuda"],
+             "ms_deform": ["ms_deform_cuda"],
+             "fusion_nms": ["fusion_nms_cuda"]}
     paths = {"trainer": trainer_launches, "training": train_launches,
-             "eval": eval_launches}
+             "eval": eval_launches, "collect": collect_launches}
     for k in kernels:
         fns = by_fn[k["name"]]
-        k["launches"] = sum(trainer_launches[f] for f in fns)
+        main_path = ("collect" if k["name"] in ("window_attention",
+                                                "ms_deform", "fusion_nms")
+                     else "trainer")
+        k["launches"] = sum(paths[main_path][f] for f in fns)
         k["launches_by_path"] = {p: sum(n.get(f, 0) for f in fns)
                                  for p, n in paths.items()}
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,13 @@ follow the flax tree. Key ``a/b/leaf`` becomes ``a.b.<leaf>``:
 - ``LayerNorm`` ``scale`` and ``nn.Embed`` ``embedding`` → ``weight``;
 - FrozenBN's four tensors and raw parameters pass through unchanged.
 
+The same walk fills the cloud teacher: the JAX ``GroundingDINO`` tree
+(``models/gdino.py`` names its modules as flax does; Swin's relative
+position tables, the level and query embeddings and the fusion gammas
+are raw parameters) and a Flax BERT tree (``models/bert.py`` uses HF's
+names; ``nn.Embed``'s ``embedding`` is a ``weight``). ``load_jax_params``
+loads either strictly.
+
 ``load_train_state`` carries a whole JAX ``TrainState`` of the adaptation
 step (its fields as numpy arrays) into the port's ``TrainState``.
 """
@@ -63,6 +70,18 @@ def from_jax_variables(variables: Mapping[str, Any]
 
     walk(tree, ())
     return out
+
+
+def load_jax_params(module: torch.nn.Module, variables: Mapping[str, Any]
+                    ) -> torch.nn.Module:
+    """Load a JAX parameter tree (numpy leaves) into ``module`` strictly:
+    the GroundingDINO tree into ``models.gdino.GroundingDINO``, a Flax
+    BERT tree into ``models.bert.BertModel``, or any tree whose names the
+    module mirrors."""
+    dev = next(module.parameters()).device
+    sd = {k: v.to(dev) for k, v in from_jax_variables(variables).items()}
+    module.load_state_dict(sd, strict=True)
+    return module
 
 
 def _merge_trees(a: Mapping, b: Mapping) -> Dict:

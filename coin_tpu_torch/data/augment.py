@@ -34,19 +34,23 @@ def _div(a: torch.Tensor, d) -> torch.Tensor:
         .expand_as(a)
 
 
-def normalize_plain(images_u8: torch.Tensor) -> torch.Tensor:
+def normalize_plain(images_u8: torch.Tensor, mean=CLIP_MEAN,
+                    std=CLIP_STD) -> torch.Tensor:
     """Plain version of K4n: uint8 (..., 3) → (x / 255 - mean) / std, f32."""
-    mean = torch.tensor(CLIP_MEAN, device=images_u8.device)
-    std = torch.tensor(CLIP_STD, device=images_u8.device)
-    return (images_u8.float() / 255.0 - mean) / std
+    mean = torch.tensor(mean, device=images_u8.device)
+    std = torch.tensor(std, device=images_u8.device)
+    return (_div(images_u8.float(), 255.0) - mean) / std
 
 
-def normalize_batch(images_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 (B, H, W, 3) NHWC → CLIP-normalised float32 (B, H, W, 3)."""
+def normalize_batch(images_u8: torch.Tensor, mean=CLIP_MEAN,
+                    std=CLIP_STD) -> torch.Tensor:
+    """uint8 (B, H, W, 3) NHWC → float32 (B, H, W, 3) normalised with the
+    per-channel ``mean`` and ``std`` (CLIP's unless given; the GDINO teacher
+    passes ImageNet's)."""
     if images_u8.is_cuda:
         from coin_tpu_torch.kernels.normalize import normalize_cuda
-        return normalize_cuda(images_u8, CLIP_MEAN, CLIP_STD)
-    return normalize_plain(images_u8)
+        return normalize_cuda(images_u8, mean, std)
+    return normalize_plain(images_u8, mean, std)
 
 
 def draw_augment(generator: torch.Generator, batch: int) -> torch.Tensor:

@@ -9,13 +9,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.structures import Detections
 
 
 def online_view_to_detections(view: Dict[str, np.ndarray],
-                              device="cpu") -> Detections:
+                              device="cuda") -> Detections:
     """A packed store view (``ResultStore.pack_view`` arrays, batched) →
-    Detections on ``device``."""
+    Detections on ``device`` (the card unless the caller passes
+    ``device="cpu"``)."""
+    device = resolve_device(device)
     t = lambda a: torch.from_numpy(np.asarray(a)).to(device)
     return Detections(boxes=t(view["boxes"]), scores=t(view["scores"]),
                       classes=t(view["classes"]), valid=t(view["valid"]),

@@ -1,6 +1,6 @@
 """Launcher of K4, the strong and weak views kernel (csrc/augment.cu).
 
-Counterpart of the TPU-shaped op ``coin_tpu/data/augment.py:105``
+Counterpart of the TPU-shaped op ``coin_tpu/data/augment.py:106``
 ``preprocess_batch``; the plain PyTorch version, the draws and the public
 function are in ``coin_tpu_torch/data/augment.py``.
 """

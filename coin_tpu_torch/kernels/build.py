@@ -21,7 +21,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("roi_align", "roi_align_bwd", "nms", "normalize", "augment",
-           "quantize", "qconv", "qconv_wgrad")
+           "quantize", "qconv", "qconv_wgrad", "window_attention",
+           "ms_deform", "fusion_nms")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

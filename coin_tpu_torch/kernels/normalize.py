@@ -1,7 +1,7 @@
 """Launcher of K4n, the u8 → CLIP-normalised f32 kernel
 (csrc/normalize.cu).
 
-Counterpart of ``coin_tpu/data/augment.py:122`` ``normalize_batch``; the
+Counterpart of ``coin_tpu/data/augment.py:123`` ``normalize_batch``; the
 plain PyTorch version and the public function are in
 ``coin_tpu_torch/data/augment.py``.
 """

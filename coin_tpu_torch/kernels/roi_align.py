@@ -1,7 +1,7 @@
 """Launchers of K1, the RoIAlign forward kernel (csrc/roi_align.cu), and
 K1b, its backward (csrc/roi_align_bwd.cu).
 
-Counterparts of the TPU-shaped op ``coin_tpu/ops/roi_align.py:53``
+Counterparts of the TPU-shaped op ``coin_tpu/ops/roi_align.py:54``
 ``roi_align`` and of the autodiff transpose of its einsums (``:85-94``);
 the plain PyTorch versions, the autograd function and the public function
 are in ``coin_tpu_torch/ops/roi_align.py``.

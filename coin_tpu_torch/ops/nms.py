@@ -1,12 +1,16 @@
 """Exact greedy hard NMS (counterpart of coin_tpu/ops/nms.py:42-131,
-``nms_keep_mask``), batched over leading image dims, and the pairwise
-score-weighted box fusion of the dual-teacher matching (``:250``).
+``nms_keep_mask``), batched over leading image dims; the
+Probabilistic-Fusion NMS of the collection pass (``fusion_nms``, :137);
+and the pairwise fusion helpers (``merge_probs_*``,
+``weighted_box_fusion_pair``, :230-258).
 
 On a CUDA tensor the sorted-box suppression runs in kernel K3
-(csrc/nms.cu, launched by kernels/nms.py); on a CPU tensor it runs in
-:func:`nms_sorted_plain`, the plain PyTorch version. Everything around it
-is PyTorch: the class offset, the +1 shift of valid rows, the stable
-descending score sort and the inverse permutation.
+(csrc/nms.cu, launched by kernels/nms.py) and the fusion NMS in kernel K6
+(csrc/fusion_nms.cu, kernels/fusion_nms.py); on a CPU tensor they run in
+:func:`nms_sorted_plain` and :func:`fusion_nms_plain`, the plain PyTorch
+versions. Around K3 everything is PyTorch: the class offset, the +1 shift
+of valid rows, the stable descending score sort and the inverse
+permutation.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 import torch
 
 from coin_tpu_torch.ops import boxes as box_ops
+from coin_tpu_torch.structures import Detections
 
 NEG_INF = -1e30
 
@@ -87,6 +92,140 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty_like(keep_sorted)
     keep.scatter_(1, order, keep_sorted)
     return (keep & valid).reshape(lead + (n,))
+
+
+SCORE_METHODS = ("probEn", "avg", "max")
+BOX_METHODS = ("s-avg", "avg", "max")
+
+
+def fusion_nms_plain(boxes: torch.Tensor, probs: torch.Tensor,
+                     classes: torch.Tensor, valid: torch.Tensor,
+                     iou_threshold: float, score_method: str,
+                     box_method: str):
+    """Plain version of K6, batched over images, in nms.py:137-224's
+    order. boxes (B, N, 4), probs (B, N, C+1), classes (B, N), valid
+    (B, N) → fused (boxes, scores, probs, classes int32, valid) in
+    emission order (the cluster seeds by descending score), before the
+    re-sort."""
+    b, n, c1 = probs.shape
+    dev = boxes.device
+    ar = torch.arange(b, device=dev)
+    cls0 = classes.clamp_min(0).long()
+    off = _offset_by_class(boxes, cls0, valid)
+    off = torch.where(valid[..., None], off, torch.zeros_like(off))
+    scores = torch.gather(probs, -1, cls0[..., None])[..., 0]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    logp = torch.log(probs.clamp_min(1e-20))
+    out_boxes = torch.zeros_like(boxes)
+    out_scores = torch.zeros_like(scores)
+    out_probs = torch.zeros_like(probs)
+    out_classes = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+    out_valid = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    alive = valid.clone()
+    one = torch.ones((), device=dev)
+    for k in range(n):
+        cur = torch.where(alive, scores, torch.full_like(scores, NEG_INF))
+        top = cur.argmax(dim=-1)
+        write = cur[ar, top] > NEG_INF / 2
+        if not bool(write.any()):
+            break           # no image has a row left: the rest stays empty
+        iou = box_ops.pairwise_iou_plus1(off[ar, top][:, None], off)[:, 0]
+        cluster = alive & (iou > iou_threshold)
+        cluster[ar, top] = alive[ar, top]
+        csz = torch.maximum(cluster.sum(-1).to(boxes.dtype), one)[:, None]
+        w = torch.where(cluster, scores, torch.zeros_like(scores))
+        if score_method == "probEn":
+            summed = torch.where(cluster[..., None], logp,
+                                 torch.zeros_like(logp)).sum(1)
+            fprob = torch.softmax(summed, dim=-1)
+            fcls = classes[ar, top]
+            fscore = fprob[ar, fcls.clamp_min(0).long()]
+        elif score_method == "avg":
+            fprob = torch.where(cluster[..., None], probs,
+                                torch.zeros_like(probs)).sum(1) / csz
+            fscore = w.sum(-1) / csz[:, 0]
+            fcls = classes[ar, top]
+        elif score_method == "max":
+            mi = torch.where(cluster, scores,
+                             torch.full_like(scores, NEG_INF)).argmax(-1)
+            fprob, fscore, fcls = probs[ar, mi], scores[ar, mi], \
+                classes[ar, mi]
+        else:
+            raise NotImplementedError(score_method)
+        if box_method == "s-avg":
+            bw = w / torch.maximum(w.sum(-1, keepdim=True),
+                                   torch.full_like(w[:, :1], 1e-20))
+            fbox = (boxes * bw[..., None]).sum(1)
+        elif box_method == "avg":
+            fbox = torch.where(cluster[..., None], boxes,
+                               torch.zeros_like(boxes)).sum(1) / csz
+        elif box_method == "max":
+            mi = torch.where(cluster, scores,
+                             torch.full_like(scores, NEG_INF)).argmax(-1)
+            fbox = boxes[ar, mi]
+        else:
+            raise NotImplementedError(box_method)
+        wr = write[:, None]
+        out_boxes[:, k] = torch.where(wr, fbox, torch.zeros_like(fbox))
+        out_scores[:, k] = torch.where(write, fscore,
+                                       torch.zeros_like(fscore))
+        out_probs[:, k] = torch.where(wr, fprob, torch.zeros_like(fprob))
+        out_classes[:, k] = torch.where(write, fcls.int(),
+                                        torch.full_like(out_classes[:, k], -1))
+        out_valid[:, k] = write
+        alive = alive & ~cluster
+    return out_boxes, out_scores, out_probs, out_classes, out_valid
+
+
+def fusion_nms(det: Detections, iou_threshold: float,
+               score_method: str = "probEn",
+               box_method: str = "s-avg") -> Detections:
+    """Greedy NMS that fuses each suppression cluster instead of dropping
+    it (coin_tpu/ops/nms.py:137 ``fusion_nms``, the reference's
+    ``nms_bayesian``), batched over the leading image dim (B, N). IoU uses
+    the inclusive +1 convention; clusters are same-class (coordinate
+    offset); the fused set is re-sorted by fused score, stably.
+
+    score_method: 'probEn' | 'avg' | 'max'; box_method: 's-avg' | 'avg' |
+    'max'. On a CUDA tensor the loop and the re-sort run in kernel K6
+    (csrc/fusion_nms.cu); on a CPU tensor in :func:`fusion_nms_plain`."""
+    if det.probs is None:
+        raise ValueError("fusion_nms needs per-class probs")
+    if score_method not in SCORE_METHODS or box_method not in BOX_METHODS:
+        raise NotImplementedError(f"{score_method}, {box_method}")
+    boxes, probs = det.boxes.float(), det.probs.float()
+    if boxes.is_cuda:
+        from coin_tpu_torch.kernels.fusion_nms import fusion_nms_cuda
+        b, s, p, c, v = fusion_nms_cuda(boxes, probs, det.classes.int(),
+                                        det.valid, iou_threshold,
+                                        SCORE_METHODS.index(score_method),
+                                        BOX_METHODS.index(box_method))
+        return Detections(boxes=b, scores=s, classes=c, valid=v, probs=p)
+    b, s, p, c, v = fusion_nms_plain(boxes, probs, det.classes, det.valid,
+                                     iou_threshold, score_method, box_method)
+    out = Detections(boxes=b, scores=s, classes=c, valid=v, probs=p)
+    # emitted in descending seed order, but the reference re-sorts by the
+    # fused score (the reference's nms.py:192)
+    key = -torch.where(v, s, torch.full_like(s, NEG_INF))
+    order = torch.sort(key, dim=-1, stable=True).indices
+    return out.gather(order, torch.gather(v, -1, order))
+
+
+def merge_probs_bayesian(probs_a: torch.Tensor, probs_b: torch.Tensor):
+    """Log-mean fusion of two aligned prob sets (coin_tpu/ops/nms.py:230)
+    → (probs, max prob)."""
+    summed = (torch.log(probs_a.clamp_min(1e-20))
+              + torch.log(probs_b.clamp_min(1e-20))) / 2.0
+    probs = torch.softmax(summed, dim=-1)
+    return probs, probs.amax(dim=-1)
+
+
+def merge_probs_max(probs_a: torch.Tensor, probs_b: torch.Tensor):
+    """The row with the larger max prob wins whole (coin_tpu/ops/nms.py
+    :240) → (probs, max prob)."""
+    sa, sb = probs_a.amax(dim=-1), probs_b.amax(dim=-1)
+    probs = torch.where((sa > sb)[..., None], probs_a, probs_b)
+    return probs, torch.where(sa > sb, sa, sb)
 
 
 def weighted_box_fusion_pair(box_a: torch.Tensor, box_b: torch.Tensor,

@@ -1,6 +1,7 @@
 """Kernel-level profile of the port on one CUDA card.
 
-    python -m coin_tpu_torch.profile_device [--path eval|train] [--iters 5]
+    python -m coin_tpu_torch.profile_device [--path eval|train|collect]
+        [--iters 5]
 
 ``--path eval``: the full-width bf16 detector of
 configs/coin/GDINO/foggy_fast.yaml with random weights from a seed,
@@ -14,6 +15,12 @@ configs/coin/GDINO/foggy_fast.yaml at full width (bf16 with the int8 res5
 of ``TPU.INT8_TRAIN``, batch 3 on the 608 x 1216 canvas, 128 synthetic
 cloud boxes per image, the teacher's own predictions at its 512-proposal
 budget as the cached ones), with the optimizers past warmup.
+
+``--path collect``: ``--iters`` collection batches of the GDINO cloud
+teacher of foggy_fast.yaml at full width (Swin-B, 900 queries, 6 + 6
+layers, BERT-base; bf16 over f32 parameters; random weights in the
+official checkpoint layout): the detector on 4 random u8 images on the
+608 x 1216 canvas, then the fusion NMS of CLOUD.NMS_METHOD.
 
 Prints the device time per call by kernel group and the top kernels, and
 the device's busy share of the window: the kernels' summed time over the
@@ -52,7 +59,9 @@ GROUPS = (
                       "normalize_kernel", "gray_mean_kernel",
                       "vertical_kernel", "horizontal_kernel",
                       "qconv_kernel", "wgrad_kernel", "finish_kernel",
-                      "absmax_kernel", "quantize_kernel", "weight_kernel")),
+                      "absmax_kernel", "quantize_kernel", "weight_kernel",
+                      "window_attention_kernel", "ms_deform_kernel",
+                      "fusion_nms_kernel")),
     ("elementwise", ("elementwise", "vectorized")),
     ("reduction", ("reduce",)),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
@@ -137,11 +146,59 @@ def train_call(device):
     return call
 
 
+def collect_call(device):
+    """One collection batch of foggy_fast.yaml's GDINO teacher, as a
+    closure."""
+    import tempfile
+    from coin_tpu_torch.engine import collect as collect_mod
+    from coin_tpu_torch.models.bert import BertModel
+    from coin_tpu_torch.models.convert_gdino import (bert_state_dict,
+                                                     convert_gdino)
+    from coin_tpu_torch.models.gdino import GroundingDINO
+    from coin_tpu_torch.models.gdino_detector import GDINODetector
+    from coin_tpu_torch.models.manifests import (gdino_manifest,
+                                                 synth_state_dict)
+    from coin_tpu_torch.models.wordpiece import WordPieceTokenizer
+    cfg = load_config(os.path.join(CONFIGS, "foggy_fast.yaml"))
+    sd = synth_state_dict(gdino_manifest(cfg.MODEL.TEACHER_CLOUD.TYPE)[0],
+                          seed=SEED)
+    model = GroundingDINO(cfg.MODEL.TEACHER_CLOUD.TYPE, 900, 6, 6,
+                          dtype=torch.bfloat16)
+    model.load_state_dict(convert_gdino(sd, cfg.MODEL.TEACHER_CLOUD.TYPE))
+    bert_cfg, bert_sd = bert_state_dict(sd)
+    bert = BertModel(bert_cfg)
+    bert.load_state_dict(bert_sd)
+    del sd
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "."] + sorted(
+        {w for n in CITYSCAPES_CLASSES for w in n.split()})
+    with tempfile.NamedTemporaryFile("w", suffix=".txt") as vocab:
+        vocab.write("\n".join(words) + "\n")
+        vocab.flush()
+        det = GDINODetector(model, bert, CITYSCAPES_CLASSES,
+                            WordPieceTokenizer(vocab.name),
+                            threshold=cfg.MODEL.TEACHER_CLOUD.TEST_THRESHOLD,
+                            device=device)
+    fusion = collect_mod.parse_nms_method(cfg.CLOUD.NMS_METHOD)
+    thresh = cfg.CLOUD.TEACHER_CLOUD.COLLECT_NMS_THRESH
+    gen = torch.Generator().manual_seed(SEED)
+    h, w = cfg.TPU.IMAGE_HW
+    images_u8 = torch.randint(0, 256, (4, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(device)
+    image_hw = torch.tensor([[h, w]] * 4, dtype=torch.float32, device=device)
+
+    @torch.inference_mode()
+    def call():
+        return collect_mod.postprocess(det(images_u8, image_hw), fusion,
+                                       thresh)
+    return call
+
+
 def profile_calls(path: str, iters: int, device="cuda"):
     """(wall ms per call, {kernel name: (ms per call, launches per
     call)}) over ``iters`` profiled calls of ``path``."""
     device = resolve_device(device)
-    call = {"eval": eval_call, "train": train_call}[path](device)
+    call = {"eval": eval_call, "train": train_call,
+            "collect": collect_call}[path](device)
     for _ in range(2):
         call()
     torch.cuda.synchronize(device)
@@ -164,14 +221,17 @@ def profile_calls(path: str, iters: int, device="cuda"):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("eval", "train"), default="eval")
+    parser.add_argument("--path", choices=("eval", "train", "collect"),
+                        default="eval")
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
     wall_ms, kernels = profile_calls(args.path, args.iters)
     busy = sum(ms for ms, _ in kernels.values())
     what = {"eval": "one eval batch (4 images, bf16)",
             "train": "one train_step_cached (3 images, bf16, int8 "
-                     "res5)"}[args.path]
+                     "res5)",
+            "collect": "one GDINO collection batch (4 images, bf16, fusion "
+                       "NMS)"}[args.path]
     print(f"{torch.cuda.get_device_name(0)}: {what} {wall_ms:.3f} ms wall, "
           f"{busy:.3f} ms of kernels: device busy "
           f"{100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f}"

@@ -40,6 +40,26 @@ class Detections:
                           fn(self.valid),
                           None if self.probs is None else fn(self.probs))
 
+    def gather(self, idx: torch.Tensor,
+               idx_valid: torch.Tensor) -> "Detections":
+        """Rows ``idx`` (..., K) of every field along the capacity axis;
+        rows where ``idx_valid`` is false become padding (class -1, not
+        valid), as coin_tpu/structures.py:104 ``gather`` per set."""
+        lead = idx.dim() - 1
+
+        def take(a):
+            extra = a.dim() - lead - 1
+            i = idx.reshape(idx.shape + (1,) * extra)
+            return torch.gather(a, lead, i.expand(idx.shape + a.shape[
+                lead + 1:]))
+        return Detections(
+            boxes=take(self.boxes), scores=take(self.scores),
+            classes=torch.where(idx_valid, take(self.classes),
+                                torch.full_like(idx, -1,
+                                                dtype=self.classes.dtype)),
+            valid=take(self.valid) & idx_valid,
+            probs=None if self.probs is None else take(self.probs))
+
 
 def concatenate(a: Detections, b: Detections) -> Detections:
     """Concatenate two padded sets along the capacity axis; ``probs`` only

@@ -1,0 +1,354 @@
+"""The collection pass of the port (coin_tpu_torch.engine.collect with the
+GDINO teacher of engine.cloud_factory) against the JAX package's on the
+CPU: one reduced official-layout checkpoint (swinT, one encoder and one
+decoder layer, 16 queries, a 2-layer BERT; written with torch.save) and
+one vocab.txt go through each package's ``build_cloud_detector``, then
+``collect_cloud`` over the same synthetic VOC images.
+
+Both detectors compute in f32 here (the JAX factory builds a bf16 model;
+the test swaps in f32, and the port's factory takes ``dtype``), so the
+stores hold to 1e-4: the same image ids and per-view counts, each JAX
+detection paired with a port detection of its class (a near-tie may
+order two rows differently), boxes, scores and probs within 1e-4.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import coin_tpu.native
+from coin_tpu.config import load_config as jload_config
+from coin_tpu.data import voc as jvoc
+from coin_tpu.data.loader import TestLoader as JTestLoader
+from coin_tpu.engine import cloud_factory as jcf
+from coin_tpu.engine import collect as jcollect
+from coin_tpu.engine import test as jtest
+from coin_tpu.models import gdino as jgdino
+from coin_tpu.models.gdino_variants import ClassOnlyAdapter as JClassOnly
+from coin_tpu.models.gdino_variants import \
+    SyntheticProbAdapter as JSyntheticProb
+from coin_tpu_torch.config import load_config
+from coin_tpu_torch.data import voc as tvoc
+from coin_tpu_torch.data.loader import TestLoader as TLoader
+from coin_tpu_torch.engine import cloud_factory as tcf
+from coin_tpu_torch.engine import collect as tcollect
+from coin_tpu_torch.engine import test as ttest
+from coin_tpu_torch.engine.results_store import ResultStore
+from coin_tpu_torch.models import gdino_variants as tvar
+from coin_tpu_torch.models.manifests import gdino_manifest, synth_state_dict
+
+CLASSES = ("car", "person")
+TOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_setup():
+    """Two intra-op torch threads beside the suite's other workers; the
+    JAX loaders decode with PIL, as the port does."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(coin_tpu.native, "available", lambda: False)
+        yield
+    torch.set_num_threads(n)
+
+
+def _configure(cfg, assets):
+    cfg.DATASETS.ROOT = assets["root"]
+    cfg.DATASETS.TRAIN_UNLABEL = ["tcolsynth"]
+    cfg.DATASETS.TEST = ["tcolsynthval"]
+    cfg.OUTPUT_DIR = assets["out"]
+    cfg.MODEL.TEACHER_CLOUD.WEIGHT = assets["ckpt"]
+    cfg.MODEL.TEACHER_CLOUD.TYPE = "swinT"
+    cfg.TPU.BERT_VOCAB = assets["vocab"]
+    cfg.TPU.GDINO_ENC_LAYERS = 1
+    cfg.TPU.GDINO_DEC_LAYERS = 1
+    cfg.INPUT.TEACHER_CLOUD.MIN_SIZE_TEST = 64
+    cfg.INPUT.TEACHER_CLOUD.MAX_SIZE_TEST = 96
+    cfg.TEST.IMS_PER_BATCH = 2
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    root = tmp_path_factory.mktemp("collect")
+    jvoc.make_synthetic_voc(str(root / "synth/VOC2007"), num_images=3,
+                            split="train")
+    jvoc.make_synthetic_voc(str(root / "synth/VOC2007"), num_images=3,
+                            split="val", seed=11)
+    for reg in (jvoc.register_pascal_voc, tvoc.register_pascal_voc):
+        reg("tcolsynth", "synth/VOC2007", "train", CLASSES, ".jpg")
+        reg("tcolsynthval", "synth/VOC2007", "val", CLASSES, ".jpg")
+    vocab = root / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", ".",
+                                "car", "person", "a"]) + "\n")
+    keys, _ = gdino_manifest("swinT", 1, 1, 16, 2, bert_vocab=16)
+    sd = synth_state_dict(keys, seed=3)
+    rng = np.random.RandomState(4)
+    for k, v in sd.items():      # norms near 1 keep the scores apart
+        if v.ndim == 1 and k.endswith(".weight") and (
+                "norm" in k or "LayerNorm" in k or ".1.weight" in k):
+            sd[k] = (1.0 + 0.1 * rng.randn(*v.shape)).astype(np.float32)
+    ckpt = str(root / "gdino_tiny.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               ckpt)
+    out = root / "out"
+    out.mkdir()
+    a = dict(root=str(root), vocab=str(vocab), ckpt=ckpt, out=str(out))
+    a["jcfg"] = _configure(jload_config(), a)
+    a["cfg"] = _configure(load_config(), a)
+    return a
+
+
+def _jax_f32_gdino(monkeypatch):
+    """The JAX factory builds its GDINO in bf16; these tests compare f32."""
+    orig = jgdino.GroundingDINO
+    monkeypatch.setattr(jgdino, "GroundingDINO", lambda **kw: orig(
+        **{**kw, "dtype": jnp.float32}))
+
+
+@pytest.fixture(scope="module")
+def detectors(assets):
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_f32_gdino(mp)
+        jdet = jcf.build_cloud_detector(assets["jcfg"], "GDINO", CLASSES)
+    tdet = tcf.build_cloud_detector(assets["cfg"], "GDINO", CLASSES,
+                                    device="cpu", dtype=torch.float32)
+    return jdet, tdet
+
+
+def _loaders(assets, name="tcolsynth"):
+    kw = dict(batch_size=2, min_size=64, max_size=96)
+    return (JTestLoader(name, assets["root"], **kw),
+            TLoader(name, assets["root"], **kw))
+
+
+def assert_dets_match(a, b, what=""):
+    """Rows of b (JAX) each paired with a row of a (the port) of its
+    class, nearest in score and box; all fields within TOL."""
+    assert len(a["scores"]) == len(b["scores"]), what
+    free = list(range(len(a["scores"])))
+    for i in range(len(b["scores"])):
+        cand = [k for k in free if a["classes"][k] == b["classes"][i]]
+        assert cand, (what, i)
+        k = min(cand, key=lambda k: abs(a["scores"][k] - b["scores"][i])
+                + np.abs(a["boxes"][k] - b["boxes"][i]).max())
+        free.remove(k)
+        for f in ("boxes", "scores", "probs"):
+            np.testing.assert_allclose(a[f][k], b[f][i], rtol=TOL, atol=TOL,
+                                       err_msg=f"{what} {f}")
+
+
+def assert_stores_match(t, j):
+    assert sorted(t.image_ids()) == sorted(j.image_ids())
+    for iid in j.image_ids():
+        for view in ("RCNN", "RPN"):
+            assert_dets_match(t.get_view(iid, view), j.get_view(iid, view),
+                              f"{iid} {view}")
+
+
+@pytest.mark.parametrize("nms_method", ["ms", "nms"])
+def test_collect_cloud_matches_jax(assets, detectors, nms_method):
+    jdet, tdet = detectors
+    jl, tl = _loaders(assets)
+    kw = dict(nms_method=nms_method, collect_nms_thresh=0.6,
+              rcnn_thresh=0.25, rpn_thresh=0.3)
+    jstore = jcollect.collect_cloud(jdet, jl, len(CLASSES), **kw)
+    tstore = tcollect.collect_cloud(tdet, tl, len(CLASSES), device="cpu",
+                                    **kw)
+    assert len(tstore) == 3
+    counts = [len(tstore.get_view(i, "RCNN")["scores"])
+              for i in tstore.image_ids()]
+    assert all(0 < c < 16 for c in counts), counts   # NMS merged some
+    assert_stores_match(tstore, jstore)
+    # the npz round trip the trainer path reads
+    path = os.path.join(assets["out"], f"collect_{nms_method}.npz")
+    tstore.save(path)
+    again = ResultStore.load(path)
+    assert_stores_match(again, jstore)
+
+
+def test_per_class_test_matches_jax(assets, detectors, monkeypatch):
+    for cfg in (assets["jcfg"], assets["cfg"]):
+        monkeypatch.setitem(cfg.MODEL.TEACHER_CLOUD, "PER_CLASS_TEST", True)
+    _jax_f32_gdino(monkeypatch)
+    jdet = jcf.build_cloud_detector(assets["jcfg"], "GDINO", CLASSES)
+    tdet = tcf.build_cloud_detector(assets["cfg"], "GDINO", CLASSES,
+                                    device="cpu", dtype=torch.float32)
+    batch, _ = next(iter(_loaders(assets)[1]))
+    jout = jdet(jnp.asarray(batch.images), jnp.asarray(batch.image_hw))
+    tout = tdet(torch.from_numpy(batch.images),
+                torch.from_numpy(batch.image_hw))
+    assert tout.boxes.shape == (2, 2 * 16, 4)  # min(128, nq) per class
+    for i in range(2):
+        jv, tv = np.asarray(jout.valid[i]), tout.valid[i].numpy()
+        assert_dets_match(
+            {f: getattr(tout, f)[i].numpy()[tv] for f in
+             ("boxes", "scores", "classes", "probs")},
+            {f: np.asarray(getattr(jout, f)[i])[jv] for f in
+             ("boxes", "scores", "classes", "probs")}, f"image {i}")
+
+
+def test_class_only_and_synthetic_prob_adapters_match_jax(assets,
+                                                          detectors):
+    jdet, tdet = detectors
+    batch, _ = next(iter(_loaders(assets)[1]))
+    for jwrap, twrap in ((JClassOnly, tvar.ClassOnlyAdapter),
+                         (JSyntheticProb, tvar.SyntheticProbAdapter)):
+        jout = jwrap(jdet, 2)(jnp.asarray(batch.images),
+                              jnp.asarray(batch.image_hw))
+        tout = twrap(tdet, 2)(torch.from_numpy(batch.images),
+                              torch.from_numpy(batch.image_hw))
+        np.testing.assert_array_equal(tout.valid.numpy(),
+                                      np.asarray(jout.valid))
+        for f in ("scores", "probs"):
+            np.testing.assert_allclose(getattr(tout, f).numpy(),
+                                       np.asarray(getattr(jout, f)),
+                                       rtol=TOL, atol=TOL)
+    # the factory's GDINO_CLASSONLY is the adapter around the detector
+    det = tcf.build_cloud_detector(assets["cfg"], "GDINO_CLASSONLY", CLASSES,
+                                   device="cpu", dtype=torch.float32)
+    assert isinstance(det, tvar.ClassOnlyAdapter) and det.num_classes == 2
+
+
+def test_live_and_store_eval_trainers_match_jax(assets, detectors,
+                                                monkeypatch):
+    """CloudLiveEvalTrainer (the teacher run live over the val split, here
+    the shared detectors) and StoreEvalTrainer (a collected npz) give
+    JAX's AP; build_eval_trainer picks between them as JAX does."""
+    jdet, tdet = detectors
+    monkeypatch.setattr(jcf, "build_cloud_detector", lambda *a, **k: jdet)
+    monkeypatch.setattr(tcf, "build_cloud_detector", lambda *a, **k: tdet)
+    jres = jtest.CloudLiveEvalTrainer(assets["jcfg"]).test()
+    tres = ttest.CloudLiveEvalTrainer(assets["cfg"], device="cpu").test()
+    assert tres.keys() == jres.keys()
+    for k in jres:
+        assert tres[k] == pytest.approx(jres[k], abs=1e-6), k
+
+    jl, _ = _loaders(assets, "tcolsynthval")
+    path = os.path.join(assets["out"], "val_collect.npz")
+    jcollect.collect_cloud(jdet, jl, 2, rcnn_thresh=0.3).save(path)
+    for cfg in (assets["jcfg"], assets["cfg"]):
+        monkeypatch.setitem(cfg.CLOUD, "COLLECT_FILE", path)
+    t = ttest.build_eval_trainer(assets["cfg"], "GDINO_test", device="cpu")
+    assert isinstance(t, ttest.StoreEvalTrainer)
+    assert isinstance(ttest.build_eval_trainer(assets["cfg"], "CLIP_test"),
+                      ttest.StoreEvalTrainer)
+    jres = jtest.build_eval_trainer(assets["jcfg"], "GDINO_test").test()
+    assert t.test() == jres
+    monkeypatch.setitem(assets["cfg"].CLOUD, "COLLECT_FILE", "")
+    assert isinstance(ttest.build_eval_trainer(assets["cfg"], "GLIP_test",
+                                               device="cpu"),
+                      ttest.CloudLiveEvalTrainer)
+
+
+def test_rescore_with_shared_scorer_matches_jax(assets, detectors):
+    """rescore_with_clip of one store through both packages with one
+    numpy scorer: identical stores (background-classified boxes
+    dropped)."""
+    jdet, _ = detectors
+    jl, tl = _loaders(assets)
+    jstore = jcollect.collect_cloud(jdet, jl, 2, rcnn_thresh=0.2,
+                                    rpn_thresh=0.2)
+    path = os.path.join(assets["out"], "to_rescore.npz")
+    jstore.save(path)
+    w = np.random.RandomState(6).randn(4, 3).astype(np.float32) / 30
+
+    def scorer(images, boxes):
+        z = np.asarray(boxes, np.float32) @ w
+        e = np.exp(z - z.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+    want = jcollect.rescore_with_clip(scorer, jstore, jl, capacity=16)
+    got = tcollect.rescore_with_clip(
+        lambda im, bx: torch.from_numpy(scorer(im, bx.numpy())),
+        ResultStore.load(path), tl, capacity=16, device="cpu")
+    assert sorted(got.image_ids()) == sorted(want.image_ids())
+    dropped = 0
+    for iid in want.image_ids():
+        for view in ("RCNN", "RPN"):
+            a, b = got.get_view(iid, view), want.get_view(iid, view)
+            dropped += len(jstore.get_view(iid, view)["scores"]) \
+                - len(b["scores"])
+            for f in a:
+                np.testing.assert_array_equal(a[f], b[f])
+    assert dropped > 0
+
+
+@pytest.mark.parametrize("method", ["ms", "pa", "am", "mm", "nms", "ps"])
+def test_parse_nms_method_matches_jax(method):
+    assert tcollect.parse_nms_method(method) == \
+        jcollect.parse_nms_method(method)
+
+
+def test_unported_paths_raise(assets):
+    tl = _loaders(assets)[1]
+    with pytest.raises(NotImplementedError, match="COLLECT_AUG"):
+        tcollect.collect_cloud(None, tl, 2, collect_aug="ZOOM",
+                               device="cpu")
+    for arch, item in (("GLIP", "item 20"), ("GDINO1_5_API", "item 20")):
+        with pytest.raises(NotImplementedError, match=item):
+            tcf.build_cloud_detector(assets["cfg"], arch, CLASSES,
+                                     device="cpu")
+    with pytest.raises(NotImplementedError, match="item"):
+        tcf.build_clip_scorer(assets["cfg"], CLASSES)
+    with pytest.raises(NotImplementedError, match="network"):
+        tvar.GDINO15APIDetector("token", CLASSES)
+    with pytest.raises(ValueError, match="unsupported"):
+        tcf.build_cloud_detector(assets["cfg"], "YOLO", CLASSES,
+                                 device="cpu")
+
+
+def test_entry_points_raise_without_cuda(assets, monkeypatch):
+    """The collection path runs on the card unless the caller passes
+    device="cpu"; without one it raises, never falling back."""
+    from coin_tpu_torch.engine.pre_train import online_view_to_detections
+    from coin_tpu_torch.tools import collect as cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tl = _loaders(assets)[1]
+    view = {k: np.zeros((1, 2) + s, t) for k, s, t in (
+        ("boxes", (4,), np.float32), ("scores", (), np.float32),
+        ("classes", (), np.int32), ("valid", (), bool),
+        ("probs", (3,), np.float32))}
+    for call in (
+            lambda: tcf.build_cloud_detector(assets["cfg"], "GDINO",
+                                             CLASSES),
+            lambda: tcf.build_synthetic_detector(CLASSES),
+            lambda: tcollect.collect_cloud(None, tl, 2),
+            lambda: ttest.CloudLiveEvalTrainer(assets["cfg"]),
+            lambda: online_view_to_detections(view),
+            lambda: cli.main(["--config", assets["yaml"],
+                              "--synthetic-teacher"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cli_config(assets):
+    path = os.path.join(assets["root"], "collect.yaml")
+    with open(path, "w") as f:
+        f.write(f"OUTPUT_DIR: {assets['out']}/cli\n"
+                f"DATASETS:\n  ROOT: {assets['root']}\n"
+                f"  TRAIN_UNLABEL: [tcolsynth]\n"
+                f"INPUT:\n  TEACHER_CLOUD:\n    MIN_SIZE_TEST: 64\n"
+                f"    MAX_SIZE_TEST: 96\n")
+    assets["yaml"] = path
+
+
+def test_collect_cli_with_synthetic_teacher_on_cpu(assets):
+    """python -m coin_tpu_torch.tools.collect --synthetic-teacher: the
+    random tiny GDINO and the stub scorer write both stores."""
+    from coin_tpu_torch.tools import collect as cli
+    cli.main(["--config", assets["yaml"], "--synthetic-teacher",
+              "--device", "cpu"])
+    out = os.path.join(assets["out"], "cli")
+    raw = ResultStore.load(os.path.join(out, "GDINO_collect.npz"))
+    clip = ResultStore.load(os.path.join(out, "CLIP_collect.npz"))
+    assert len(raw) == len(clip) == 3
+    view = raw.get_view(raw.image_ids()[0], "RCNN")
+    assert view["probs"].shape[1] == 3 and len(view["scores"]) > 0
+    rescored = clip.get_view(clip.image_ids()[0], "RCNN")
+    np.testing.assert_array_equal(rescored["classes"],
+                                  rescored["probs"].argmax(-1))

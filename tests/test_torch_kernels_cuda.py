@@ -6,6 +6,7 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py -q
 
+Tolerances of the collection kernels: in their test's docstring.
 Tolerances: RoIAlign 1e-5 in f32 (the same arithmetic summed in another
 order), NMS keep masks equal, normalisation 1e-6; the RoIAlign backward
 (K1b) 1e-5 of the largest |d features| in f32 (its atomics add in no fixed
@@ -256,3 +257,98 @@ def test_int8_train_conv_on_card_matches_cpu(cuda_device, qt):
         else:
             tol = 2.0 ** -7 * float(b.abs().max())
             assert float((a - b).abs().max()) <= tol, name
+
+
+def _fusion_case(rng, n=256, c1=9, b=4):
+    """Clusters of overlapping boxes of one and of two classes, exact score
+    ties, identical rows and invalid rows."""
+    centres = rng.uniform(40, 560, (b, 12, 2))
+    pick = rng.randint(0, 12, (b, n))
+    xy = np.take_along_axis(centres, pick[..., None], 1) \
+        + rng.uniform(-12, 12, (b, n, 2))
+    wh = rng.uniform(30, 80, (b, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    probs = rng.dirichlet(np.ones(c1), (b, n)).astype(np.float32)
+    probs[:, 10:20] = probs[:, :1]                        # exact ties
+    boxes[:, 10:20] = boxes[:, :1]
+    classes = probs[..., :-1].argmax(-1).astype(np.int32)
+    classes[:, 30:60] = rng.randint(0, c1 - 1, (b, 30))   # not the argmax
+    valid = rng.uniform(size=(b, n)) > 0.15
+    classes[~valid] = -1
+    return boxes, probs, classes, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["window_attention", "ms_deform",
+                                   "fusion_nms"])
+def test_collection_kernel_matches_plain_version_on_card(cuda_device, which):
+    """K9 in f32 (1e-5) and bf16 (2 bf16 ulps of the largest output), with
+    and without the shift mask; K7 in f32 (1e-5) and on bf16 values within
+    one bf16 rounding of the plain version run in f32 (the kernel computes
+    in f32 and rounds once; JAX's order rounds every tap to bf16);
+    K6 for all 9 method pairs: the same valid rows and classes, boxes,
+    scores and probs within 1e-5 (sums and logs in another order)."""
+    from coin_tpu_torch.models import deformable as tdef
+    from coin_tpu_torch.models import swin as tswin
+    rng = np.random.RandomState(3)
+    dev = cuda_device
+    if which == "window_attention":
+        for heads, d, win, windows, shift in ((4, 32, 12, 6, 6),
+                                              (3, 32, 7, 4, 0),
+                                              (2, 64, 7, 4, 3)):
+            n = win * win
+            qkv = torch.from_numpy(rng.randn(2 * windows, n, 3, heads, d)
+                                   .astype(np.float32)).to(dev)
+            table = torch.from_numpy(rng.randn((2 * win - 1) ** 2, heads)
+                                     .astype(np.float32)).to(dev)
+            index = torch.from_numpy(tswin._rel_pos_index(win)).to(dev)
+            side = int(np.sqrt(windows)) * win
+            mask = (torch.from_numpy(tswin._attn_mask(side, side, win, shift))
+                    .to(dev) if shift else None)
+            for dtype in (torch.float32, torch.bfloat16):
+                got = tswin.window_attention(qkv.to(dtype), table, index,
+                                             mask).float()
+                want = tswin.window_attention_plain(qkv.to(dtype), table,
+                                                    index, mask).float()
+                tol = (1e-5 if dtype == torch.float32
+                       else 2.0 ** -7 * float(want.abs().max()))
+                assert float((got - want).abs().max()) <= tol, (n, dtype)
+    elif which == "ms_deform":
+        shapes = [(19, 38), (10, 19), (5, 10), (3, 5)]
+        starts = np.cumsum([0] + [h * w for h, w in shapes[:-1]]).tolist()
+        total = sum(h * w for h, w in shapes)
+        values = torch.from_numpy(rng.randn(2, total, 8, 32)
+                                  .astype(np.float32)).to(dev)
+        loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (2, 300, 8, 4, 4, 2))
+                               .astype(np.float32)).to(dev)
+        attw = torch.softmax(torch.from_numpy(
+            rng.randn(2, 300, 8, 16).astype(np.float32)), -1).reshape(
+                2, 300, 8, 4, 4).to(dev)
+        got = tdef.ms_deform_sample(values, shapes, starts, loc, attw)
+        want = tdef.ms_deform_sample_plain(values, shapes, starts, loc, attw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        # bf16 values: the kernel computes in f32 and rounds once
+        vb = values.to(torch.bfloat16)
+        got = tdef.ms_deform_sample(vb, shapes, starts, loc, attw)
+        want = tdef.ms_deform_sample_plain(vb.float(), shapes, starts, loc,
+                                           attw)
+        torch.testing.assert_close(got.float(), want.to(torch.bfloat16)
+                                   .float(), rtol=2.0 ** -8, atol=1e-5)
+    else:
+        from coin_tpu_torch.structures import Detections
+        boxes, probs, classes, valid = (torch.from_numpy(a).to(dev) for a in
+                                        _fusion_case(rng))
+        det = Detections(boxes=boxes, scores=probs.amax(-1), classes=classes,
+                         valid=valid, probs=probs)
+        for sm in tnms.SCORE_METHODS:
+            for bm in tnms.BOX_METHODS:
+                got = tnms.fusion_nms(det, 0.6, sm, bm)
+                want = tnms.fusion_nms(det.map(lambda t: t.cpu()), 0.6, sm,
+                                       bm)
+                assert torch.equal(got.valid.cpu(), want.valid), (sm, bm)
+                assert torch.equal(got.classes.cpu(), want.classes), (sm, bm)
+                for f in ("boxes", "scores", "probs"):
+                    torch.testing.assert_close(
+                        getattr(got, f).cpu(), getattr(want, f), rtol=1e-5,
+                        atol=1e-5, msg=f"{sm} {bm} {f}")
+                assert 0 < int(want.valid.sum()) < int(valid.sum())

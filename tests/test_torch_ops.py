@@ -191,11 +191,17 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["roi_align", "nms", "normalize",
-                                   "quantize", "qconv", "qconv_wgrad"])
+                                   "quantize", "qconv", "qconv_wgrad",
+                                   "window_attention", "ms_deform",
+                                   "fusion_nms"])
 def test_cuda_launchers_refuse_cpu_tensors(which):
     """A launcher never falls back: a CPU tensor is refused before any
     build or launch."""
     from coin_tpu_torch.kernels import qconv as kq
+    from coin_tpu_torch.kernels.fusion_nms import fusion_nms_cuda
+    from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
+    from coin_tpu_torch.kernels.window_attention import \
+        window_attention_cuda
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
     from coin_tpu_torch.kernels.roi_align import roi_align_cuda
@@ -215,6 +221,17 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
         "normalize": lambda: normalize_cuda(
             torch.zeros(1, 2, 2, 3, dtype=torch.uint8), taug.CLIP_MEAN,
             taug.CLIP_STD),
+        "window_attention": lambda: window_attention_cuda(
+            torch.zeros(2, 49, 3, 2, 32), torch.zeros(169, 2),
+            torch.zeros(49, 49, dtype=torch.int32), None),
+        "ms_deform": lambda: ms_deform_cuda(
+            torch.zeros(1, 5, 2, 8), torch.ones(1, 2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3, 2, 1, 4, 2),
+            torch.zeros(1, 3, 2, 1, 4)),
+        "fusion_nms": lambda: fusion_nms_cuda(
+            torch.zeros(1, 8, 4), torch.zeros(1, 8, 3),
+            torch.zeros(1, 8, dtype=torch.int32),
+            torch.zeros(1, 8, dtype=torch.bool), 0.6, 0, 0),
     }[which]
     with pytest.raises(ValueError, match="CUDA"):
         call()

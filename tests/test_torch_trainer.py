@@ -411,8 +411,8 @@ def test_checkpoint_resume_continues_bit_for_bit(setup, tmp_path,
     batch = tr.train_loader._attach_store(batch)
     from coin_tpu_torch.engine.pre_train import online_view_to_detections
     args = (torch.from_numpy(batch.images), torch.from_numpy(batch.image_hw),
-            online_view_to_detections(batch.online["RCNN"]),
-            online_view_to_detections(batch.online["RPN"]))
+            online_view_to_detections(batch.online["RCNN"], device="cpu"),
+            online_view_to_detections(batch.online["RPN"], device="cpu"))
     out = [t._train_step(t.state, *args) for t in (tr, tr2)]
     (s1, l1), (s2, l2) = out
     assert l1.keys() == l2.keys()

@@ -54,6 +54,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    1024 x 2048 images; the npz read back as the trainer reads it. K4n, K6,
    K7 and K9 must launch. Prints ms per image, device ms per batch, a
    stage split and detections before and after K6.
+11. GLIP reference: the full-width Swin-L GLIP (8 VLDyHead blocks) and
+   BERT-base in f32 on the card against the CPU, stage by stage (Swin,
+   FPN, each block, head, post-processing), on 2 x 192 x 256.
+12. GLIP collection path: build_cloud_detector of
+   configs/coin/GLIP/foggy.yaml's teacher from a random GLIP-L checkpoint
+   file in the official layout (Swin-L, 8 blocks, BERT-base, bf16 over f32
+   parameters), then collect_cloud with the Probabilistic-Fusion NMS over 8
+   synthetic 1024 x 2048 images; the npz read back as the trainer reads
+   it. K4n, K9, K8, K3 and K6 must launch. Prints ms per image, device ms
+   per batch, a stage split (Swin, FPN, the blocks' VLFuse, language layer
+   and DyConv, head and post-processing), detections before and after K6,
+   peak memory, and the checkpoint's write and build seconds.
+
+Phase 3 also holds K8 (the modulated deformable 3x3 conv of the GLIP
+teacher) at each of its call shapes in GLIP-L's collection batch against
+its plain version. The script prints its own wall time.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or coin_tpu.
@@ -1911,7 +1927,394 @@ def phase_collect_path(torch, dev, sd, counters):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------ the GLIP teacher
+# GLIP-L of configs/coin/GLIP/foggy.yaml: Swin-L, 8 VLDyHead blocks,
+# BERT-base; its levels P3-P7 on the 4 x 608 x 1216 canvas
+GLIP = dict(variant="swinL", blocks=8, bert_layers=12, bert_vocab=30522)
+GLIP_LEVELS = ((76, 152), (38, 76), (19, 38), (10, 19), (5, 10))
+
+
+def _deform_calls():
+    """K8's distinct call shapes in one VLDyHead block, with their count:
+    the mid branch on every level, the high branch on P4-P7 (the same
+    shapes), the low branch from the finer level at stride 2 onto P4-P7;
+    13 calls per block."""
+    calls = []
+    for lvl, hw in enumerate(GLIP_LEVELS):
+        calls.append((f"P{lvl + 3} stride 1", hw, 1, 1 if lvl == 0 else 2))
+    for lvl in range(1, len(GLIP_LEVELS)):
+        calls.append((f"P{lvl + 2} onto P{lvl + 3} stride 2",
+                      GLIP_LEVELS[lvl - 1], 2, 1))
+    return calls
+
+
+def phase_deform_conv(torch, dev, gen):
+    """K8 at every call shape of GLIP-L's collection batch (256 -> 256
+    channels, f32, TF32 off), against its plain version, with offsets of
+    up to 3 pixels that put taps outside the map and a non-unit mask.
+    Library: PyTorch has no modulated deformable conv (torchvision is
+    absent), so none; as context only, cuDNN's dense f32 3x3 conv of the
+    same shape (not the same function). Bound: the operations,
+    2 x 9 x 256 x 256 per output position, on the f32 CUDA cores."""
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.kernels.deform_conv import deform_conv_cuda
+    from coin_tpu_torch.models import glip
+    F = torch.nn.functional
+    parity_numerics()
+    c = 256
+    kernel = (torch.randn((3, 3, c, c), generator=gen) / 48).to(dev)
+    bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
+    dense_w = kernel.permute(3, 2, 0, 1).contiguous()
+    cases, worst = [], 0.0
+    for label, (h, w), stride, per_block in _deform_calls():
+        ho, wo = -(-h // stride), -(-w // stride)
+        x = torch.randn((4, h, w, c), generator=gen).to(dev)
+        offsets = (torch.rand((4, ho, wo, 18), generator=gen) * 6
+                   - 3).to(dev)
+        mask = torch.sigmoid(torch.randn((4, ho, wo, 9),
+                                         generator=gen)).to(dev)
+        got = deform_conv_cuda(x, offsets, mask, kernel, bias, stride)
+        want = glip.deform_conv3x3_plain(x, offsets, mask, kernel, bias,
+                                         stride)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= 1e-5 * scale, f"deform_conv {label}: max abs err {err} "
+              f"> 1e-5 x max |out| {scale}")
+        worst = max(worst, err)
+        ms = time_ms(torch, lambda: deform_conv_cuda(x, offsets, mask, kernel,
+                                                     bias, stride))
+        plain_ms = time_ms(torch, lambda: glip.deform_conv3x3_plain(
+            x, offsets, mask, kernel, bias, stride), iters=3, warmup=1)
+        xn = x.permute(0, 3, 1, 2)
+        dense_ms = time_ms(torch, lambda: F.conv2d(xn, dense_w, bias,
+                                                   stride=stride, padding=1))
+        positions = 4 * ho * wo
+        nbytes = 4 * (x.numel() + offsets.numel() + mask.numel()
+                      + kernel.numel() + c + positions * c)
+        b_ms, b_by = bound(nbytes, 2 * 9 * c * c * positions)
+        cases.append(dict(case=label, per_block=per_block, x=[4, h, w, c],
+                          out=[4, ho, wo, c], max_abs_err=err,
+                          max_abs_out=scale, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, dense_conv_ms=dense_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        print(f"[K8 deform_conv] {label}: {positions} positions "
+              f"(x{per_block} per block): max abs err {err:.3g} of max |out| "
+              f"{scale:.3g} (tol 1e-5 x max |out|); {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); cuDNN dense "
+              f"f32 3x3 conv of the same shape (not the same function) "
+              f"{dense_ms:.4f} ms")
+        del x, offsets, mask, got, want, xn
+    torch.cuda.empty_cache()
+    blocks = GLIP["blocks"]
+    tot = {k: blocks * sum(cs[k] * cs["per_block"] for cs in cases)
+           for k in ("ms", "plain_ms", "bound_ms", "dense_conv_ms")}
+    by = max(cases, key=lambda cs: cs["bound_ms"] * cs["per_block"])[
+        "bound_by"]
+    launches = sum(cs["per_block"] for cs in cases) * blocks
+    print(f"[K8 deform_conv] one GLIP-L forward ({launches} launches): "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({by}); library: none (dense cuDNN f32 "
+          f"3x3 convs of the same shapes, as context: "
+          f"{tot['dense_conv_ms']:.3f} ms)")
+    return dict(name="deform_conv", route="cuda",
+                source="coin_tpu_torch/csrc/deform_conv.cu",
+                replaces="coin_tpu/models/glip.py:51", max_abs_err=worst,
+                library_ms=None, bound_by=by, cases=cases, **tot)
+
+
+def glip_checkpoint(torch):
+    """A random GLIP-L checkpoint (Swin-L, 8 blocks, BERT-base with 30 522
+    rows) in the official key layout of manifests.glip_manifest: N(0,
+    0.02²) from a seeded generator, the norms' scales moved near 1 so that
+    activations stay away from zero. Torch tensors, about 1.7 GB."""
+    from coin_tpu_torch.models.manifests import glip_manifest
+    keys, _ = glip_manifest(GLIP["variant"], GLIP["blocks"],
+                            bert_layers=GLIP["bert_layers"],
+                            bert_vocab=GLIP["bert_vocab"])
+    gen = torch.Generator().manual_seed(SEED + 30)
+    sd = {}
+    for k, shape in keys.items():
+        v = torch.randn(shape, generator=gen) * 0.02
+        if len(shape) == 1 and not k.endswith(".bias") and (
+                "norm" in k or "LayerNorm" in k or ".bn." in k):
+            v = 1.0 + 5.0 * v
+        sd[k] = v
+    return sd
+
+
+def phase_glip_reference(torch, dev, sd):
+    """The full-width Swin-L GLIP (8 blocks) and BERT-base in f32 on the
+    card (kernels) against the same weights on the CPU (plain versions),
+    TF32 off, on 2 x 192 x 256: stage by stage, each stage from the CPU's
+    output of the stage before, so that an error does not carry over;
+    post-processing from the CPU's head outputs on both sides."""
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.models.convert_gdino import bert_model
+    from coin_tpu_torch.models.convert_glip import BERT_PREFIX, convert_glip
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    from coin_tpu_torch.models.glip import GLIP as GLIPModel
+    from coin_tpu_torch.models.glip_detector import (glip_anchors,
+                                                     postprocess_glip)
+    parity_numerics()
+    params = convert_glip(sd, GLIP["variant"])
+    gen = torch.Generator().manual_seed(SEED + 31)
+    cells = torch.randint(0, 256, (2, 12, 16, 3), generator=gen,
+                          dtype=torch.uint8)
+    images_u8 = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    ids = torch.randint(1000, 30000, (2, 14), generator=gen)
+    tmask = torch.ones((2, 14), dtype=torch.bool)
+    tmask[1, 11:] = False
+    hw = torch.tensor([[192.0, 256.0], [192.0, 240.0]])
+    pm = torch.zeros((8, 14))
+    for cls in range(8):
+        pm[cls, 1 + cls] = 1.0
+    out, ref = {}, {}
+    for name, d in (("cpu", "cpu"), ("gpu", dev)):
+        model = GLIPModel(GLIP["variant"], GLIP["blocks"]).to(d)
+        model.load_state_dict(params, strict=True)
+        bert = bert_model(sd, BERT_PREFIX).to(d)
+        t = lambda x: x.to(d)
+        src = lambda key, x: x if name == "cpu" else \
+            [v.to(d) for v in ref[key]] if isinstance(x, list) \
+            else ref[key].to(d)
+        o = {}
+        with torch.inference_mode():
+            o["bert"] = bert(t(ids), t(tmask))
+            images = normalize_batch(t(images_u8), IMAGENET_MEAN,
+                                     IMAGENET_STD)
+            o["swin"] = model.backbone(images)
+            o["fpn"] = model.fpn(src("swin", o["swin"]))
+            levels, lang = src("fpn", o["fpn"]), src("bert", o["bert"])
+            for i, blk in enumerate(model.blocks()):
+                o[f"block{i}"], o[f"lang{i}"] = blk(levels, lang, t(tmask))
+                levels = src(f"block{i}", o[f"block{i}"])
+                lang = src(f"lang{i}", o[f"lang{i}"])
+            o["head"] = list(model.head(levels, lang))
+            shapes = [(f.shape[1], f.shape[2]) for f in levels]
+            anchors = t(torch.from_numpy(glip_anchors(shapes)))
+            det = postprocess_glip(*src("head", o["head"]), anchors, t(pm),
+                                   t(hw), 8)
+        o = {k: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()
+             for k, v in o.items()}
+        o["det"] = det.map(lambda x: x.cpu())
+        (ref if name == "cpu" else out).update(o)
+        del model, bert
+    torch.cuda.empty_cache()
+    check(shapes == [(24, 32), (12, 16), (6, 8), (3, 4), (2, 2)],
+          f"{shapes}")
+
+    def rel(a, b):
+        if isinstance(a, list):
+            return max(rel(x, y) for x, y in zip(a, b))
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+    errs = {k: rel(out[k], ref[k]) for k in ref if k != "det"}
+    g, c = out["det"], ref["det"]
+    same = (g.valid == c.valid) & (g.classes == c.classes) & (
+        (g.boxes - c.boxes).abs().amax(-1) <= 1e-3)
+    agree = same.float().mean().item()
+    print(f"[GLIP reference] Swin-L GLIP (8 blocks) + BERT-base in f32, card "
+          f"vs CPU, 2 x 192 x 256, 14 tokens (3 padded), each stage from the "
+          f"CPU's input: relative max errors {json.dumps(errs)} (tol 1e-3); "
+          f"post-processing of the CPU's head outputs: {int(c.valid.sum())} "
+          f"detections on the CPU, rows that agree {agree:.4f}")
+    check(all(v <= 1e-3 for v in errs.values()), f"GLIP reference: {errs}")
+    check(agree >= 0.99 and int(c.valid.sum()) > 0,
+          "GLIP reference: post-processing")
+
+
+def phase_glip_collect_path(torch, dev, sd, counters):
+    """The collection pass with the GLIP teacher: build_cloud_detector of
+    configs/coin/GLIP/foggy.yaml's teacher (Swin-L, 8 VLDyHead blocks,
+    BERT-base; bf16 over f32 parameters, DyConv in f32) from a checkpoint
+    file in the official layout, then collect_cloud with CLOUD.NMS_METHOD
+    'ms' over 8 synthetic 1024 x 2048 images (2 batches of 4 on
+    608 x 1216); the npz saved, loaded and packed as the trainer reads it.
+    K4n, K9, K8, K3 and K6 must launch."""
+    import tempfile
+    import numpy as np
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.data.loader import TestLoader, _resize_factor
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES,
+                                         make_synthetic_voc,
+                                         register_pascal_voc)
+    from coin_tpu_torch.engine import collect as collect_mod
+    from coin_tpu_torch.engine.cloud_factory import build_cloud_detector
+    from coin_tpu_torch.engine.results_store import ResultStore
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    n_images = 8
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_glip_")
+    root = os.path.join(REPO, "output", "chip_smoke_collect_glip")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ckpt = os.path.join(tmp, "glip_large_random.pth")
+        t0 = time.perf_counter()
+        torch.save({"model": sd}, ckpt)
+        save_s = time.perf_counter() - t0
+        vocab = os.path.join(tmp, "vocab.txt")
+        _synthetic_vocab(vocab, CITYSCAPES_CLASSES)
+        make_synthetic_voc(os.path.join(root, "foggy"), num_images=n_images,
+                           class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED + 3,
+                           split="train")
+        register_pascal_voc("chip_smoke_collect_glip", "foggy", "train",
+                            CITYSCAPES_CLASSES, ".jpg")
+        cfg = load_config(os.path.join(REPO, "configs/coin/GLIP/foggy.yaml"))
+        cfg.MODEL.TEACHER_CLOUD.WEIGHT = ckpt
+        cfg.TPU.BERT_VOCAB = vocab
+        tc, ctc = cfg.MODEL.TEACHER_CLOUD, cfg.CLOUD.TEACHER_CLOUD
+        itc = cfg.INPUT.TEACHER_CLOUD
+        check((tc.META_ARCHITECTURE, tc.TYPE, tc.TEST_THRESHOLD,
+               cfg.CLOUD.NMS_METHOD, ctc.COLLECT_NMS_THRESH,
+               ctc.RCNN_THRESH, itc.MIN_SIZE_TEST)
+              == ("GLIP", GLIP["variant"], 0.25, "ms", 0.6, 0.25, 600),
+              "not configs/coin/GLIP/foggy.yaml's cloud teacher")
+        t0 = time.perf_counter()
+        det = build_cloud_detector(cfg, tc.META_ARCHITECTURE,
+                                   CITYSCAPES_CLASSES, device=dev)
+        build_s = time.perf_counter() - t0
+        model = det.model
+        check(model.dtype == torch.bfloat16
+              and model.num_blocks == GLIP["blocks"]
+              and model.variant == GLIP["variant"]
+              and all(p.dtype == torch.float32 for p in model.parameters())
+              and det.bert.config.num_hidden_layers == GLIP["bert_layers"]
+              and det.bert.config.vocab_size == GLIP["bert_vocab"]
+              and det.capacity == 256,
+              "not the full-width Swin-L GLIP with BERT-base")
+        n_params = sum(p.numel() for p in model.parameters()) + sum(
+            p.numel() for p in det.bert.parameters())
+        loader = TestLoader("chip_smoke_collect_glip", root, batch_size=4,
+                            min_size=itc.MIN_SIZE_TEST,
+                            max_size=itc.get("MAX_SIZE_TEST", 1333))
+        check(tuple(loader.canvas_hw) == (608, 1216), f"{loader.canvas_hw}")
+        kw = dict(nms_method=cfg.CLOUD.NMS_METHOD,
+                  collect_nms_thresh=ctc.COLLECT_NMS_THRESH,
+                  rcnn_thresh=ctc.RCNN_THRESH,
+                  rpn_thresh=(ctc.RPN_THRESH if ctc.RPN_SEPARATE_COLLECT
+                              else ctc.RCNN_THRESH), device=dev)
+        collect_mod.collect_cloud(det, loader, 8, **kw)        # warm-up
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = collect_mod.collect_cloud(det, loader, 8, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        npz = os.path.join(root, "GLIP_collect.npz")
+        store.save(npz)
+        back = ResultStore.load(npz)
+        ids = [r["image_id"] for r in loader.records]
+        check(sorted(back.image_ids()) == sorted(ids), "store image ids")
+        counts = {"RCNN": [], "RPN": []}
+        for rec in loader.records:
+            for view in counts:
+                v = back.get_view(rec["image_id"], view)
+                n = len(v["scores"])
+                counts[view].append(n)
+                check(v["probs"].shape == (n, 9) and bool(np.isfinite(
+                    v["boxes"]).all()) and bool((v["scores"] >= 0.25).all())
+                      and bool((v["scores"] <= 1.0).all()),
+                      f"store view {view} of {rec['image_id']}")
+                scale = _resize_factor(rec["height"], rec["width"],
+                                       loader.min_size, loader.max_size)
+                packed = back.pack_view(rec["image_id"], view, 128, scale,
+                                        False, float(loader.canvas_hw[1]))
+                check(int(packed["valid"].sum()) == min(n, 128),
+                      "pack_view")
+        check(sum(counts["RCNN"]) > 0, "the collection stored nothing")
+
+        # one batch on the device: the whole call, then stage by stage
+        fusion = collect_mod.parse_nms_method(cfg.CLOUD.NMS_METHOD)
+        batch, _ = next(iter(loader))
+        u8 = torch.from_numpy(batch.images).to(dev)
+        hw = torch.from_numpy(batch.image_hw).to(dev)
+        b = u8.shape[0]
+        names = ("normalize_and_swin", "fpn", "vlfuse", "language_layer",
+                 "dyconv", "head_postprocess_and_fusion_nms")
+        with torch.inference_mode():
+            batch_ms = time_ms(torch, lambda: collect_mod.postprocess(
+                det(u8, hw), fusion, 0.6), iters=5, warmup=1)
+            emb = det.embeds.expand(b, -1, -1)
+            tmask = det.text_mask.expand(b, -1)
+            splits = []
+            for _ in range(4):
+                ms = dict.fromkeys(names, 0.0)
+                ev = lambda: torch.cuda.Event(enable_timing=True)
+                marks = [ev()]
+                marks[0].record()
+
+                def mark(name):
+                    e = ev()
+                    e.record()
+                    marks.append((name, e))
+                images = normalize_batch(u8, IMAGENET_MEAN, IMAGENET_STD)
+                feats = model.backbone(images.to(model.dtype))
+                mark("normalize_and_swin")
+                levels = model.fpn(feats)
+                mark("fpn")
+                lang = emb
+                for blk in model.blocks():
+                    levels, lang = blk.fuse(levels, lang, tmask)
+                    mark("vlfuse")
+                    lang = blk.language(lang, tmask)
+                    mark("language_layer")
+                    levels = blk.dyconv(levels)
+                    mark("dyconv")
+                shapes = [(f.shape[1], f.shape[2]) for f in levels]
+                raw = det.postprocess(*model.head(levels, lang), shapes, hw)
+                fused = collect_mod.postprocess(raw, fusion, 0.6)
+                mark("head_postprocess_and_fusion_nms")
+                torch.cuda.synchronize()
+                prev = marks[0]
+                for name, e in marks[1:]:
+                    ms[name] += prev.elapsed_time(e)
+                    prev = e
+                splits.append(ms)
+        stage_ms = {n: statistics.median(s[n] for s in splits[1:])
+                    for n in names}
+        check(shapes == [tuple(s) for s in GLIP_LEVELS],
+              f"feature levels {shapes}")
+        before = raw.valid.sum(-1).tolist()
+        after = fused.valid.sum(-1).tolist()
+        print(f"[collect GLIP] build_cloud_detector(GLIP/foggy.yaml, 'GLIP') "
+              f"from a {os.path.getsize(ckpt) / 2 ** 30:.2f} GiB checkpoint "
+              f"({n_params / 1e6:.1f} M parameters; written in {save_s:.1f} "
+              f"s) in {build_s:.1f} s; collect_cloud over {n_images} images "
+              f"(2 batches of 4 on 608 x 1216, NMS_METHOD ms): {run_s:.3f} s,"
+              f" {run_s * 1e3 / n_images:.2f} ms per image with host decode; "
+              f"device {batch_ms:.3f} ms per batch of 4 "
+              f"({batch_ms / 4:.3f} ms per image); peak device memory "
+              f"{mem:.2f} GiB; kernel launches {json.dumps(launches)}")
+        print(f"[collect GLIP] one batch by stage, ms (median of 3 after a "
+              f"warm-up, CUDA events; the 8 blocks summed by part): "
+              f"{json.dumps(stage_ms)}; detections per image before fusion "
+              f"NMS {before}, after {after}; stored per image RCNN "
+              f"{counts['RCNN']}, RPN {counts['RPN']}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel was not launched on the GLIP collection path: "
+              f"{launches}")
+        check(launches["deform_conv_cuda"] == 13 * GLIP["blocks"] * 2,
+              f"K8 launches {launches['deform_conv_cuda']}: expected 104 per "
+              "forward, 2 batches")
+        return launches, dict(ms_per_image=run_s * 1e3 / n_images,
+                              batch_ms=batch_ms, stage_ms=stage_ms,
+                              peak_gib=mem)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1943,6 +2346,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     from coin_tpu_torch.kernels.augment import augment_cuda
+    from coin_tpu_torch.kernels.deform_conv import deform_conv_cuda
     from coin_tpu_torch.kernels.fusion_nms import fusion_nms_cuda
     from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
@@ -1965,6 +2369,8 @@ def main() -> int:
         qconv_fwd_cuda, qconv_dgrad_cuda, qconv_wgrad_cuda, int8_conv_cuda]
     collect_counters = [normalize_cuda, window_attention_cuda,
                         ms_deform_cuda, fusion_nms_cuda]
+    glip_counters = [normalize_cuda, window_attention_cuda, deform_conv_cuda,
+                     nms_sorted_cuda, fusion_nms_cuda]
     gen = torch.Generator().manual_seed(SEED)
     with torch.inference_mode():
         kernels = [phase_roi_align(torch, dev, gen),
@@ -1976,7 +2382,8 @@ def main() -> int:
                    phase_int8_conv(torch, dev),
                    phase_window_attention(torch, dev, gen),
                    phase_ms_deform(torch, dev, gen),
-                   phase_fusion_nms(torch, dev, gen)]
+                   phase_fusion_nms(torch, dev, gen),
+                   phase_deform_conv(torch, dev, gen)]
     torch.cuda.empty_cache()
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.data.voc import CITYSCAPES_CLASSES
@@ -2005,9 +2412,19 @@ def main() -> int:
     collect_launches, _ = phase_collect_path(torch, dev, sd,
                                              collect_counters)
     del sd
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sd = glip_checkpoint(torch)
+    print(f"[GLIP checkpoint] {len(sd)} tensors, "
+          f"{sum(v.numel() for v in sd.values()) / 1e6:.1f} M values, drawn "
+          f"in {time.perf_counter() - t0:.1f} s")
+    phase_glip_reference(torch, dev, sd)
+    glip_launches, _ = phase_glip_collect_path(torch, dev, sd, glip_counters)
+    del sd
     # the kernels line: launches are those of each kernel's main path (the
-    # collection path for K6, K7 and K9, the trainer path for the rest);
-    # an entry of several wrappers counts them all
+    # GDINO collection path for K6, K7 and K9, the GLIP collection path for
+    # K8, the trainer path for the rest); an entry of several wrappers
+    # counts them all
     by_fn = {"roi_align": ["roi_align_cuda"],
              "roi_align_bwd": ["roi_align_backward_cuda"],
              "nms": ["nms_sorted_cuda"], "augment": ["augment_cuda"],
@@ -2019,17 +2436,20 @@ def main() -> int:
              "int8_conv": ["int8_conv_cuda"],
              "window_attention": ["window_attention_cuda"],
              "ms_deform": ["ms_deform_cuda"],
-             "fusion_nms": ["fusion_nms_cuda"]}
+             "fusion_nms": ["fusion_nms_cuda"],
+             "deform_conv": ["deform_conv_cuda"]}
     paths = {"trainer": trainer_launches, "training": train_launches,
-             "eval": eval_launches, "collect": collect_launches}
+             "eval": eval_launches, "collect": collect_launches,
+             "collect_glip": glip_launches}
+    main_paths = {"window_attention": "collect", "ms_deform": "collect",
+                  "fusion_nms": "collect", "deform_conv": "collect_glip"}
     for k in kernels:
         fns = by_fn[k["name"]]
-        main_path = ("collect" if k["name"] in ("window_attention",
-                                                "ms_deform", "fusion_nms")
-                     else "trainer")
+        main_path = main_paths.get(k["name"], "trainer")
         k["launches"] = sum(paths[main_path][f] for f in fns)
         k["launches_by_path"] = {p: sum(n.get(f, 0) for f in fns)
                                  for p, n in paths.items()}
+    print(f"[wall] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,12 @@ follow the flax tree. Key ``a/b/leaf`` becomes ``a.b.<leaf>``:
 The same walk fills the cloud teacher: the JAX ``GroundingDINO`` tree
 (``models/gdino.py`` names its modules as flax does; Swin's relative
 position tables, the level and query embeddings and the fusion gammas
-are raw parameters) and a Flax BERT tree (``models/bert.py`` uses HF's
-names; ``nn.Embed``'s ``embedding`` is a ``weight``). ``load_jax_params``
-loads either strictly.
+are raw parameters), the JAX ``GLIP`` tree (``models/glip.py`` names its
+modules as flax does; DyConv's deformable kernels are HWIO convs like any
+other, the head's ``bias0`` and ``log_scale`` are scalars and its level
+``scales`` a vector, the fusion gammas raw parameters) and a Flax BERT
+tree (``models/bert.py`` uses HF's names; ``nn.Embed``'s ``embedding`` is
+a ``weight``). ``load_jax_params`` loads any of them strictly.
 
 ``load_train_state`` carries a whole JAX ``TrainState`` of the adaptation
 step (its fields as numpy arrays) into the port's ``TrainState``.
@@ -75,9 +78,10 @@ def from_jax_variables(variables: Mapping[str, Any]
 def load_jax_params(module: torch.nn.Module, variables: Mapping[str, Any]
                     ) -> torch.nn.Module:
     """Load a JAX parameter tree (numpy leaves) into ``module`` strictly:
-    the GroundingDINO tree into ``models.gdino.GroundingDINO``, a Flax
-    BERT tree into ``models.bert.BertModel``, or any tree whose names the
-    module mirrors."""
+    the GroundingDINO tree into ``models.gdino.GroundingDINO``, the GLIP
+    tree into ``models.glip.GLIP``, a Flax BERT tree into
+    ``models.bert.BertModel``, or any tree whose names the module
+    mirrors."""
     dev = next(module.parameters()).device
     sd = {k: v.to(dev) for k, v in from_jax_variables(variables).items()}
     module.load_state_dict(sd, strict=True)

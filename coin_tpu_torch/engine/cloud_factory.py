@@ -1,9 +1,9 @@
 """Cloud-teacher construction from user-supplied checkpoints
 (counterpart of coin_tpu/engine/cloud_factory.py): the GroundingDINO
-detector and its class-only variant, plus the zero-asset stand-ins that
-pipeline rehearsals and tests use. The GLIP and GDINO-1.5-API teachers
-(ROADMAP item 20) and the CLIP re-scorer (item 21) are not ported and
-raise.
+detector and its class-only variant, the GLIP detector, plus the
+zero-asset stand-ins that pipeline rehearsals and tests use. The
+GDINO-1.5-API teacher (it needs the network) and the CLIP re-scorer
+(ROADMAP item 21) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -16,14 +16,17 @@ import torch
 from torch import nn
 
 from coin_tpu_torch.device import resolve_device
-from coin_tpu_torch.models.bert import BertModel
-from coin_tpu_torch.models.convert_gdino import (bert_state_dict,
+from coin_tpu_torch.models.convert_gdino import (bert_model,
                                                  clean_state_dict,
                                                  convert_gdino)
+from coin_tpu_torch.models.convert_glip import (BERT_PREFIX, convert_glip,
+                                                glip_geometry)
 from coin_tpu_torch.models.gdino import GroundingDINO
 from coin_tpu_torch.models.gdino_detector import GDINODetector
 from coin_tpu_torch.models.gdino_variants import (ClassOnlyAdapter,
                                                   GDINO15APIDetector)
+from coin_tpu_torch.models.glip import GLIP
+from coin_tpu_torch.models.glip_detector import GLIPDetector
 from coin_tpu_torch.models.wordpiece import WordPieceTokenizer
 
 
@@ -79,27 +82,37 @@ def build_stub_scorer(num_classes):
     return scorer_apply
 
 
+def _checkpoint_and_vocab(cfg, what: str):
+    """The cleaned MODEL.TEACHER_CLOUD.WEIGHT state dict and the
+    TPU.BERT_VOCAB path; raises if either file is missing."""
+    weight = cfg.MODEL.TEACHER_CLOUD.WEIGHT
+    vocab = cfg.get_path("TPU.BERT_VOCAB", "")
+    if not (weight and os.path.exists(weight)):
+        raise FileNotFoundError(
+            f"{what} checkpoint not found: {weight!r} "
+            "(set MODEL.TEACHER_CLOUD.WEIGHT)")
+    if not (vocab and os.path.exists(vocab)):
+        raise FileNotFoundError(
+            "BERT vocab.txt not found (set TPU.BERT_VOCAB)")
+    sd = torch.load(weight, map_location="cpu")
+    return clean_state_dict(sd.get("model", sd)), vocab
+
+
 def build_cloud_detector(cfg, arch, class_names, device="cuda",
                          dtype: torch.dtype = torch.bfloat16):
     """The cloud teacher of ``arch`` from MODEL.TEACHER_CLOUD.WEIGHT and
-    TPU.BERT_VOCAB, on ``device``. GroundingDINO computes in ``dtype`` over
-    f32 parameters (bf16, as the JAX package builds it) with the BERT in
-    f32; TPU.GDINO_ENC_LAYERS / GDINO_DEC_LAYERS cut the towers, and the
-    number of queries comes from the checkpoint."""
+    TPU.BERT_VOCAB, on ``device``. GroundingDINO and GLIP compute in
+    ``dtype`` over f32 parameters (bf16, as the JAX package builds them;
+    GLIP's DyConv stays in f32) with the BERT in f32.
+    GroundingDINO: TPU.GDINO_ENC_LAYERS / GDINO_DEC_LAYERS cut the towers,
+    and the number of queries comes from the checkpoint. GLIP
+    (MODEL.TEACHER_CLOUD.TYPE swinL or swinT): the number of VLDyHead
+    blocks comes from the checkpoint."""
     device = resolve_device(device)
+    tc = cfg.MODEL.TEACHER_CLOUD
     if arch in ("GDINO", "GDINO_CLASSONLY"):
-        weight = cfg.MODEL.TEACHER_CLOUD.WEIGHT
-        vocab = cfg.get_path("TPU.BERT_VOCAB", "")
-        if not (weight and os.path.exists(weight)):
-            raise FileNotFoundError(
-                f"GDINO checkpoint not found: {weight!r} "
-                "(set MODEL.TEACHER_CLOUD.WEIGHT)")
-        if not (vocab and os.path.exists(vocab)):
-            raise FileNotFoundError(
-                "BERT vocab.txt not found (set TPU.BERT_VOCAB)")
-        sd = torch.load(weight, map_location="cpu")
-        sd = clean_state_dict(sd.get("model", sd))
-        variant = cfg.MODEL.TEACHER_CLOUD.TYPE
+        sd, vocab = _checkpoint_and_vocab(cfg, "GDINO")
+        variant = tc.TYPE
         enc = cfg.get_path("TPU.GDINO_ENC_LAYERS", 6)
         dec = cfg.get_path("TPU.GDINO_DEC_LAYERS", 6)
         nq = sd["transformer.tgt_embed.weight"].shape[0]
@@ -107,11 +120,8 @@ def build_cloud_detector(cfg, arch, class_names, device="cuda",
                               enc_layers=enc, dec_layers=dec, dtype=dtype)
         model.load_state_dict(convert_gdino(sd, variant, enc, dec),
                               strict=True)
-        bert_cfg, bert_sd = bert_state_dict(sd)
-        bert = BertModel(bert_cfg)
-        bert.load_state_dict(bert_sd, strict=True)
+        bert = bert_model(sd, "bert.")
         del sd
-        tc = cfg.MODEL.TEACHER_CLOUD
         det = GDINODetector(
             model, bert, class_names, WordPieceTokenizer(vocab),
             threshold=tc.TEST_THRESHOLD,
@@ -121,12 +131,17 @@ def build_cloud_detector(cfg, arch, class_names, device="cuda",
             det = ClassOnlyAdapter(det, len(class_names))
         return det
     if arch in ("GLIP", "GLIPModel"):
-        raise NotImplementedError(
-            "the GLIP cloud teacher (with kernel K8, deform_conv3x3) is not "
-            "ported yet (ROADMAP item 20)")
+        sd, vocab = _checkpoint_and_vocab(cfg, "GLIP")
+        model = GLIP(variant=tc.TYPE,
+                     num_blocks=glip_geometry(sd)["num_blocks"], dtype=dtype)
+        model.load_state_dict(convert_glip(sd, tc.TYPE), strict=True)
+        bert = bert_model(sd, BERT_PREFIX)
+        del sd
+        return GLIPDetector(model, bert, class_names,
+                            WordPieceTokenizer(vocab),
+                            threshold=tc.TEST_THRESHOLD, device=device)
     if arch == "GDINO1_5_API":
-        return GDINO15APIDetector(cfg.MODEL.TEACHER_CLOUD.get("TOKEN", ""),
-                                  class_names)
+        return GDINO15APIDetector(tc.get("TOKEN", ""), class_names)
     raise ValueError(f"unsupported cloud architecture: {arch}")
 
 

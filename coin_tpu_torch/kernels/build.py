@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("roi_align", "roi_align_bwd", "nms", "normalize", "augment",
            "quantize", "qconv", "qconv_wgrad", "window_attention",
-           "ms_deform", "fusion_nms")
+           "ms_deform", "fusion_nms", "deform_conv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -20,20 +20,30 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from coin_tpu_torch.models.bert import BertConfig, infer_bert_config
+from coin_tpu_torch.models.bert import (BertConfig, BertModel,
+                                        infer_bert_config)
 from coin_tpu_torch.models.manifests import diff_keys, gdino_manifest
 
+
+def swin_rules(prefix: str):
+    """Renames of the official Swin's keys under ``prefix`` into the
+    port's ``backbone`` (``models/swin.SwinTransformer``)."""
+    p = re.escape(prefix)
+    return (
+        (p + r"\.patch_embed\.proj\.", "backbone.patch_embed_proj."),
+        (p + r"\.patch_embed\.norm\.", "backbone.patch_embed_norm."),
+        (p + r"\.layers\.(\d+)\.blocks\.(\d+)\.mlp\.fc(\d)\.",
+         r"backbone.layers_\1_blocks_\2.mlp_fc\3."),
+        (p + r"\.layers\.(\d+)\.blocks\.(\d+)\.",
+         r"backbone.layers_\1_blocks_\2."),
+        (p + r"\.layers\.(\d+)\.downsample\.",
+         r"backbone.layers_\1_downsample."),
+        (p + r"\.norm(\d+)\.", r"backbone.out_norm_\1."),
+    )
+
+
 # official name → port name, first match wins; \1... are kept groups
-_RULES = (
-    (r"backbone\.0\.patch_embed\.proj\.", "backbone.patch_embed_proj."),
-    (r"backbone\.0\.patch_embed\.norm\.", "backbone.patch_embed_norm."),
-    (r"backbone\.0\.layers\.(\d+)\.blocks\.(\d+)\.mlp\.fc(\d)\.",
-     r"backbone.layers_\1_blocks_\2.mlp_fc\3."),
-    (r"backbone\.0\.layers\.(\d+)\.blocks\.(\d+)\.",
-     r"backbone.layers_\1_blocks_\2."),
-    (r"backbone\.0\.layers\.(\d+)\.downsample\.",
-     r"backbone.layers_\1_downsample."),
-    (r"backbone\.0\.norm(\d+)\.", r"backbone.out_norm_\1."),
+_RULES = swin_rules("backbone.0") + (
     (r"input_proj\.(\d)\.0\.", r"input_proj_\1_conv."),
     (r"input_proj\.(\d)\.1\.", r"input_proj_\1_gn."),
     (r"transformer\.level_embed$", "level_embed"),
@@ -84,14 +94,14 @@ def checkpoint_geometry(sd: Dict[str, Any]) -> Dict[str, int]:
             sd["bert.embeddings.word_embeddings.weight"])[0]))
 
 
-def _check_keys(sd: Dict[str, Any], variant: str, keys, bufs) -> None:
+def check_keys(sd: Dict[str, Any], what: str, keys, bufs) -> None:
     """Raise unless ``sd`` has exactly the manifest's keys (buffers may be
     present or not)."""
     diff = diff_keys(sd, keys, set())
     diff["unexpected"] = [k for k in diff["unexpected"] if k not in bufs]
     if diff["missing"] or diff["unexpected"]:
         raise ValueError(
-            f"not a {variant} GroundingDINO checkpoint: missing "
+            f"not a {what} checkpoint: missing "
             f"{diff['missing'][:20]} ({len(diff['missing'])}), unexpected "
             f"{diff['unexpected'][:20]} ({len(diff['unexpected'])})")
 
@@ -111,7 +121,7 @@ def convert_gdino(sd: Dict[str, Any], variant: str = "swinB",
     checkpoint (BERT apart: :func:`bert_state_dict`)."""
     sd = clean_state_dict(sd)
     keys, bufs = gdino_manifest(variant, **checkpoint_geometry(sd))
-    _check_keys(sd, variant, keys, bufs)
+    check_keys(sd, f"{variant} GroundingDINO", keys, bufs)
     keep = {"enc_layer": enc_layers, "text_layer": enc_layers,
             "fusion": enc_layers, "dec_layer": dec_layers,
             "bbox_embed": dec_layers}
@@ -141,3 +151,12 @@ def bert_state_dict(sd: Dict[str, Any], prefix: str = "bert."
     bert = {k[len(prefix):]: _tensor(v) for k, v in sd.items()
             if k.startswith(prefix) and not k.endswith("position_ids")}
     return infer_bert_config(bert), bert
+
+
+def bert_model(sd: Dict[str, Any], prefix: str = "bert.") -> BertModel:
+    """The ``prefix``* keys of a checkpoint loaded strictly into a
+    ``BertModel`` of their geometry."""
+    cfg, bert_sd = bert_state_dict(sd, prefix)
+    bert = BertModel(cfg)
+    bert.load_state_dict(bert_sd, strict=True)
+    return bert

@@ -136,17 +136,21 @@ class MHA(nn.Module):
 
 class BiMultiHeadAttention(nn.Module):
     """Bidirectional image↔text fusion (GLIP / GroundingDINO
-    BiAttention)."""
+    BiAttention). ``l_dim`` is the language side's width, in and out:
+    GroundingDINO fuses 256-wide text (None: ``dim``), GLIP's VLFuse the
+    768-wide BERT states (coin_tpu/models/gdino.py:101-139)."""
 
-    def __init__(self, dim: int = HIDDEN, heads: int = 4, embed: int = 1024):
+    def __init__(self, dim: int = HIDDEN, heads: int = 4, embed: int = 1024,
+                 l_dim: Optional[int] = None):
         super().__init__()
         self.heads, self.embed = heads, embed
+        l_dim = l_dim or dim
         self.v_proj = Linear(dim, embed)
-        self.l_proj = Linear(dim, embed)
+        self.l_proj = Linear(l_dim, embed)
         self.values_v_proj = Linear(dim, embed)
-        self.values_l_proj = Linear(dim, embed)
+        self.values_l_proj = Linear(l_dim, embed)
         self.out_v_proj = Linear(embed, dim)
-        self.out_l_proj = Linear(embed, dim)
+        self.out_l_proj = Linear(embed, l_dim)
 
     def forward(self, vis, lang, lang_mask):
         hd = self.embed // self.heads

@@ -1,16 +1,19 @@
-"""Official Grounding DINO checkpoint key manifests (the GDINO part of
-coin_tpu/models/manifests.py, kept so that the port imports nothing of
-coin_tpu).
+"""Official Grounding DINO and GLIP checkpoint key manifests (the cloud
+teachers' part of coin_tpu/models/manifests.py, kept so that the port
+imports nothing of coin_tpu).
 
 Each manifest lists, key by key with shapes, the state dict of the
 official model definitions: IDEA-Research/GroundingDINO's
 ``backbone/swin_transformer.py``, ``transformer.py``,
 ``fuse_modules.py`` and ``groundingdino.py``, plus HF ``BertModel`` under
-``bert.`` (the ``groundingdino_swinb_cogcoor.pth`` layout). Tests and
-``chip_smoke.py`` build random checkpoints from them
-(:func:`synth_state_dict`), so ``models/convert_gdino`` is held to the
-official key names, not to its own inverse. Buffers (non-parameter keys
-of the official state dicts) are listed apart; converters ignore them.
+``bert.`` (the ``groundingdino_swinb_cogcoor.pth`` layout); and
+microsoft/GLIP's maskrcnn_benchmark fork (Swin + FPN + VLDyHead, BERT under
+``language_backbone.body.model.``, the ``glip_large_model.pth`` layout).
+Tests and ``chip_smoke.py`` build random checkpoints from them
+(:func:`synth_state_dict`), so ``models/convert_gdino`` and
+``models/convert_glip`` are held to the official key names, not to their
+own inverses. Buffers (non-parameter keys of the official state dicts)
+are listed apart; converters ignore them.
 """
 
 from __future__ import annotations
@@ -194,6 +197,82 @@ def gdino_manifest(variant: str = "swinB", enc_layers: int = 6,
     _ln(keys, f"{t}.decoder.norm", d)
     for j, (o, i_) in enumerate(((d, 2 * d), (d, d))):
         _lin(keys, f"{t}.decoder.ref_point_head.layers.{j}", o, i_)
+    return keys, bufs
+
+
+def glip_manifest(variant: str = "swinL", num_blocks: int = 8,
+                  num_classes: int = 80, bert_layers: int = 12,
+                  bert_vocab: int = 30522
+                  ) -> Tuple[Dict[str, Shape], Set[str]]:
+    """The official ``glip_large_model.pth`` / ``glip_tiny_*.pth`` 'model'
+    dict layout (coin_tpu/models/manifests.py:306): Swin under
+    ``backbone.body``, the FPN with RetinaNet ``top_blocks.{p6,p7}``, BERT
+    under ``language_backbone.body.model``, and the dyhead tower, whose
+    conv block i interleaves three modules: ``dyhead_tower.{3i}`` VLFuse
+    (``b_attn``, embed 2048, v_dim 256, l_dim 768), ``{3i+1}`` a BERT
+    encoder layer, ``{3i+2}`` DyConv (three deformable convs with
+    GroupNorm(16), the shared ``offset`` net, ``AttnConv`` and DYReLU's
+    ``relu.fc``). The head's ``cls_logits`` is listed though the
+    token-based inference never reads it. ``bert_layers`` and
+    ``bert_vocab`` below BERT-base's only for small test checkpoints."""
+    d = 256                    # DYHEAD.CHANNELS
+    lang = 768
+    fuse_embed = 2048          # FUSE_CONFIG MHA-B embed dim
+    keys, bufs = swin_manifest(variant, prefix="backbone.body")
+    bk, bb = bert_manifest(prefix="language_backbone.body.model",
+                           layers=bert_layers, vocab=bert_vocab)
+    keys.update(bk)
+    bufs |= bb
+
+    embed = _SWIN[variant][0]
+    chans = {2: embed * 2, 3: embed * 4, 4: embed * 8}
+    for idx in (2, 3, 4):
+        keys[f"backbone.fpn.fpn_inner{idx}.weight"] = (d, chans[idx], 1, 1)
+        keys[f"backbone.fpn.fpn_inner{idx}.bias"] = (d,)
+        keys[f"backbone.fpn.fpn_layer{idx}.weight"] = (d, d, 3, 3)
+        keys[f"backbone.fpn.fpn_layer{idx}.bias"] = (d,)
+    for p67 in ("p6", "p7"):
+        keys[f"backbone.fpn.top_blocks.{p67}.weight"] = (d, d, 3, 3)
+        keys[f"backbone.fpn.top_blocks.{p67}.bias"] = (d,)
+
+    tower = "rpn.head.dyhead_tower"
+    for i in range(num_blocks):
+        p = f"{tower}.{3 * i}.b_attn"
+        keys[f"{p}.gamma_v"] = (d,)
+        keys[f"{p}.gamma_l"] = (lang,)
+        _ln(keys, f"{p}.layer_norm_v", d)
+        _ln(keys, f"{p}.layer_norm_l", lang)
+        for proj, i_ in (("v_proj", d), ("l_proj", lang),
+                         ("values_v_proj", d), ("values_l_proj", lang)):
+            _lin(keys, f"{p}.attn.{proj}", fuse_embed, i_)
+        _lin(keys, f"{p}.attn.out_v_proj", d, fuse_embed)
+        _lin(keys, f"{p}.attn.out_l_proj", lang, fuse_embed)
+        _bert_layer(keys, f"{tower}.{3 * i + 1}")
+        p = f"{tower}.{3 * i + 2}"
+        for j in range(3):
+            keys[f"{p}.DyConv.{j}.conv.weight"] = (d, d, 3, 3)
+            keys[f"{p}.DyConv.{j}.conv.bias"] = (d,)
+            _ln(keys, f"{p}.DyConv.{j}.bn", d)      # GroupNorm(16, d)
+        keys[f"{p}.offset.weight"] = (27, d, 3, 3)
+        keys[f"{p}.offset.bias"] = (27,)
+        keys[f"{p}.AttnConv.1.weight"] = (1, d, 1, 1)
+        keys[f"{p}.AttnConv.1.bias"] = (1,)
+        _lin(keys, f"{p}.relu.fc.0", d // 4, d)
+        _lin(keys, f"{p}.relu.fc.2", 4 * d, d // 4)
+
+    head = "rpn.head"
+    keys[f"{head}.cls_logits.weight"] = (num_classes, d, 1, 1)
+    keys[f"{head}.cls_logits.bias"] = (num_classes,)
+    keys[f"{head}.bbox_pred.weight"] = (4, d, 1, 1)
+    keys[f"{head}.bbox_pred.bias"] = (4,)
+    keys[f"{head}.centerness.weight"] = (1, d, 1, 1)
+    keys[f"{head}.centerness.bias"] = (1,)
+    _lin(keys, f"{head}.dot_product_projection_text", d, lang)
+    keys[f"{head}.log_scale"] = (1,)
+    keys[f"{head}.bias_lang"] = (lang,)
+    keys[f"{head}.bias0"] = (1,)
+    for s in range(5):
+        keys[f"{head}.scales.{s}.scale"] = (1,)
     return keys, bufs
 
 

@@ -1,7 +1,7 @@
 """Kernel-level profile of the port on one CUDA card.
 
-    python -m coin_tpu_torch.profile_device [--path eval|train|collect]
-        [--iters 5]
+    python -m coin_tpu_torch.profile_device
+        [--path eval|train|collect|collect_glip] [--iters 5]
 
 ``--path eval``: the full-width bf16 detector of
 configs/coin/GDINO/foggy_fast.yaml with random weights from a seed,
@@ -21,6 +21,11 @@ teacher of foggy_fast.yaml at full width (Swin-B, 900 queries, 6 + 6
 layers, BERT-base; bf16 over f32 parameters; random weights in the
 official checkpoint layout): the detector on 4 random u8 images on the
 608 x 1216 canvas, then the fusion NMS of CLOUD.NMS_METHOD.
+
+``--path collect_glip``: the same over collection batches of the GLIP
+cloud teacher of configs/coin/GLIP/foggy.yaml at full width (Swin-L, 8
+VLDyHead blocks, BERT-base; bf16 over f32 parameters, DyConv in f32;
+random weights in the official checkpoint layout).
 
 Prints the device time per call by kernel group and the top kernels, and
 the device's busy share of the window: the kernels' summed time over the
@@ -49,7 +54,7 @@ from coin_tpu_torch.engine.common import (simple_class_tokens,
                                           synthetic_detections)
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "configs/coin/GDINO")
+    os.path.abspath(__file__))), "configs/coin")
 SEED = 2024
 
 # kernel name fragment → group, first match wins
@@ -61,7 +66,8 @@ GROUPS = (
                       "qconv_kernel", "wgrad_kernel", "finish_kernel",
                       "absmax_kernel", "quantize_kernel", "weight_kernel",
                       "window_attention_kernel", "ms_deform_kernel",
-                      "fusion_nms_kernel")),
+                      "fusion_nms_kernel", "deform_conv_kernel",
+                      "deform_conv_reduce")),
     ("elementwise", ("elementwise", "vectorized")),
     ("reduction", ("reduce",)),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
@@ -82,7 +88,7 @@ def group_of(name: str) -> str:
 
 def eval_call(device):
     """One eval batch of foggy_fast.yaml, as a closure."""
-    cfg = load_config(os.path.join(CONFIGS, "foggy_fast.yaml"))
+    cfg = load_config(os.path.join(CONFIGS, "GDINO/foggy_fast.yaml"))
     num_classes = len(CITYSCAPES_CLASSES)
     pcfg = pipelines.pipeline_config_from(cfg, num_classes)
     model = pipelines.build_detector(cfg, num_classes, device)
@@ -110,7 +116,7 @@ def train_call(device):
     closure."""
     import dataclasses
     from coin_tpu_torch.engine import step_builder as sb
-    cfg = load_config(os.path.join(CONFIGS, "foggy_fast.yaml"))
+    cfg = load_config(os.path.join(CONFIGS, "GDINO/foggy_fast.yaml"))
     num_classes = len(CITYSCAPES_CLASSES)
     pcfg = pipelines.pipeline_config_from(cfg, num_classes)
     teacher_pcfg = dataclasses.replace(
@@ -146,38 +152,22 @@ def train_call(device):
     return call
 
 
-def collect_call(device):
-    """One collection batch of foggy_fast.yaml's GDINO teacher, as a
-    closure."""
+def _vocab_tokenizer():
+    """A WordPiece tokenizer over the Foggy Cityscapes class words."""
     import tempfile
-    from coin_tpu_torch.engine import collect as collect_mod
-    from coin_tpu_torch.models.bert import BertModel
-    from coin_tpu_torch.models.convert_gdino import (bert_state_dict,
-                                                     convert_gdino)
-    from coin_tpu_torch.models.gdino import GroundingDINO
-    from coin_tpu_torch.models.gdino_detector import GDINODetector
-    from coin_tpu_torch.models.manifests import (gdino_manifest,
-                                                 synth_state_dict)
     from coin_tpu_torch.models.wordpiece import WordPieceTokenizer
-    cfg = load_config(os.path.join(CONFIGS, "foggy_fast.yaml"))
-    sd = synth_state_dict(gdino_manifest(cfg.MODEL.TEACHER_CLOUD.TYPE)[0],
-                          seed=SEED)
-    model = GroundingDINO(cfg.MODEL.TEACHER_CLOUD.TYPE, 900, 6, 6,
-                          dtype=torch.bfloat16)
-    model.load_state_dict(convert_gdino(sd, cfg.MODEL.TEACHER_CLOUD.TYPE))
-    bert_cfg, bert_sd = bert_state_dict(sd)
-    bert = BertModel(bert_cfg)
-    bert.load_state_dict(bert_sd)
-    del sd
     words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "."] + sorted(
         {w for n in CITYSCAPES_CLASSES for w in n.split()})
     with tempfile.NamedTemporaryFile("w", suffix=".txt") as vocab:
         vocab.write("\n".join(words) + "\n")
         vocab.flush()
-        det = GDINODetector(model, bert, CITYSCAPES_CLASSES,
-                            WordPieceTokenizer(vocab.name),
-                            threshold=cfg.MODEL.TEACHER_CLOUD.TEST_THRESHOLD,
-                            device=device)
+        return WordPieceTokenizer(vocab.name)
+
+
+def _collect_batch(det, cfg, device):
+    """``det`` and the collection NMS of ``cfg`` on 4 random u8 images on
+    the card, as a closure."""
+    from coin_tpu_torch.engine import collect as collect_mod
     fusion = collect_mod.parse_nms_method(cfg.CLOUD.NMS_METHOD)
     thresh = cfg.CLOUD.TEACHER_CLOUD.COLLECT_NMS_THRESH
     gen = torch.Generator().manual_seed(SEED)
@@ -193,12 +183,62 @@ def collect_call(device):
     return call
 
 
+def collect_glip_call(device):
+    """One collection batch of configs/coin/GLIP/foggy.yaml's GLIP-L
+    teacher, as a closure."""
+    from coin_tpu_torch.models.convert_gdino import bert_model
+    from coin_tpu_torch.models.convert_glip import BERT_PREFIX, convert_glip
+    from coin_tpu_torch.models.glip import GLIP
+    from coin_tpu_torch.models.glip_detector import GLIPDetector
+    from coin_tpu_torch.models.manifests import glip_manifest
+    cfg = load_config(os.path.join(CONFIGS, "GLIP/foggy.yaml"))
+    variant = cfg.MODEL.TEACHER_CLOUD.TYPE
+    gen = torch.Generator().manual_seed(SEED)
+    sd = {}
+    for k, shape in glip_manifest(variant)[0].items():
+        sd[k] = torch.randn(shape, generator=gen) * 0.02
+        if len(shape) == 1 and not k.endswith(".bias") and (
+                "norm" in k or "LayerNorm" in k or ".bn." in k):
+            sd[k] += 1.0          # norms near 1, as a trained model has
+    model = GLIP(variant, 8, dtype=torch.bfloat16)
+    model.load_state_dict(convert_glip(sd, variant))
+    bert = bert_model(sd, BERT_PREFIX)
+    del sd
+    det = GLIPDetector(model, bert, CITYSCAPES_CLASSES, _vocab_tokenizer(),
+                       threshold=cfg.MODEL.TEACHER_CLOUD.TEST_THRESHOLD,
+                       device=device)
+    return _collect_batch(det, cfg, device)
+
+
+def collect_call(device):
+    """One collection batch of foggy_fast.yaml's GDINO teacher, as a
+    closure."""
+    from coin_tpu_torch.models.convert_gdino import bert_model, convert_gdino
+    from coin_tpu_torch.models.gdino import GroundingDINO
+    from coin_tpu_torch.models.gdino_detector import GDINODetector
+    from coin_tpu_torch.models.manifests import (gdino_manifest,
+                                                 synth_state_dict)
+    cfg = load_config(os.path.join(CONFIGS, "GDINO/foggy_fast.yaml"))
+    sd = synth_state_dict(gdino_manifest(cfg.MODEL.TEACHER_CLOUD.TYPE)[0],
+                          seed=SEED)
+    model = GroundingDINO(cfg.MODEL.TEACHER_CLOUD.TYPE, 900, 6, 6,
+                          dtype=torch.bfloat16)
+    model.load_state_dict(convert_gdino(sd, cfg.MODEL.TEACHER_CLOUD.TYPE))
+    bert = bert_model(sd)
+    del sd
+    det = GDINODetector(model, bert, CITYSCAPES_CLASSES, _vocab_tokenizer(),
+                        threshold=cfg.MODEL.TEACHER_CLOUD.TEST_THRESHOLD,
+                        device=device)
+    return _collect_batch(det, cfg, device)
+
+
 def profile_calls(path: str, iters: int, device="cuda"):
     """(wall ms per call, {kernel name: (ms per call, launches per
     call)}) over ``iters`` profiled calls of ``path``."""
     device = resolve_device(device)
     call = {"eval": eval_call, "train": train_call,
-            "collect": collect_call}[path](device)
+            "collect": collect_call,
+            "collect_glip": collect_glip_call}[path](device)
     for _ in range(2):
         call()
     torch.cuda.synchronize(device)
@@ -221,8 +261,8 @@ def profile_calls(path: str, iters: int, device="cuda"):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("eval", "train", "collect"),
-                        default="eval")
+    parser.add_argument("--path", choices=("eval", "train", "collect",
+                                           "collect_glip"), default="eval")
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
     wall_ms, kernels = profile_calls(args.path, args.iters)
@@ -231,7 +271,9 @@ def main() -> int:
             "train": "one train_step_cached (3 images, bf16, int8 "
                      "res5)",
             "collect": "one GDINO collection batch (4 images, bf16, fusion "
-                       "NMS)"}[args.path]
+                       "NMS)",
+            "collect_glip": "one GLIP-L collection batch (4 images, bf16 "
+                            "with DyConv in f32, fusion NMS)"}[args.path]
     print(f"{torch.cuda.get_device_name(0)}: {what} {wall_ms:.3f} ms wall, "
           f"{busy:.3f} ms of kernels: device busy "
           f"{100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f}"

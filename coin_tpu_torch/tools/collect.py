@@ -8,8 +8,9 @@ stores written to OUTPUT_DIR.
 Writes ``$OUTPUT_DIR/<arch>_collect.npz`` (the raw cloud detections, the
 online teacher's cache) and, unless ``--skip-clip``,
 ``$OUTPUT_DIR/CLIP_collect.npz`` (the re-scored detections). It needs
-MODEL.TEACHER_CLOUD.WEIGHT (a GroundingDINO checkpoint) and TPU.BERT_VOCAB
-(BERT's vocab.txt); ``--synthetic-teacher`` needs neither: a random-weight
+MODEL.TEACHER_CLOUD.WEIGHT (a GroundingDINO or GLIP checkpoint, after
+MODEL.TEACHER_CLOUD.META_ARCHITECTURE) and TPU.BERT_VOCAB (BERT's
+vocab.txt); ``--synthetic-teacher`` needs neither: a random-weight
 tiny GDINO and a stub scorer rehearse the pipeline (the detections are
 meaningless). The CLIP re-scorer itself is not ported yet (ROADMAP item
 21), so without ``--synthetic-teacher`` the re-scoring pass raises. Runs

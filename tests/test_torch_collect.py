@@ -5,6 +5,13 @@ decoder layer, 16 queries, a 2-layer BERT; written with torch.save) and
 one vocab.txt go through each package's ``build_cloud_detector``, then
 ``collect_cloud`` over the same synthetic VOC images.
 
+The GLIP teacher goes the same way: a reduced official-layout GLIP
+checkpoint (swinT, one VLDyHead block, a 2-layer BERT) through both
+factories. The JAX factory reads BERT through ``FlaxBertModel(BertConfig())``,
+always BERT-base, so the test hands it the reduced BERT through
+``convert_gdino.bert_params_from_checkpoint`` instead; the GLIP weights
+go through each package's own checkpoint map.
+
 Both detectors compute in f32 here (the JAX factory builds a bf16 model;
 the test swaps in f32, and the port's factory takes ``dtype``), so the
 stores hold to 1e-4: the same image ids and per-view counts, each JAX
@@ -26,7 +33,10 @@ from coin_tpu.data.loader import TestLoader as JTestLoader
 from coin_tpu.engine import cloud_factory as jcf
 from coin_tpu.engine import collect as jcollect
 from coin_tpu.engine import test as jtest
+from coin_tpu.models import convert_glip as jconvert_glip
 from coin_tpu.models import gdino as jgdino
+from coin_tpu.models import glip as jglip
+from coin_tpu.models.convert_gdino import bert_params_from_checkpoint
 from coin_tpu.models.gdino_variants import ClassOnlyAdapter as JClassOnly
 from coin_tpu.models.gdino_variants import \
     SyntheticProbAdapter as JSyntheticProb
@@ -38,7 +48,9 @@ from coin_tpu_torch.engine import collect as tcollect
 from coin_tpu_torch.engine import test as ttest
 from coin_tpu_torch.engine.results_store import ResultStore
 from coin_tpu_torch.models import gdino_variants as tvar
-from coin_tpu_torch.models.manifests import gdino_manifest, synth_state_dict
+from coin_tpu_torch.models.glip_detector import GLIPDetector
+from coin_tpu_torch.models.manifests import (gdino_manifest, glip_manifest,
+                                             synth_state_dict)
 
 CLASSES = ("car", "person")
 TOL = 1e-4
@@ -101,6 +113,53 @@ def assets(tmp_path_factory):
     a["jcfg"] = _configure(jload_config(), a)
     a["cfg"] = _configure(load_config(), a)
     return a
+
+
+def _glip_checkpoint(path):
+    """swinT, one VLDyHead block, 2 classes, a 2-layer BERT of 16 rows;
+    norms, gammas and level scales near 1 and fan-in scaled convs keep the
+    scores apart."""
+    keys, _ = glip_manifest("swinT", 1, 2, bert_layers=2, bert_vocab=16)
+    sd = synth_state_dict(keys, seed=13)
+    rng = np.random.RandomState(14)
+    for k, v in sd.items():
+        if v.ndim == 1 and not k.endswith(".bias") and (
+                "norm" in k or "LayerNorm" in k or ".bn." in k
+                or "gamma" in k or "scales" in k):
+            sd[k] = (1.0 + 0.1 * rng.randn(*v.shape)).astype(np.float32)
+        elif v.ndim > 1 and (".DyConv." in k or ".offset." in k
+                             or "fpn" in k or "dot_product" in k):
+            sd[k] = (rng.randn(*v.shape) / np.sqrt(np.prod(v.shape[1:])))\
+                .astype(np.float32)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               path)
+
+
+@pytest.fixture(scope="module")
+def glip_cfgs(assets):
+    a = dict(assets, ckpt=os.path.join(assets["root"], "glip_tiny.pth"))
+    _glip_checkpoint(a["ckpt"])
+    cfgs = (_configure(jload_config(), a), _configure(load_config(), a))
+    for cfg in cfgs:
+        cfg.MODEL.TEACHER_CLOUD.META_ARCHITECTURE = "GLIP"
+    return cfgs
+
+
+@pytest.fixture(scope="module")
+def glip_detectors(glip_cfgs):
+    """The JAX factory's GLIP in f32 with the reduced BERT, and the
+    port's."""
+    orig = jglip.GLIP
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jglip, "GLIP", lambda **kw: orig(
+            **{**kw, "dtype": jnp.float32}))
+        mp.setattr(jconvert_glip, "bert_params_from_glip",
+                   lambda sd: bert_params_from_checkpoint(
+                       sd, "language_backbone.body.model."))
+        jdet = jcf.build_cloud_detector(glip_cfgs[0], "GLIP", CLASSES)
+    tdet = tcf.build_cloud_detector(glip_cfgs[1], "GLIP", CLASSES,
+                                    device="cpu", dtype=torch.float32)
+    return jdet, tdet
 
 
 def _jax_f32_gdino(monkeypatch):
@@ -169,6 +228,27 @@ def test_collect_cloud_matches_jax(assets, detectors, nms_method):
     tstore.save(path)
     again = ResultStore.load(path)
     assert_stores_match(again, jstore)
+
+
+@pytest.mark.parametrize("nms_method", ["ms", "nms"])
+def test_collect_cloud_with_glip_matches_jax(assets, glip_detectors,
+                                             nms_method):
+    jdet, tdet = glip_detectors
+    assert isinstance(tdet, GLIPDetector) and tdet.model.num_blocks == 1
+    jl, tl = _loaders(assets)
+    kw = dict(nms_method=nms_method, collect_nms_thresh=0.6,
+              rcnn_thresh=0.25, rpn_thresh=0.3)
+    jstore = jcollect.collect_cloud(jdet, jl, len(CLASSES), **kw)
+    tstore = tcollect.collect_cloud(tdet, tl, len(CLASSES), device="cpu",
+                                    **kw)
+    assert len(tstore) == 3
+    counts = [len(tstore.get_view(i, "RCNN")["scores"])
+              for i in tstore.image_ids()]
+    assert all(c > 0 for c in counts), counts
+    assert_stores_match(tstore, jstore)
+    path = os.path.join(assets["out"], f"glip_collect_{nms_method}.npz")
+    tstore.save(path)
+    assert_stores_match(ResultStore.load(path), jstore)
 
 
 def test_per_class_test_matches_jax(assets, detectors, monkeypatch):
@@ -283,15 +363,19 @@ def test_parse_nms_method_matches_jax(method):
         jcollect.parse_nms_method(method)
 
 
-def test_unported_paths_raise(assets):
+def test_unported_paths_raise(assets, glip_cfgs):
     tl = _loaders(assets)[1]
     with pytest.raises(NotImplementedError, match="COLLECT_AUG"):
         tcollect.collect_cloud(None, tl, 2, collect_aug="ZOOM",
                                device="cpu")
-    for arch, item in (("GLIP", "item 20"), ("GDINO1_5_API", "item 20")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcf.build_cloud_detector(assets["cfg"], arch, CLASSES,
-                                     device="cpu")
+    # GLIP is ported: its factory builds the bf16 model from the checkpoint
+    det = tcf.build_cloud_detector(glip_cfgs[1], "GLIP", CLASSES,
+                                   device="cpu")
+    assert isinstance(det, GLIPDetector) and det.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in det.model.parameters())
+    with pytest.raises(NotImplementedError, match="item 20"):
+        tcf.build_cloud_detector(assets["cfg"], "GDINO1_5_API", CLASSES,
+                                 device="cpu")
     with pytest.raises(NotImplementedError, match="item"):
         tcf.build_clip_scorer(assets["cfg"], CLASSES)
     with pytest.raises(NotImplementedError, match="network"):
@@ -301,7 +385,7 @@ def test_unported_paths_raise(assets):
                                  device="cpu")
 
 
-def test_entry_points_raise_without_cuda(assets, monkeypatch):
+def test_entry_points_raise_without_cuda(assets, glip_cfgs, monkeypatch):
     """The collection path runs on the card unless the caller passes
     device="cpu"; without one it raises, never falling back."""
     from coin_tpu_torch.engine.pre_train import online_view_to_detections
@@ -314,6 +398,8 @@ def test_entry_points_raise_without_cuda(assets, monkeypatch):
         ("probs", (3,), np.float32))}
     for call in (
             lambda: tcf.build_cloud_detector(assets["cfg"], "GDINO",
+                                             CLASSES),
+            lambda: tcf.build_cloud_detector(glip_cfgs[1], "GLIP",
                                              CLASSES),
             lambda: tcf.build_synthetic_detector(CLASSES),
             lambda: tcollect.collect_cloud(None, tl, 2),
@@ -352,3 +438,24 @@ def test_collect_cli_with_synthetic_teacher_on_cpu(assets):
     rescored = clip.get_view(clip.image_ids()[0], "RCNN")
     np.testing.assert_array_equal(rescored["classes"],
                                   rescored["probs"].argmax(-1))
+
+
+def test_collect_cli_with_glip_on_cpu(assets, glip_cfgs):
+    """python -m coin_tpu_torch.tools.collect with the GLIP teacher (the
+    factory's bf16 model) and --skip-clip: the raw store the trainer
+    reads."""
+    from coin_tpu_torch.tools import collect as cli
+    cfg = glip_cfgs[1]
+    cli.main(["--config", assets["yaml"], "--skip-clip", "--device", "cpu",
+              "OUTPUT_DIR", os.path.join(assets["out"], "cli_glip"),
+              "MODEL.TEACHER_CLOUD.META_ARCHITECTURE", "GLIP",
+              "MODEL.TEACHER_CLOUD.TYPE", "swinT",
+              "MODEL.TEACHER_CLOUD.WEIGHT", cfg.MODEL.TEACHER_CLOUD.WEIGHT,
+              "TPU.BERT_VOCAB", assets["vocab"]])
+    out = os.path.join(assets["out"], "cli_glip")
+    assert not os.path.exists(os.path.join(out, "CLIP_collect.npz"))
+    store = ResultStore.load(os.path.join(out, "GLIP_collect.npz"))
+    assert len(store) == 3
+    view = store.get_view(store.image_ids()[0], "RCNN")
+    assert view["probs"].shape[1] == 3 and len(view["scores"]) > 0
+    np.testing.assert_array_equal(view["probs"][:, -1], 0.0)

@@ -78,7 +78,7 @@ def random_params(jmodule, rng, *args):
 
     def fill(path, s):
         name, shape = path[-1].key, s.shape
-        x = rng.randn(*shape).astype(np.float32)
+        x = np.asarray(rng.randn(*shape), np.float32)
         if name == "kernel":
             return x / np.sqrt(np.prod(shape[:-1]))
         if name == "scale":
@@ -254,6 +254,22 @@ def test_gdino_layer_matches_jax(rng, name):
     got = got if isinstance(got, tuple) else (got,)
     for g, w in zip(got, want):
         close(g, w)
+
+
+def test_bi_attention_without_l_dim_is_gdinos(rng):
+    """l_dim=None (GroundingDINO) keeps the language side at ``dim``: the
+    same parameters as l_dim=dim and the same bits."""
+    a = tg.BiMultiHeadAttention()
+    b = tg.BiMultiHeadAttention(l_dim=256)
+    b.load_state_dict(a.state_dict(), strict=True)
+    assert {k: v.shape for k, v in a.state_dict().items()} == \
+        {k: v.shape for k, v in b.state_dict().items()}
+    vis = torch.from_numpy(rng.randn(2, 65, 256).astype(np.float32))
+    lang = torch.from_numpy(rng.randn(2, 7, 256).astype(np.float32))
+    lmask = torch.ones((2, 7), dtype=torch.bool)
+    with torch.no_grad():
+        for x, y in zip(a(vis, lang, lmask), b(vis, lang, lmask)):
+            assert torch.equal(x, y) and x.shape[-1] == 256
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,9 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py -q
 
-Tolerances of the collection kernels: in their test's docstring.
+Tolerances of the collection kernels: in their test's docstring; the
+deformable 3x3 conv (K8) 1e-5 of the output's largest magnitude (the same
+samples, the per-tap products summed in another order).
 Tolerances: RoIAlign 1e-5 in f32 (the same arithmetic summed in another
 order), NMS keep masks equal, normalisation 1e-6; the RoIAlign backward
 (K1b) 1e-5 of the largest |d features| in f32 (its atomics add in no fixed
@@ -352,3 +354,30 @@ def test_collection_kernel_matches_plain_version_on_card(cuda_device, which):
                         getattr(got, f).cpu(), getattr(want, f), rtol=1e-5,
                         atol=1e-5, msg=f"{sm} {bm} {f}")
                 assert 0 < int(want.valid.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_matches_plain_version_on_card(cuda_device, stride):
+    """K8 at GLIP's width (256 -> 256) on odd sizes, with taps outside the
+    map, a non-unit mask and a bias; f32 with TF32 off for the plain
+    version's einsum."""
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.models import glip as tglip
+    parity_numerics()
+    rng = np.random.RandomState(4)
+    h, w = 19, 38
+    ho, wo = -(-h // stride), -(-w // stride)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    x = t(rng.randn(3, h, w, 256))
+    offsets = t(rng.uniform(-3, 3, (3, ho, wo, 18)))
+    mask = t(1 / (1 + np.exp(-rng.randn(3, ho, wo, 9))))
+    kernel = t(rng.randn(3, 3, 256, 256) / 48)
+    bias = t(rng.randn(256) * 0.1)
+    got = tglip.deform_conv3x3(x, offsets, mask, kernel, bias, stride)
+    want = tglip.deform_conv3x3_plain(x, offsets, mask, kernel, bias, stride)
+    assert got.shape == (3, ho, wo, 256)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    none = tglip.deform_conv3x3(x, offsets, mask, kernel, None, stride)
+    torch.testing.assert_close(none + bias, got, rtol=1e-6, atol=1e-6)

@@ -15,16 +15,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    training: 3 images, 512 + 64 RoIs each, so 1728 crops through res5;
    collection: 4 images, the stem and a backbone 3x3 conv; the GDINO
    collection batch: K9 at every Swin-B stage, K7 at the encoder's and the
-   decoder's shape, K6 on 4 x 256 rows), with its median time, the plain
-   version's, a library call's where PyTorch has one, and the card's
-   bound. The int8 kernels (quantisation, K2 forward, dgrad and wgrad at
-   each res5 shape, K2s) must agree bit for bit.
+   decoder's shape, K6 on 4 x 256 rows; the int8 RoIAlign K5 at the
+   student's 3 x 576 RoIs, the teacher's 4 x 512 and transposed, and its
+   backward K5b; K11 on 4 x 512 boxes with real clusters), with its median
+   time, the plain version's, a library call's where PyTorch has one, and
+   the card's bound. The int8 kernels (quantisation, K2 forward, dgrad and
+   wgrad at each res5 shape, K2s, K5) and K11 must agree bit for bit.
 4. reference: the full-width detector in f32 on the card against the same
    weights on the CPU (plain versions throughout) on a small canvas.
 5. step reference: one train_step_cached and one train_step of the
    full-width f32 model on the card against the CPU, same weights and
    draws, on a small canvas; then one train_step_cached with the int8 res5
-   of foggy_fast.yaml.
+   of foggy_fast.yaml, and one of the int8train_ps_roi configuration
+   (per-sample int8 res5, the int8 RoIAlign K5 and K5b).
 6. eval path: evaluate_detector of the full-width CLIP-RN50
    OpenVocabularyRCNN (bf16 with int8 res5, random weights from a seed)
    over a synthetic 8-image Foggy-Cityscapes-classed VOC set read through
@@ -44,7 +47,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    4 cached_two steps, then an eval of the student and the teacher. Every
    kernel must launch. Prints ms per step of each flavor, a stage split of
    the cached step, the collection pass per image with INT8_COLLECT on and
-   off, peak memory, and checks a checkpoint save and restore.
+   off, peak memory, and checks a checkpoint save and restore. Then the
+   collection pass with TPU.TEACHER_SHARE_CROPS 512 from the trained
+   teacher: its store must equal the plain pass bit for bit (every
+   proposal is its own cluster after the RPN's NMS) and K11 must launch.
+8b. int8 RoI path, this slice's main path: CoinTrainer.train of the
+   int8train_ps_roi arm of tools/validate_cached_teacher.py (foggy_fast.yaml
+   with TPU.INT8_TRAIN_SCALE sample, INT8_TRAIN_WGRAD false, INT8_ROI) at
+   full width, 8 steps as in phase 8; K5 and K5b must launch, K1 and K1b
+   must not. Then the same 8 steps of int8train_ps (INT8_ROI off), and the
+   two cached steps in turns on one batch.
 9. GDINO reference: the full-width Swin-B GroundingDINO and BERT-base in
    f32 on the card against the CPU, stage by stage, on 2 x 192 x 256.
 10. collection path: build_cloud_detector of foggy_fast.yaml's GDINO
@@ -298,6 +310,184 @@ def phase_roi_align_bwd(torch, dev, gen):
                 source="coin_tpu_torch/csrc/roi_align_bwd.cu",
                 replaces="coin_tpu/ops/roi_align.py:85", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def phase_roi_align_int8(torch, dev, gen):
+    """K5 at the student's shapes (3 images of res4 38 x 76 x 1024 bf16,
+    512 + 64 RoIs each: 1728 crops), the teacher's (4 images, 512
+    proposals each) and transposed (h > w, the other contraction order):
+    bit for bit against the plain version; timed beside K1 at the same
+    shapes."""
+    from coin_tpu_torch.kernels.roi_align import (roi_align_cuda,
+                                                  roi_align_int8_cuda)
+    from coin_tpu_torch.ops.roi_align import roi_align_int8_plain
+    args = (1.0 / 16.0, 14, 2)
+    cases = []
+    for label, b, n, hw in (("student", 3, 576, (38, 76)),
+                            ("teacher", 4, 512, (38, 76)),
+                            ("transposed", 3, 576, (76, 38))):
+        feats = torch.randn((b,) + hw + (1024,), generator=gen).to(
+            dev, torch.bfloat16)
+        rois = random_boxes(torch, gen, (b, n), (16 * hw[0], 16 * hw[1]),
+                            2.0, 600.0)
+        rois[:, :20] -= 40.0                 # partly outside the image
+        rois = rois.to(dev)
+        got = roi_align_int8_cuda(feats, rois, *args)
+        want = roi_align_int8_plain(feats, rois, *args)
+        diff = int((got != want).sum())
+        check(diff == 0 and bool(got.isfinite().all()),
+              f"roi_align_int8 {label}: {diff} values differ")
+        f32 = feats[:1].float()
+        check(torch.equal(roi_align_int8_cuda(f32, rois[:1], *args),
+                          roi_align_int8_plain(f32, rois[:1], *args)),
+              f"roi_align_int8 {label} f32: values differ")
+        ms = time_ms(torch, lambda: roi_align_int8_cuda(feats, rois, *args))
+        k1_ms = time_ms(torch, lambda: roi_align_cuda(feats, rois, *args))
+        plain_ms = time_ms(torch, lambda: roi_align_int8_plain(
+            feats, rois, *args), iters=2, warmup=1)
+        nbytes = feats.numel() * 2 + rois.numel() * 4 + got.numel() * 2
+        # each output: <= 4 x 4 s8 taps of two contractions, the requant
+        b_ms, b_by = bound(nbytes, got.numel() * 4 * 4 * 2 * 2, INT8_OPS)
+        print(f"[K5 roi_align_int8 {label}] feats {tuple(feats.shape)} bf16, "
+              f"rois {tuple(rois.shape)} -> {tuple(got.shape)}: bit for bit "
+              f"(bf16 and f32); {ms:.4f} ms, K1 at the same shapes "
+              f"{k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        cases.append(dict(case=label, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+    st = cases[0]
+    return dict(name="roi_align_int8", route="cuda",
+                source="coin_tpu_torch/csrc/roi_align_int8.cu",
+                replaces="coin_tpu/ops/roi_align.py:188", max_abs_err=0.0,
+                ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+                bound_by=st["bound_by"], library_ms=None, k1_ms=st["k1_ms"],
+                cases=cases)
+
+
+def phase_roi_align_int8_bwd(torch, dev, gen):
+    """K5b at the student's shapes, against the plain version: 1e-5 of the
+    largest |d feature| in f32, 2**-7 in bf16 (f32 atomics in no fixed
+    order; a t near a bf16 rounding boundary may round the other way);
+    timed beside K1b."""
+    from coin_tpu_torch.kernels.roi_align import (
+        roi_align_backward_cuda, roi_align_int8_backward_cuda)
+    from coin_tpu_torch.ops.roi_align import roi_align_int8_backward_plain
+    shape = (3, 38, 76, 1024)
+    rois = random_boxes(torch, gen, (3, 576), (608, 1216), 2.0, 600.0)
+    rois[:, :20] -= 40.0
+    rois = rois.to(dev)
+    g = torch.randn((3, 576, 14, 14, 1024), generator=gen).to(
+        dev, torch.bfloat16)
+    args = (1.0 / 16.0, 14, 2)
+    errs = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        got = roi_align_int8_backward_cuda(g, rois, shape, dt, *args).float()
+        want = roi_align_int8_backward_plain(g, rois, shape, dt,
+                                             *args).float()
+        scale = want.abs().max().item()
+        errs[str(dt)] = (got - want).abs().max().item() / scale
+        check(errs[str(dt)] <= tol, f"roi_align_int8_bwd {dt}: "
+              f"{errs[str(dt)]} of the largest entry > {tol}")
+    ms = time_ms(torch, lambda: roi_align_int8_backward_cuda(
+        g, rois, shape, torch.bfloat16, *args))
+    k1b_ms = time_ms(torch, lambda: roi_align_backward_cuda(
+        g, rois, shape, torch.bfloat16, *args))
+    plain_ms = time_ms(torch, lambda: roi_align_int8_backward_plain(
+        g, rois, shape, torch.bfloat16, *args), iters=2, warmup=1)
+    n = g.numel()
+    b_ms, b_by = bound(2 * n + rois.numel() * 4 + 2 * math.prod(shape),
+                       n * 4 * 2 * 2)        # <= 4 taps per axis
+    print(f"[K5b roi_align_int8_bwd] grad {tuple(g.shape)} bf16, rois "
+          f"{tuple(rois.shape)} -> {shape}: error / largest entry "
+          f"{json.dumps(errs)} (tol 1e-5 f32, 2**-7 bf16); {ms:.4f} ms, K1b "
+          f"{k1b_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return dict(name="roi_align_int8_bwd", route="cuda",
+                source="coin_tpu_torch/csrc/roi_align_int8_bwd.cu",
+                replaces="coin_tpu/ops/roi_align.py:213",
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, k1b_ms=k1b_ms)
+
+
+def clustered_boxes(rng, n, thr=0.9):
+    """(boxes (n, 4) f32, valid (n,) bool) with real clusters at IoU >= thr:
+    exact duplicates, chains whose neighbours overlap at IoU >= thr while
+    their ends do not (the closure must be transitive), invalid copies of
+    members between them, zero-area boxes (and their copies: no IoU), and
+    singletons, at shuffled indices. The kernel tests draw from it too."""
+    import numpy as np
+    rows, valid = [], []
+
+    def box(x, y, w, h):
+        return [x, y, x + w, y + h]
+
+    while len(rows) < n:
+        kind = rng.randint(5)
+        x, y = rng.uniform(0, 900, 2)
+        w, h = rng.uniform(20, 120, 2)
+        if kind == 0:                                   # exact duplicates
+            rows += [box(x, y, w, h)] * rng.randint(2, 4)
+            valid += [True] * (len(rows) - len(valid))
+        elif kind == 1:                                 # a chain along x
+            # IoU of neighbours (w - d) / (w + d) >= thr, of the ends not
+            d = w * (1 - thr) / (1 + thr) * 0.8
+            rows += [box(x + k * d, y, w, h) for k in range(rng.randint(3, 6))]
+            valid += [True] * (len(rows) - len(valid))
+        elif kind == 2:                                 # invalid copies
+            rows += [box(x, y, w, h)] * 3
+            valid += [True, False, True]
+        elif kind == 3:                                 # zero area
+            rows += [box(x, y, 0.0, h)] * 2
+            valid += [True, True]
+        else:                                           # a singleton
+            rows.append(box(x, y, w, h))
+            valid.append(rng.uniform() > 0.1)
+    perm = rng.permutation(len(rows))[:n]
+    return (np.asarray(rows, np.float32)[perm],
+            np.asarray(valid, bool)[perm])
+
+
+def phase_self_cluster(torch, dev):
+    """K11 at the teacher's shapes (4 images x 512 proposals, IoU 0.9) on
+    boxes with real clusters (duplicates, chains, invalid rows between
+    members, zero-area boxes): keep and rep equal the plain closure's."""
+    import numpy as np
+    from coin_tpu_torch.kernels.dedup import self_cluster_cuda
+    from coin_tpu_torch.ops.boxes import pairwise_iou
+    from coin_tpu_torch.ops.dedup import self_cluster_index_plain
+    rng = np.random.RandomState(SEED)
+    pairs = [clustered_boxes(rng, 512) for _ in range(4)]
+    boxes = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    valid = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    keep, rep = self_cluster_cuda(boxes, valid, 0.9)
+    want_keep, want_rep = self_cluster_index_plain(boxes, valid, 0.9)
+    check(torch.equal(keep, want_keep) and torch.equal(rep, want_rep),
+          f"self_cluster: {int((rep != want_rep).sum())} representatives, "
+          f"{int((keep != want_keep).sum())} keeps differ")
+    # real clusters, some reached only through the closure
+    idx = torch.arange(512, device=dev).expand(4, -1)
+    joined = (rep != idx) & valid
+    iou = pairwise_iou(boxes, boxes)
+    chained = joined & (torch.gather(iou, 2, rep[..., None])[..., 0] < 0.9)
+    check(int(joined.sum()) > 0 and int(chained.sum()) > 0,
+          "self_cluster: the inputs hold no clusters or no chains")
+    ms = time_ms(torch, lambda: self_cluster_cuda(boxes, valid, 0.9))
+    plain_ms = time_ms(torch, lambda: self_cluster_index_plain(
+        boxes, valid, 0.9), iters=5, warmup=1)
+    # the IoU of every pair (about 15 f32 operations) is the least work;
+    # inputs boxes + valid, outputs keep + rep
+    b_ms, b_by = bound(boxes.numel() * 4 + valid.numel() * (1 + 1 + 8),
+                       4 * 512 * 511 / 2 * 15)
+    print(f"[K11 self_cluster] 4 x 512 boxes, IoU 0.9: keep and rep "
+          f"identical ({int(keep.sum())} clusters of {int(valid.sum())} "
+          f"valid boxes; {int(chained.sum())} members joined only through "
+          f"a chain); {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    return dict(name="self_cluster", route="cuda",
+                source="coin_tpu_torch/csrc/dedup.cu",
+                replaces="coin_tpu/ops/dedup.py:38", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
 
@@ -641,7 +831,8 @@ def to_dev(d, dev):
     return d.map(lambda t: t.to(dev))
 
 
-def phase_step_reference(torch, dev, num_classes, tokens, int8=False):
+def phase_step_reference(torch, dev, num_classes, tokens, int8=False,
+                         int8_roi=False):
     """train_step_cached, then train_step (burn-up at step 1: EMA + the
     live teacher), of the full-width f32 model on the card (kernels)
     against the CPU (plain versions): same weights, same injected draws,
@@ -650,7 +841,9 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False):
     order its detections differently on the two devices. ``int8``: one
     train_step_cached with foggy_fast.yaml's int8 res5 (qt = 1: the K2
     forward, dgrad and wgrad on the card, their plain versions on the
-    CPU)."""
+    CPU); with ``int8_roi`` the int8train_ps_roi configuration instead
+    (qt = 3 and the int8 RoIAlign: K2 forward and dgrad with per-sample
+    scales, K5 and K5b)."""
     import dataclasses
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.device import parity_numerics
@@ -658,11 +851,17 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False):
     from coin_tpu_torch.engine import step_builder as sb
     from coin_tpu_torch.engine.common import synthetic_detections
     parity_numerics()
+    qt = (3 if int8_roi else 1) if int8 else 0
     cfg = load_config(os.path.join(REPO, "configs/coin/GDINO/foggy.yaml"))
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.SOLVER.BASE_LR = 0.01
     cfg.SOLVER.WARMUP_ITERS = 0
     cfg.TPU.INT8_TRAIN = int8
+    if int8_roi:
+        # the int8train_ps_roi arm (tools/validate_cached_teacher.py:243)
+        cfg.TPU.INT8_TRAIN_WGRAD = False
+        cfg.TPU.INT8_TRAIN_SCALE = "sample"
+        cfg.TPU.INT8_ROI = True
     pcfg = dataclasses.replace(
         pipelines.pipeline_config_from(cfg, num_classes),
         pre_nms_topk_train=600, post_nms_topk_train=100,
@@ -712,14 +911,16 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False):
         # on the card and on the CPU: same weights, images and boxes
         from coin_tpu_torch.data.augment import normalize_batch
         from coin_tpu_torch.ops.qconv import quantize
-        from coin_tpu_torch.ops.roi_align import roi_align_batched
+        from coin_tpu_torch.ops.roi_align import (roi_align_batched,
+                                                  roi_align_int8_batched)
+        ra = roi_align_int8_batched if int8_roi else roi_align_batched
         q = {}
         with torch.inference_mode():
             for d in (dev, "cpu"):
                 feats = states[d].model.features(normalize_batch(images.to(d)))
-                crops = roi_align_batched(feats, online[0].boxes.to(d),
-                                          1.0 / 16.0, 14, 2).flatten(0, 1)
-                q[d] = quantize(crops.contiguous())[0].cpu()
+                crops = ra(feats, online[0].boxes.to(d), 1.0 / 16.0, 14,
+                           2).flatten(0, 1)
+                q[d] = quantize(crops.contiguous(), int8_roi)[0].cpu()
         flipped = (q[dev] != q["cpu"]).float().mean().item()
     merge_before = {n: p.detach().clone() for n, p in
                     states["cpu"].merge_model.named_parameters()}
@@ -774,7 +975,8 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False):
         # step; res5's dgrad and the second-order merge gradient carry the
         # flips on (the CPU tests hold JAX's int8 step to the same bounds)
         tol, base = {"merge": 0.15}, 2e-2
-        what = (f"train_step_cached with the int8 res5 (qt 1; s8 values of "
+        what = (f"train_step_cached with the int8 res5 (qt {qt}"
+                f"{', the int8 RoIAlign' if int8_roi else ''}; s8 values of "
                 f"res5's input that differ: {flipped:.3g})")
         why = ("tol 2e-2, merge 0.15: each flipped s8 value moves a whole "
                "quantisation step")
@@ -797,8 +999,9 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False):
     check(gpu.step == cpu.step == (1 if int8 else 2)
           and losses["cpu"]["cached/loss_cls"] > 0,
           "step reference: steps not taken")
-    check(all(m.qt == int(int8) for m in gpu.model.res5.modules()
-              if hasattr(m, "qt")), "step reference: res5 int8 mode")
+    check(all(m.qt == qt for m in gpu.model.res5.modules()
+              if hasattr(m, "qt")) and gpu.model.quant_roi == int8_roi,
+          "step reference: res5 int8 mode or the int8 RoIAlign")
     del states, gpu, cpu
     torch.cuda.empty_cache()
 
@@ -1131,6 +1334,232 @@ def _cloud_store(torch, store, teacher, loader, num_classes, seed):
     return store
 
 
+def _share_crops_pass(torch, tr, cfg):
+    """The collection pass of foggy_fast.yaml with TPU.TEACHER_SHARE_CROPS
+    512 (the teacher's budget) from the trained teacher of ``tr``: after
+    the RPN's NMS at 0.7 no two proposals reach IoU 0.9, so every cluster
+    is a singleton and the store must equal the pass without the knob bit
+    for bit. Returns K11's launches in the pass and ms per image of both
+    passes."""
+    from coin_tpu_torch.engine.trainer import CoinTrainer
+    from coin_tpu_torch.kernels.dedup import self_cluster_cuda
+    scfg = cfg.clone()
+    scfg.TPU["TEACHER_SHARE_CROPS"] = 512
+    share = CoinTrainer(scfg)
+    check(share.teacher_pcfg.share_crops_budget == 512
+          and share.teacher_pcfg.share_crops_thresh == 0.9
+          and tr.teacher_pcfg.share_crops_budget == 0,
+          "share crops: the teacher's pipeline config")
+    share.state.teacher = tr.state.teacher
+    share._collect_loader = tr._collect_loader
+    ms = {}
+    for name, t in (("plain", tr), ("shared", share), ("plain", tr),
+                    ("shared", share)):
+        t.cfg.TPU.INT8_COLLECT = True
+        self_cluster_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = CoinTrainer.collect_teacher_store(t)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / 12
+        if name == "plain":
+            plain = store
+            check(self_cluster_cuda.launches == 0, "share crops: K11 ran "
+                  "in the pass without the knob")
+        else:
+            launches = self_cluster_cuda.launches
+    check(launches == 6, f"share crops: K11 launched {launches} times, "
+          f"want 6 (3 batches x 2 orientations)")
+    rows = 0
+    check(sorted(store.image_ids()) == sorted(plain.image_ids()),
+          "share crops: image ids")
+    for image_id in plain.image_ids():
+        for view in ("RCNN", "RCNN_FLIP"):
+            a, b = store.get_view(image_id, view), plain.get_view(image_id,
+                                                                  view)
+            check(set(a) == set(b) and all(
+                a[k].shape == b[k].shape and (a[k] == b[k]).all()
+                for k in b), f"share crops: {image_id}/{view} differs")
+            rows += len(b["boxes"])
+    print(f"[share crops] foggy_fast.yaml with TPU.TEACHER_SHARE_CROPS 512: "
+          f"the store equals the pass without it bit for bit ({rows} rows "
+          f"over 12 images x 2 orientations); K11 launched {launches} times; "
+          f"ms per image with the host decode: {json.dumps(ms)}")
+    return {"self_cluster_cuda": launches}, ms
+
+
+def _rounded(times):
+    """{name: [ms, ...]} as JSON, to the microsecond."""
+    return json.dumps({k: [round(t, 3) for t in v] for k, v in times.items()})
+
+
+def _int8_ps_cfg(root, npz, int8_roi):
+    """foggy_fast.yaml with the int8train_ps overrides of the reference's
+    A/B harness (tools/validate_cached_teacher.py:238-248), with or without
+    TPU.INT8_ROI, on the synthetic set under ``root``."""
+    from coin_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(REPO, "configs/coin/GDINO/foggy_fast.yaml"))
+    cfg.DATASETS.ROOT = root
+    cfg.DATASETS.TRAIN_UNLABEL = ["chip_smoke_roitrain"]
+    cfg.DATASETS.TEST = ["chip_smoke_roival"]
+    cfg.OUTPUT_DIR = os.path.join(root, "run_roi" if int8_roi else "run_ps")
+    cfg.CLOUD.COLLECT_FILE = npz
+    cfg.CLOUD.BURN_UP_STEP = 4
+    cfg.TPU.CACHE_TEACHER_MIN_STEPS = 0
+    cfg.CLOUD.PROTOTYPE_UPDATE_START = 0
+    cfg.TEST.EVAL_PERIOD = 8
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
+    cfg.TPU.INT8_TRAIN = True
+    cfg.TPU.INT8_TRAIN_WGRAD = False
+    cfg.TPU.INT8_TRAIN_SCALE = "sample"
+    if int8_roi:
+        cfg.TPU.INT8_ROI = True
+    return cfg
+
+
+def phase_int8_roi_trainer_path(torch, dev, num_classes, counters):
+    """CoinTrainer.train of the int8train_ps_roi configuration (foggy_fast
+    .yaml, per-sample int8 res5 without the int8 wgrad, the int8 RoIAlign)
+    at full width, 8 steps as the trainer path runs them; this slice's main
+    path. Then the same 8 steps of int8train_ps (INT8_ROI off) and their
+    cached steps in turns with the int8-RoI ones, on one card. Returns the
+    launches of every kernel in the int8-RoI run and its measurements."""
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES,
+                                         make_synthetic_voc,
+                                         register_pascal_voc)
+    from coin_tpu_torch.engine.pipelines import int8_train_mode
+    from coin_tpu_torch.engine.pre_train import online_view_to_detections
+    from coin_tpu_torch.engine.results_store import ResultStore
+    from coin_tpu_torch.engine.trainer import CoinTrainer
+    from coin_tpu_torch.kernels.roi_align import (roi_align_backward_cuda,
+                                                  roi_align_cuda)
+
+    root = os.path.join(REPO, "output", "chip_smoke_int8_roi")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        voc = os.path.join(root, "foggy")
+        make_synthetic_voc(voc, num_images=12, class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED, split="train")
+        make_synthetic_voc(voc, num_images=4, class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED + 1, split="val")
+        register_pascal_voc("chip_smoke_roitrain", "foggy", "train",
+                            CITYSCAPES_CLASSES, ".jpg")
+        register_pascal_voc("chip_smoke_roival", "foggy", "val",
+                            CITYSCAPES_CLASSES, ".jpg")
+        npz = os.path.join(root, "GDINO_collect.npz")
+        ResultStore(num_classes).save(npz)
+        runs, raw = {}, {}
+        for name, int8_roi in (("int8_ps_roi", True), ("int8_ps", False)):
+            cfg = _int8_ps_cfg(root, npz, int8_roi)
+            check(int8_train_mode(cfg) == 3, "not the int8train_ps mode")
+            tr = CoinTrainer(cfg)
+            m = tr.model
+            check(m.quant_train_res5 == 3 and m.quant_roi == int8_roi
+                  and m.clone(quant_convs=True).quant_roi == int8_roi
+                  and m.compute_dtype == torch.bfloat16
+                  and m.text_trunk.layers == 12
+                  and tr.teacher_pcfg.post_nms_topk_test == 512
+                  and tr.pcfg.roi_batch_size == 512
+                  and tr.cfg.SOLVER.IMG_PER_BATCH_UNLABEL == 3,
+                  f"{name}: not the full-width detector of its arm")
+            if int8_roi:
+                # the cloud store, paired with the teacher's detections
+                teacher_store = tr.collect_teacher_store()
+                _cloud_store(torch, ResultStore(num_classes), teacher_store,
+                             tr.train_loader, num_classes, SEED).save(npz)
+            tr.store = tr.train_loader.store = ResultStore.load(npz)
+            raw[name] = (tr, tr._train_step_cached)
+            seq, times, all_losses = [], {}, []
+
+            def timed(label, fn):
+                def run(*args, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    times.setdefault(label, []).append(
+                        (time.perf_counter() - t) * 1e3)
+                    seq.append(label)
+                    if label.startswith("train_step"):
+                        all_losses.append({k: v.item()
+                                           for k, v in out[1].items()})
+                    return out
+                return run
+            for attr in ("_train_step_cached", "_train_step_cached_two",
+                         "collect_teacher_store", "test", "test_teacher"):
+                setattr(tr, attr, timed(attr.lstrip("_"), getattr(tr, attr)))
+            tr.teacher_store = None
+            before = _snapshot(tr.state.model)
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = tr.train(max_iter=8)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            want = (["collect_teacher_store"] + ["train_step_cached"] * 4
+                    + ["collect_teacher_store"]
+                    + ["train_step_cached_two"] * 4 + ["test", "test_teacher"])
+            check(seq == want, f"{name}: sequence {seq}")
+            check(all(math.isfinite(v) for l in all_losses
+                      for v in l.values()), f"{name}: a loss is not finite")
+            check(state.step == 8 and _moved(state.model, before),
+                  f"{name}: the student did not train")
+            aps = (tr.ap_50_student.get(7), tr.ap_50_offline_teacher.get(7))
+            check(all(a is not None and 0.0 <= a <= 100.0 for a in aps),
+                  f"{name}: eval AP50 {aps}")
+            step_ms = {k: statistics.median(v[1:] or v)
+                       for k, v in times.items() if k.startswith("train")}
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs[name] = dict(step_ms=step_ms, launches=launches,
+                              peak_gib=mem, run_s=run_s)
+            print(f"[int8 RoI path] {name}: train(max_iter=8) {run_s:.3f} s; "
+                  f"ms per step (host clock to a synchronize; median after "
+                  f"the first of each flavor) {json.dumps(step_ms)}, all "
+                  f"{_rounded(times)}; peak {mem:.1f} GiB; AP50 student "
+                  f"{aps[0]:.4f}, teacher {aps[1]:.4f}; kernel launches "
+                  f"{json.dumps(launches)}")
+            for i, l in enumerate(all_losses):
+                print(f"  step {i}: " + json.dumps({k: round(v, 5)
+                                                    for k, v in l.items()}))
+        roi = runs["int8_ps_roi"]["launches"]
+        need = [n for n in roi if n not in (roi_align_cuda.__name__,
+                                             roi_align_backward_cuda.__name__,
+                                             "qconv_wgrad_cuda")]
+        check(all(roi[n] > 0 for n in need),
+              f"int8 RoI path: a kernel was not launched: {roi}")
+        check(roi.get(roi_align_cuda.__name__, 0) == 0
+              and roi.get(roi_align_backward_cuda.__name__, 0) == 0,
+              f"int8 RoI path: K1 or K1b ran where K5 should: {roi}")
+        # the two cached steps in turns on one batch: ps, roi, roi, ps, ...
+        tr0 = raw["int8_ps_roi"][0]
+        batch = tr0.train_loader._attach_store(tr0.train_loader.pack_batch(
+            [0, 5, 9], [False, True, False]))
+        view = lambda v: online_view_to_detections(v, dev)
+        ab = {}
+        for name in ("int8_ps", "int8_ps_roi", "int8_ps_roi",
+                     "int8_ps") * 3:
+            tr, step = raw[name]
+            args = (torch.from_numpy(batch.images).to(dev),
+                    torch.from_numpy(batch.image_hw).to(dev),
+                    view(batch.online["RCNN"]), view(batch.online["RPN"]),
+                    view(tr._pack_offline(batch)))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.state, _ = step(tr.state, *args)
+            torch.cuda.synchronize()
+            ab.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        ab_ms = {k: statistics.median(v) for k, v in ab.items()}
+        print(f"[int8 RoI path] train_step_cached in turns (ps, roi, roi, "
+              f"ps x 3; ms, host clock to a synchronize): medians "
+              f"{json.dumps(ab_ms)}, all {_rounded(ab)}")
+        return roi, dict(runs=runs, ab_ms=ab_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _same_tree(torch, a, b) -> bool:
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(_same_tree(torch, a[k], b[k])
@@ -1361,10 +1790,12 @@ def phase_trainer_path(torch, dev, num_classes, counters):
         print(f"[trainer path] checkpoint {os.path.basename(path)}: saved, "
               f"moved by 4 steps, restored: every tensor, count, step and "
               f"the generator equal")
+        share_launches, share_ms = _share_crops_pass(torch, tr, cfg)
         return launches, dict(step_ms=step_ms, stage_ms=stage_ms,
                               collect_ms_per_image=coll,
                               collect_device_ms_per_image=coll_dev,
-                              peak_gib=mem)
+                              peak_gib=mem, share_launches=share_launches,
+                              share_collect_ms_per_image=share_ms)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2357,8 +2788,9 @@ def main() -> int:
                                               qconv_wgrad_cuda,
                                               quantize_cuda,
                                               quantize_weight_cuda)
-    from coin_tpu_torch.kernels.roi_align import (roi_align_backward_cuda,
-                                                  roi_align_cuda)
+    from coin_tpu_torch.kernels.roi_align import (
+        roi_align_backward_cuda, roi_align_cuda, roi_align_int8_backward_cuda,
+        roi_align_int8_cuda)
     from coin_tpu_torch.kernels.window_attention import window_attention_cuda
     quant = [quantize_cuda, quantize_weight_cuda]
     eval_counters = [roi_align_cuda, nms_sorted_cuda, normalize_cuda,
@@ -2367,6 +2799,8 @@ def main() -> int:
                       roi_align_backward_cuda, augment_cuda]
     trainer_counters = train_counters + quant + [
         qconv_fwd_cuda, qconv_dgrad_cuda, qconv_wgrad_cuda, int8_conv_cuda]
+    roi_counters = trainer_counters + [roi_align_int8_cuda,
+                                       roi_align_int8_backward_cuda]
     collect_counters = [normalize_cuda, window_attention_cuda,
                         ms_deform_cuda, fusion_nms_cuda]
     glip_counters = [normalize_cuda, window_attention_cuda, deform_conv_cuda,
@@ -2375,6 +2809,9 @@ def main() -> int:
     with torch.inference_mode():
         kernels = [phase_roi_align(torch, dev, gen),
                    phase_roi_align_bwd(torch, dev, gen),
+                   phase_roi_align_int8(torch, dev, gen),
+                   phase_roi_align_int8_bwd(torch, dev, gen),
+                   phase_self_cluster(torch, dev),
                    phase_nms(torch, dev, gen), phase_augment(torch, dev, gen),
                    phase_normalize(torch, dev, gen),
                    phase_quantize(torch, dev),
@@ -2394,14 +2831,19 @@ def main() -> int:
     phase_reference(torch, dev, cfg, num_classes, tokens)
     phase_step_reference(torch, dev, num_classes, tokens)
     phase_step_reference(torch, dev, num_classes, tokens, int8=True)
+    phase_step_reference(torch, dev, num_classes, tokens, int8=True,
+                         int8_roi=True)
     eval_launches, _ = phase_main_path(torch, dev, cfg, num_classes, tokens,
                                        eval_counters)
     torch.cuda.empty_cache()
     train_launches, _ = phase_train_path(torch, dev, num_classes, tokens,
                                          train_counters)
     torch.cuda.empty_cache()
-    trainer_launches, _ = phase_trainer_path(torch, dev, num_classes,
-                                             trainer_counters)
+    trainer_launches, trainer = phase_trainer_path(torch, dev, num_classes,
+                                                   trainer_counters)
+    torch.cuda.empty_cache()
+    roi_launches, _ = phase_int8_roi_trainer_path(torch, dev, num_classes,
+                                                  roi_counters)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sd = gdino_checkpoint()
@@ -2423,10 +2865,14 @@ def main() -> int:
     del sd
     # the kernels line: launches are those of each kernel's main path (the
     # GDINO collection path for K6, K7 and K9, the GLIP collection path for
-    # K8, the trainer path for the rest); an entry of several wrappers
-    # counts them all
+    # K8, the int8-RoI trainer path for K5 and K5b, the share-crops
+    # collection pass for K11, the trainer path for the rest); an entry of
+    # several wrappers counts them all
     by_fn = {"roi_align": ["roi_align_cuda"],
              "roi_align_bwd": ["roi_align_backward_cuda"],
+             "roi_align_int8": ["roi_align_int8_cuda"],
+             "roi_align_int8_bwd": ["roi_align_int8_backward_cuda"],
+             "self_cluster": ["self_cluster_cuda"],
              "nms": ["nms_sorted_cuda"], "augment": ["augment_cuda"],
              "normalize": ["normalize_cuda"],
              "quantize": ["quantize_cuda", "quantize_weight_cuda"],
@@ -2440,9 +2886,13 @@ def main() -> int:
              "deform_conv": ["deform_conv_cuda"]}
     paths = {"trainer": trainer_launches, "training": train_launches,
              "eval": eval_launches, "collect": collect_launches,
-             "collect_glip": glip_launches}
+             "collect_glip": glip_launches, "int8_roi_trainer": roi_launches,
+             "share_crops": trainer["share_launches"]}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
-                  "fusion_nms": "collect", "deform_conv": "collect_glip"}
+                  "fusion_nms": "collect", "deform_conv": "collect_glip",
+                  "roi_align_int8": "int8_roi_trainer",
+                  "roi_align_int8_bwd": "int8_roi_trainer",
+                  "self_cluster": "share_crops"}
     for k in kernels:
         fns = by_fn[k["name"]]
         main_path = main_paths.get(k["name"], "trainer")

@@ -31,8 +31,6 @@ _NOT_PORTED = {
     "TPU.CLIP_BPE_VOCAB": "the CLIP tokenizer and template prototypes "
                           "(engine/clip_setup.py)",
     "TPU.CLIP_WEIGHTS": "CLIP checkpoint loading (engine/clip_setup.py)",
-    "TPU.TEACHER_SHARE_CROPS": "teacher res5-crop sharing "
-                               "(pipelines.shared_pool)",
     "TPU.TEACHER_FAST_HEAD": "the teacher's fast head (pool_boxes_fast)",
     "TEST.SAVE_DETECTION_PKLS": "detection pickles of the evaluator",
 }
@@ -46,8 +44,11 @@ def check_ported(cfg) -> None:
                                       f"ported yet")
 
 
-def device_count(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+# the port trains on one device until the data-parallel trainer (ROADMAP
+# item 22): a visible card that it does not use is not a worker, so
+# ``auto_scale_workers`` scales for this count, not for
+# ``torch.cuda.device_count()``
+NUM_WORKERS = 1
 
 
 def auto_scale_workers(cfg, num_workers: int):
@@ -86,7 +87,7 @@ class DetectorTrainerBase:
                  train_loader: Optional[TrainLoader] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        cfg = auto_scale_workers(cfg, device_count(self.device))
+        cfg = auto_scale_workers(cfg, NUM_WORKERS)
         check_ported(cfg)
         self.cfg = cfg
         self.train_loader = train_loader or TrainLoader(

@@ -1,5 +1,6 @@
 """Detector construction, the pipeline configuration and the inference
-pipeline (counterparts of coin_tpu/engine/pipelines.py:23-83,154-191 and
+pipeline with its res5-crop sharing (counterparts of
+coin_tpu/engine/pipelines.py:23-83,133-191 and
 coin_tpu/engine/base.py:27-70,126-152)."""
 
 from __future__ import annotations
@@ -15,13 +16,14 @@ from coin_tpu_torch.models import rpn as rpn_lib
 from coin_tpu_torch.models.anchors import grid_anchors
 from coin_tpu_torch.models.detector import OpenVocabularyRCNN
 from coin_tpu_torch.ops import boxes as box_ops
+from coin_tpu_torch.ops.dedup import self_cluster_index
 from coin_tpu_torch.structures import Detections
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """coin_tpu's PipelineConfig, less the inference levers that are off
-    in every shipped config (crop sharing, the fast head)."""
+    """coin_tpu's PipelineConfig, less the fast head (off in every shipped
+    config; ``TPU.TEACHER_FAST_HEAD`` raises)."""
     num_classes: int
     # RPN
     rpn_batch_size: int = 256
@@ -48,6 +50,10 @@ class PipelineConfig:
     bg_train: bool = True
     stride: int = 16
     cls_agnostic_bbox_reg: bool = True
+    # res5-crop sharing (TPU.TEACHER_SHARE_CROPS): pool only the IoU-cluster
+    # representatives, at most this many per image; 0 = off
+    share_crops_budget: int = 0
+    share_crops_thresh: float = 0.9
 
 
 def pipeline_config_from(cfg, num_classes: int) -> PipelineConfig:
@@ -118,17 +124,17 @@ def build_detector(cfg, num_classes: int, device="cuda"
     is the evaluator's (``DetectorTrainerBase.evaluate`` takes the int8
     clone).
 
+    ``TPU.INT8_ROI`` makes every ``pool_boxes`` run the int8 RoIAlign
+    (K5; ``quant_roi``), as ``coin_tpu/engine/base.py`` builds it.
+
     Raises for the configurations whose code waits for a later slice:
-    attention pooling, per-class box regression and the int8 RoIAlign.
+    attention pooling and per-class box regression.
     """
     device = resolve_device(device)
     if cfg.MODEL.ROI_HEADS.POOLING_TYPE != "meanpool":
         raise NotImplementedError("POOLING_TYPE attnpool is not ported yet")
     if not cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG:
         raise NotImplementedError("per-class box regression is not ported")
-    if cfg.get_path("TPU.INT8_ROI", False):
-        raise NotImplementedError("TPU.INT8_ROI (the int8 RoIAlign, K5) is "
-                                  "not ported yet")
     model = OpenVocabularyRCNN(
         num_classes=num_classes,
         depth=cfg.MODEL.RESNETS.DEPTH,
@@ -137,7 +143,8 @@ def build_detector(cfg, num_classes: int, device="cuda"
         text_width=cfg.get_path("TPU.TEXT_WIDTH", 512),
         text_heads=cfg.get_path("TPU.TEXT_HEADS", 8),
         compute_dtype=compute_dtype(cfg),
-        quant_train_res5=int8_train_mode(cfg))
+        quant_train_res5=int8_train_mode(cfg),
+        quant_roi=cfg.get_path("TPU.INT8_ROI", False))
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -163,6 +170,26 @@ def rpn_forward(model: OpenVocabularyRCNN, feats: torch.Tensor,
     return obj, deltas, proposals
 
 
+def shared_pool(model: OpenVocabularyRCNN, feats: torch.Tensor,
+                boxes: torch.Tensor, valid: torch.Tensor,
+                cfg: PipelineConfig) -> torch.Tensor:
+    """Pool res5 features for the cluster representatives only (boxes at
+    IoU >= ``share_crops_thresh`` share one crop; K11 finds them), at most
+    ``share_crops_budget`` per image, and hand each member its
+    representative's: boxes (B, N, 4), valid (B, N) → (B, N, D). Exact for
+    IoU = 1 duplicates, approximate within a cluster otherwise."""
+    keep, rep = self_cluster_index(boxes, valid, cfg.share_crops_thresh)
+    # representatives to the front, stably; inv maps a row to its place
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    inv = torch.argsort(order, dim=1)
+    rep_pos = torch.gather(inv, 1, rep).clamp_max(cfg.share_crops_budget - 1)
+    first = order[:, :cfg.share_crops_budget]
+    rep_boxes = torch.gather(boxes, 1, first[..., None].expand(-1, -1, 4))
+    pooled = model.pool_boxes(feats, rep_boxes, cfg.pooler_resolution)
+    return torch.gather(pooled, 1, rep_pos[..., None].expand(
+        -1, -1, pooled.shape[-1]))
+
+
 def inference(model: OpenVocabularyRCNN, images: torch.Tensor,
               images_hw: torch.Tensor, class_tokens: torch.Tensor,
               cfg: PipelineConfig,
@@ -173,7 +200,12 @@ def inference(model: OpenVocabularyRCNN, images: torch.Tensor,
     feats = model.features(images)
     anchors = anchors_for(images, cfg)
     _, _, proposals = rpn_forward(model, feats, images_hw, anchors, cfg)
-    pooled = model.pool_boxes(feats, proposals.boxes, cfg.pooler_resolution)
+    if cfg.share_crops_budget:
+        pooled = shared_pool(model, feats, proposals.boxes, proposals.valid,
+                             cfg)
+    else:
+        pooled = model.pool_boxes(feats, proposals.boxes,
+                                  cfg.pooler_resolution)
     if text_features is None:
         text_features = model.text_features(class_tokens)
     return box_inference(model, pooled, proposals, images_hw, text_features,

@@ -26,9 +26,8 @@ from coin_tpu_torch.data.augment import normalize_batch
 from coin_tpu_torch.data.loader import TestLoader, TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import pipelines
-from coin_tpu_torch.engine.base import (DetectorTrainerBase,
-                                        auto_scale_workers, check_ported,
-                                        device_count)
+from coin_tpu_torch.engine.base import (NUM_WORKERS, DetectorTrainerBase,
+                                        auto_scale_workers, check_ported)
 from coin_tpu_torch.engine.common import lr_value
 from coin_tpu_torch.engine.pre_train import online_view_to_detections
 from coin_tpu_torch.engine.results_store import ResultStore
@@ -43,7 +42,7 @@ class CoinTrainer(DetectorTrainerBase):
     def __init__(self, cfg, store: Optional[ResultStore] = None,
                  class_tokens: Optional[np.ndarray] = None, device="cuda"):
         device = resolve_device(device)
-        cfg = auto_scale_workers(cfg, device_count(device))
+        cfg = auto_scale_workers(cfg, NUM_WORKERS)
         check_ported(cfg)
         if store is None:
             store = self._load_store(cfg)
@@ -56,13 +55,17 @@ class CoinTrainer(DetectorTrainerBase):
                          device=device)
         self.store = store
         self.state = init_train_state(cfg, self.model, self.tokens, cfg.SEED)
-        # the teacher's proposal budget (TPU.TEACHER_PRE/POST_NMS_TOPK)
+        # the teacher's proposal budget (TPU.TEACHER_PRE/POST_NMS_TOPK) and
+        # its res5-crop sharing (TPU.TEACHER_SHARE_CROPS/SHARE_THRESH)
         self.teacher_pcfg = dataclasses.replace(
             self.pcfg,
             pre_nms_topk_test=cfg.get_path("TPU.TEACHER_PRE_NMS_TOPK",
                                            self.pcfg.pre_nms_topk_test),
             post_nms_topk_test=cfg.get_path("TPU.TEACHER_POST_NMS_TOPK",
-                                            self.pcfg.post_nms_topk_test))
+                                            self.pcfg.post_nms_topk_test),
+            share_crops_budget=cfg.get_path("TPU.TEACHER_SHARE_CROPS", 0),
+            share_crops_thresh=cfg.get_path("TPU.TEACHER_SHARE_THRESH",
+                                            0.9))
         hyper = dataclasses.replace(hyper_from_cfg(cfg),
                                     loss_weights=self.loss_weights)
         self._refresh_epochs = cfg.get_path("TPU.TEACHER_REFRESH_EPOCHS", 0)

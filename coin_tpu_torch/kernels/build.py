@@ -20,9 +20,10 @@ from typing import Dict, Iterable, List
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("roi_align", "roi_align_bwd", "nms", "normalize", "augment",
-           "quantize", "qconv", "qconv_wgrad", "window_attention",
-           "ms_deform", "fusion_nms", "deform_conv")
+SOURCES = ("roi_align", "roi_align_bwd", "roi_align_int8",
+           "roi_align_int8_bwd", "nms", "normalize", "augment", "quantize",
+           "qconv", "qconv_wgrad", "window_attention", "ms_deform",
+           "fusion_nms", "deform_conv", "dedup")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -26,7 +26,8 @@ from coin_tpu_torch.models.rpn import RPNHead
 from coin_tpu_torch.models.text_encoder import (PromptedTextEncoder,
                                                 ResidualAttentionBlock,
                                                 TextTransformer)
-from coin_tpu_torch.ops.roi_align import roi_align_batched
+from coin_tpu_torch.ops.roi_align import (roi_align_batched,
+                                          roi_align_int8_batched)
 
 # CLIP text-feature dims per visual backbone (coin_tpu/models/detector.py:32)
 TEXT_DIMS = {50: 1024, 101: 512, 200: 640, 800: 768}
@@ -38,11 +39,15 @@ class OpenVocabularyRCNN(nn.Module):
                  prompt_tmp_len: int = 4, text_layers: int = 12,
                  text_width: int = 512, text_heads: int = 8,
                  compute_dtype: torch.dtype = torch.float32,
-                 quant_convs: bool = False, quant_train_res5: int = 0):
+                 quant_convs: bool = False, quant_train_res5: int = 0,
+                 quant_roi: bool = False):
         super().__init__()
         cfg = DEPTH_CFG[depth]
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
+        # TPU.INT8_ROI: pool_boxes runs the int8 RoIAlign (K5); clone()
+        # keeps it, as flax's clone keeps every field
+        self.quant_roi = bool(quant_roi)
         self.text_dim = TEXT_DIMS[depth]
         self.backbone = CLIPResNetBackbone(depth)
         self.rpn_head = RPNHead(cfg["width"] * 16, num_anchors)
@@ -124,9 +129,11 @@ class OpenVocabularyRCNN(nn.Module):
 
     def pool_boxes(self, feats: torch.Tensor, boxes: torch.Tensor,
                    resolution: int = 14) -> torch.Tensor:
-        """RoIAlign(res4, stride 16) → res5 → mean pool: feats
-        (B, h, w, C), boxes (B, N, 4) image coordinates → (B, N, D)."""
-        x = roi_align_batched(feats, boxes, 1.0 / 16.0, resolution, 2)
+        """RoIAlign(res4, stride 16; in int8 under ``quant_roi``) → res5 →
+        mean pool: feats (B, h, w, C), boxes (B, N, 4) image coordinates
+        → (B, N, D)."""
+        ra = roi_align_int8_batched if self.quant_roi else roi_align_batched
+        x = ra(feats, boxes, 1.0 / 16.0, resolution, 2)
         b, n = x.shape[:2]
         x = self.res5(x.reshape((b * n,) + x.shape[2:]))
         return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype) \

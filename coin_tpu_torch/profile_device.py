@@ -1,7 +1,7 @@
 """Kernel-level profile of the port on one CUDA card.
 
     python -m coin_tpu_torch.profile_device
-        [--path eval|train|collect|collect_glip] [--iters 5]
+        [--path eval|train|collect|collect_glip] [--iters 5] [--int8-roi]
 
 ``--path eval``: the full-width bf16 detector of
 configs/coin/GDINO/foggy_fast.yaml with random weights from a seed,
@@ -14,7 +14,10 @@ excluded; the text features are computed once beforehand, as
 configs/coin/GDINO/foggy_fast.yaml at full width (bf16 with the int8 res5
 of ``TPU.INT8_TRAIN``, batch 3 on the 608 x 1216 canvas, 128 synthetic
 cloud boxes per image, the teacher's own predictions at its 512-proposal
-budget as the cached ones), with the optimizers past warmup.
+budget as the cached ones), with the optimizers past warmup. With
+``--int8-roi``, the int8train_ps_roi configuration instead: per-sample
+int8 res5 without the int8 wgrad (TPU.INT8_TRAIN_SCALE sample,
+INT8_TRAIN_WGRAD false) and the int8 RoIAlign (TPU.INT8_ROI: K5, K5b).
 
 ``--path collect``: ``--iters`` collection batches of the GDINO cloud
 teacher of foggy_fast.yaml at full width (Swin-B, 900 queries, 6 + 6
@@ -67,7 +70,8 @@ GROUPS = (
                       "absmax_kernel", "quantize_kernel", "weight_kernel",
                       "window_attention_kernel", "ms_deform_kernel",
                       "fusion_nms_kernel", "deform_conv_kernel",
-                      "deform_conv_reduce")),
+                      "deform_conv_reduce", "roi_align_int8_kernel",
+                      "roi_align_int8_bwd_kernel", "self_cluster_kernel")),
     ("elementwise", ("elementwise", "vectorized")),
     ("reduction", ("reduce",)),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
@@ -111,12 +115,16 @@ def eval_call(device):
     return call
 
 
-def train_call(device):
-    """One ``train_step_cached`` of foggy_fast.yaml at full width, as a
-    closure."""
+def train_call(device, int8_roi=False):
+    """One ``train_step_cached`` of foggy_fast.yaml at full width (with
+    ``int8_roi``, of its int8train_ps_roi arm), as a closure."""
     import dataclasses
     from coin_tpu_torch.engine import step_builder as sb
     cfg = load_config(os.path.join(CONFIGS, "GDINO/foggy_fast.yaml"))
+    if int8_roi:
+        cfg.TPU.INT8_TRAIN_WGRAD = False
+        cfg.TPU.INT8_TRAIN_SCALE = "sample"
+        cfg.TPU.INT8_ROI = True
     num_classes = len(CITYSCAPES_CLASSES)
     pcfg = pipelines.pipeline_config_from(cfg, num_classes)
     teacher_pcfg = dataclasses.replace(
@@ -232,13 +240,16 @@ def collect_call(device):
     return _collect_batch(det, cfg, device)
 
 
-def profile_calls(path: str, iters: int, device="cuda"):
+def profile_calls(path: str, iters: int, device="cuda",
+                  int8_roi: bool = False):
     """(wall ms per call, {kernel name: (ms per call, launches per
     call)}) over ``iters`` profiled calls of ``path``."""
     device = resolve_device(device)
-    call = {"eval": eval_call, "train": train_call,
-            "collect": collect_call,
-            "collect_glip": collect_glip_call}[path](device)
+    if path == "train":
+        call = train_call(device, int8_roi)
+    else:
+        call = {"eval": eval_call, "collect": collect_call,
+                "collect_glip": collect_glip_call}[path](device)
     for _ in range(2):
         call()
     torch.cuda.synchronize(device)
@@ -264,12 +275,16 @@ def main() -> int:
     parser.add_argument("--path", choices=("eval", "train", "collect",
                                            "collect_glip"), default="eval")
     parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--int8-roi", action="store_true",
+                        help="--path train: the int8train_ps_roi arm")
     args = parser.parse_args()
-    wall_ms, kernels = profile_calls(args.path, args.iters)
+    wall_ms, kernels = profile_calls(args.path, args.iters,
+                                     int8_roi=args.int8_roi)
     busy = sum(ms for ms, _ in kernels.values())
     what = {"eval": "one eval batch (4 images, bf16)",
-            "train": "one train_step_cached (3 images, bf16, int8 "
-                     "res5)",
+            "train": "one train_step_cached (3 images, bf16, "
+                     + ("per-sample int8 res5, int8 RoIAlign)"
+                        if args.int8_roi else "int8 res5)"),
             "collect": "one GDINO collection batch (4 images, bf16, fusion "
                        "NMS)",
             "collect_glip": "one GLIP-L collection batch (4 images, bf16 "

@@ -16,14 +16,21 @@ order); the strong and weak views (K4) 1e-5 (the canvas mean sums in
 another order); the int8 convolutions (K2, K2s) and their quantisation bit
 for bit: the same s8 values and scales (a NaN input gives a NaN scale and
 s8 zeros on both), the same s32 sums (wrapping past 2**31), the same f32
-rescale.
+rescale. The int8 RoIAlign (K5) and the IoU self-clustering (K11) bit for
+bit (exact integer sums; the same IoU arithmetic and the same lowest
+reachable index); the int8 RoIAlign backward (K5b) 1e-5 of the largest
+|d features| in f32 and 2**-7 (two bf16 ulps) in bf16: its atomics add in
+no fixed order, and a t near a bf16 rounding boundary may round to the
+neighbouring value.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import clustered_boxes
 from coin_tpu_torch.data import augment as taug
+from coin_tpu_torch.ops import dedup as tdedup
 from coin_tpu_torch.ops import nms as tnms
 from coin_tpu_torch.ops import qconv as tq
 from coin_tpu_torch.ops import roi_align as troi
@@ -381,3 +388,48 @@ def test_deform_conv_matches_plain_version_on_card(cuda_device, stride):
     assert err <= 1e-5 * float(want.abs().max()), err
     none = tglip.deform_conv3x3(x, offsets, mask, kernel, None, stride)
     torch.testing.assert_close(none + bias, got, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_int8_matches_plain_version_on_card(cuda_device, dtype):
+    """K5 bit for bit in both contraction orders, K5b at the stated
+    tolerance, on the card's own inputs; 12 channels take the kernels'
+    one-channel-per-thread path."""
+    from coin_tpu_torch.kernels.roi_align import (
+        roi_align_int8_backward_cuda, roi_align_int8_cuda)
+    rng = np.random.RandomState(5)
+    cases = list(_roi_align_cases(rng, cuda_device))
+    cases.append((cases[0][0][..., :12].contiguous(), cases[0][1]))
+    for feats, rois in cases:
+        feats = feats.to(dtype)
+        got = roi_align_int8_cuda(feats, rois, 1 / 16, 14, 2)
+        want = troi.roi_align_int8_plain(feats, rois, 1 / 16, 14, 2)
+        assert torch.equal(got, want)
+        g = torch.from_numpy(rng.randn(*got.shape).astype(np.float32)).to(
+            cuda_device, dtype)
+        shape = tuple(feats.shape)
+        got = roi_align_int8_backward_cuda(g, rois, shape, dtype, 1 / 16,
+                                           14, 2).float()
+        want = troi.roi_align_int8_backward_plain(g, rois, shape, dtype,
+                                                  1 / 16, 14, 2).float()
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.9, 0.5])
+def test_self_cluster_matches_plain_version_on_card(cuda_device, thr):
+    """K11's keep and rep equal the plain closure's on clustered boxes."""
+    from coin_tpu_torch.kernels.dedup import self_cluster_cuda
+    rng = np.random.RandomState(11)
+    for n in (5, 512, 700):
+        pairs = [clustered_boxes(rng, n, thr) for _ in range(4)]
+        boxes = torch.from_numpy(np.stack([p[0] for p in pairs])).to(
+            cuda_device)
+        valid = torch.from_numpy(np.stack([p[1] for p in pairs])).to(
+            cuda_device)
+        keep, rep = self_cluster_cuda(boxes, valid, thr)
+        want_keep, want_rep = tdedup.self_cluster_index_plain(boxes, valid,
+                                                              thr)
+        assert torch.equal(keep, want_keep) and torch.equal(rep, want_rep)

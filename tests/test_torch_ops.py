@@ -193,7 +193,8 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("which", ["roi_align", "nms", "normalize",
                                    "quantize", "qconv", "qconv_wgrad",
                                    "window_attention", "ms_deform",
-                                   "fusion_nms"])
+                                   "fusion_nms", "roi_align_int8",
+                                   "roi_align_int8_bwd", "self_cluster"])
 def test_cuda_launchers_refuse_cpu_tensors(which):
     """A launcher never falls back: a CPU tensor is refused before any
     build or launch."""
@@ -204,7 +205,9 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
         window_attention_cuda
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
-    from coin_tpu_torch.kernels.roi_align import roi_align_cuda
+    from coin_tpu_torch.kernels.dedup import self_cluster_cuda
+    from coin_tpu_torch.kernels.roi_align import (
+        roi_align_cuda, roi_align_int8_backward_cuda, roi_align_int8_cuda)
     s8 = torch.zeros(1, 4, 4, 16, dtype=torch.int8)
     one = torch.ones(1)
     call = {
@@ -228,6 +231,13 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
             torch.zeros(1, 5, 2, 8), torch.ones(1, 2, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3, 2, 1, 4, 2),
             torch.zeros(1, 3, 2, 1, 4)),
+        "roi_align_int8": lambda: roi_align_int8_cuda(
+            torch.zeros(1, 4, 4, 8), torch.zeros(1, 2, 4), 1.0, 7, 2),
+        "roi_align_int8_bwd": lambda: roi_align_int8_backward_cuda(
+            torch.zeros(1, 2, 7, 7, 8), torch.zeros(1, 2, 4), (1, 4, 4, 8),
+            torch.float32, 1.0, 7, 2),
+        "self_cluster": lambda: self_cluster_cuda(
+            torch.zeros(1, 8, 4), torch.ones(1, 8, dtype=torch.bool), 0.9),
         "fusion_nms": lambda: fusion_nms_cuda(
             torch.zeros(1, 8, 4), torch.zeros(1, 8, 3),
             torch.zeros(1, 8, dtype=torch.int32),

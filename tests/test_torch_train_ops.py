@@ -461,6 +461,47 @@ def test_roi_align_backward_matches_jax_vjp(rng, hw):
         np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("hw", [(13, 21), (21, 13)], ids=["w>=h", "w<h"])
+def test_roi_align_bf16_rounds_once_within_two_ulps_of_jax(rng, monkeypatch,
+                                                          hw):
+    """bf16 RoIAlign, forward (K1's plain version) and backward (K1b's),
+    against JAX's bf16 ``roi_align`` and its ``jax.vjp``, op by op. JAX
+    rounds the (N, R, short, C) intermediate of each pass to bf16; the
+    port rounds once, at the output. Measured over three seeds: 13-31 % of
+    the outputs and 22-36 % of the feature gradients land on another bf16
+    value, at most 0.61 % of the largest entry either way; held to 2**-7
+    (two bf16 ulps) of it. JAX's bf16 einsums run on f32 copies of their
+    operands (XLA's CPU runtime lacks some bf16 x bf16 -> f32 dots; exact
+    products summed in f32 are their definition)."""
+    einsum = jnp.einsum
+
+    def exact_product_einsum(*args, preferred_element_type=None, **kw):
+        if preferred_element_type == jnp.float32:
+            args = [a.astype(jnp.float32) if getattr(a, "dtype", None)
+                    == jnp.bfloat16 else a for a in args]
+        return einsum(*args, preferred_element_type=preferred_element_type,
+                      **kw)
+
+    monkeypatch.setattr(jnp, "einsum", exact_product_einsum)
+    h, w = hw
+    bf16 = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(
+        jnp.float32))
+    feats = bf16(rng.randn(2, h, w, 16))
+    rois = random_boxes(rng, (2, 9), size=16.0 * max(h, w), max_wh=200.0)
+    g = bf16(rng.randn(2, 9, 14, 14, 16))
+    with jax.disable_jit():
+        out, vjp = jax.vjp(lambda f: jroi.roi_align_batched(
+            f, jnp.asarray(rois), 1 / 16, 14, 2),
+            jnp.asarray(feats, jnp.bfloat16))
+        want_grad, = vjp(jnp.asarray(g, jnp.bfloat16))
+    f = _t(feats).to(torch.bfloat16).requires_grad_(True)
+    got = troi.roi_align_batched(f, _t(rois), 1 / 16, 14, 2)
+    got.backward(_t(g).to(torch.bfloat16))
+    for a, b in ((got.detach(), out), (f.grad, want_grad)):
+        a, b = a.float().numpy(), np.asarray(b.astype(jnp.float32))
+        assert np.abs(a - b).max() <= 2.0 ** -7 * np.abs(b).max()
+
+
 @pytest.mark.parametrize("which", ["roi_align_bwd", "augment"])
 def test_new_cuda_launchers_refuse_cpu_tensors(which):
     """K1b's and K4's launchers never fall back: a CPU tensor is refused

@@ -79,9 +79,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and DyConv, head and post-processing), detections before and after K6,
    peak memory, and the checkpoint's write and build seconds.
 
+13. bench_preprocess path, the main path of K10: the port's
+   tools/bench_preprocess through its main (normalize_flip of 3 x 608 x
+   1216 u8 images, resize_bilinear of a 1024 x 2048 u8 image into the 608
+   x 1216 canvas); K10a and K10b must launch.
+14. CLIP reference: the full-width CLIP RN50 scorer (backbone, K1 on res4,
+   res5, attention pool) and its 12-layer text trunk in f32 on the card
+   against the CPU, on 2 x 128 x 192.
+15. CLIP re-scoring path (stage 1b): build_clip_scorer of foggy_fast.yaml
+   from a random checkpoint in OpenAI CLIP RN50's layout and a BPE merges
+   file of the prompts' words (TPU.CLIP_WEIGHTS and TPU.CLIP_BPE_VOCAB set
+   in code), then rescore_with_clip over phase 10's 12-image store; the
+   CLIP_collect.npz read back. K1 and K4n must launch. Prints ms per image
+   and the rows before and after.
+
 Phase 3 also holds K8 (the modulated deformable 3x3 conv of the GLIP
 teacher) at each of its call shapes in GLIP-L's collection batch against
-its plain version. The script prints its own wall time.
+its plain version, and K10 (the bilinear resize K10a at the Foggy
+Cityscapes shape, an upscale and an f32 rounding tie of the scaled extent,
+with F.interpolate's antialiased resize timed beside it; the normalise +
+flip K10b bit for bit). The script prints its own wall time.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or coin_tpu.
@@ -138,6 +155,31 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, kernels=(), iters: int = 20, warmup: int = 3):
+    """Device time of one call of ``fn`` from the profiler's trace of
+    ``iters`` back-to-back calls, free of the host's launch time: (ms per
+    call of the kernels whose names hold one of ``kernels``, or of every
+    kernel and copy when it is empty; their launches per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 \
+                and (not kernels or any(k in e.key for k in kernels)):
+            us += e.self_device_time_total
+            n += e.count
+    check(us > 0, f"the profiler recorded no device time of {kernels}")
+    return us / 1e3 / iters, n / iters
 
 
 def random_boxes(torch, gen, shape, hw, min_wh, max_wh):
@@ -2352,7 +2394,7 @@ def phase_collect_path(torch, dev, sd, counters):
               f"{launches}")
         return launches, dict(ms_per_image=run_s * 1e3 / 12,
                               batch_ms=batch_ms, stage_ms=stage_ms,
-                              peak_gib=mem)
+                              peak_gib=mem, store=store)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(root, ignore_errors=True)
@@ -2744,6 +2786,294 @@ def phase_glip_collect_path(torch, dev, sd, counters):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------ K10: image preprocessing
+RESIZE_KERNELS = ("resize_weights", "resize_rows", "resize_cols")
+
+
+def phase_resize(torch, dev, gen):
+    """K10a against its dense plain version at the path shape (one 1024 x
+    2048 u8 Foggy Cityscapes image at scale 600/1024 into the 608 x 1216
+    canvas), at an upscale of 1.5 (400 x 800 f32) and at f32(0.305), where
+    100 x scale is an f32 tie that rounds half to even (30 rows, not 31).
+    Tolerance 1e-5 relative and 1e-3 absolute (0-255 units); the zeros
+    past the scaled extent equal. The library call, F.interpolate's
+    antialiased bilinear of the NCHW f32 image to 600 x 1200, is timed and
+    compared on the interior and at the borders, where they may differ by
+    design (JAX clamps the sample position, PyTorch clips the window).
+    Times are device times from the profiler (``device_ms``): one wrapper
+    call is three kernels and lasts less than its host launch."""
+    import numpy as np
+    import torch.nn.functional as F
+    from coin_tpu_torch.kernels.preprocess import resize_bilinear_cuda
+    from coin_tpu_torch.ops.preprocess import (resize_bilinear_plain,
+                                               scaled_extent)
+    from coin_tpu_torch.tools.bench_preprocess import FOGGY_HW, FOGGY_SCALE
+    tie = float(np.float32(0.305))
+    cases = (("foggy", FOGGY_HW, FOGGY_SCALE, (608, 1216), torch.uint8),
+             ("up1.5", (400, 800), 1.5, (608, 1216), torch.float32),
+             ("f32-tie", (100, 150), tie, (32, 48), torch.uint8))
+    errs, images = {}, {}
+    for name, hw, scale, out_hw, dtype in cases:
+        img = (torch.rand(hw + (3,), generator=gen) * 255.999).to(dtype)
+        img = img.to(dev)
+        images[name] = img
+        got = resize_bilinear_cuda(img, scale, out_hw)
+        want = resize_bilinear_plain(img, scale, out_hw)
+        err = (got - want).abs().max().item()
+        errs[name] = err
+        tol = 1e-3 + 1e-5 * want.abs().max().item()
+        check(err <= tol, f"resize_bilinear {name}: max abs err {err} > {tol}")
+        check(torch.equal(got == 0, want == 0),
+              f"resize_bilinear {name}: zero region differs")
+        if name == "f32-tie":
+            check(scaled_extent(hw[0], scale) == 30
+                  and bool((got[30:] == 0).all())
+                  and bool((got[29] != 0).any()),
+                  "resize_bilinear: the f32 tie did not round to 30 rows")
+    img = images["foggy"]
+    call = lambda: resize_bilinear_cuda(img, FOGGY_SCALE, (608, 1216))
+    ms, per_call = device_ms(torch, call, RESIZE_KERNELS)
+    check(per_call == 3, f"resize_bilinear: {per_call} kernels per call (3)")
+    call_ms = time_ms(torch, call)
+    plain_ms, _ = device_ms(torch, lambda: resize_bilinear_plain(
+        img, FOGGY_SCALE, (608, 1216)), iters=5, warmup=1)
+    nchw = img.permute(2, 0, 1)[None].float()
+    lib = lambda: F.interpolate(nchw, size=(600, 1200), mode="bilinear",
+                                antialias=True, align_corners=False)
+    lib_ms, _ = device_ms(torch, lib)
+    ours = call()[:600, :1200].permute(2, 0, 1)[None]
+    diff = (lib() - ours).abs()
+    interior = diff[..., 2:-2, 2:-2].max().item()
+    border = diff.max().item()
+    n_in, n_out = img.numel(), 608 * 1216 * 3 * 4
+    b_ms, b_by = bound(n_in + n_out, 0)
+    print(f"[K10a resize_bilinear] 1024 x 2048 u8 -> 608 x 1216 f32 at "
+          f"600/1024: max abs err vs plain {json.dumps(errs)} (tol 1e-3 + "
+          f"1e-5 of the largest value); device {ms:.4f} ms in 3 kernels "
+          f"(profiler; events around each wrapper call {call_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms (dense matrices), F.interpolate "
+          f"antialiased {lib_ms:.4f} ms (differs from K10a by "
+          f"{interior:.4g} in the interior, {border:.4g} at the borders), "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return dict(name="resize_bilinear", route="cuda",
+                source="coin_tpu_torch/csrc/preprocess.cu",
+                replaces="coin_tpu/ops/preprocess.py:44",
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                call_ms=call_ms,
+                library_diff_interior=interior, library_diff_border=border)
+
+
+def phase_normalize_flip(torch, dev, gen):
+    """K10b bit for bit against its plain version on the bench's batch (3
+    x 608 x 1216 u8, flags mixed, tools/bench_preprocess.py's mean and
+    std); no single PyTorch call computes it. Times are device times from
+    the profiler (``device_ms``), as for K10a."""
+    from coin_tpu_torch.kernels.preprocess import normalize_flip_cuda
+    from coin_tpu_torch.ops.preprocess import normalize_flip_plain
+    from coin_tpu_torch.tools.bench_preprocess import MEAN, STD
+    images = torch.randint(0, 256, (3, 608, 1216, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    flags = torch.tensor([True, False, True], device=dev)
+    got = normalize_flip_cuda(images, flags, MEAN, STD)
+    want = normalize_flip_plain(images, flags, MEAN, STD)
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want), f"normalize_flip: not bit for bit "
+          f"(max abs err {err})")
+    for f in ([True] * 3, [False] * 3):
+        fl = torch.tensor(f, device=dev)
+        check(torch.equal(normalize_flip_cuda(images, fl, MEAN, STD),
+                          normalize_flip_plain(images, fl, MEAN, STD)),
+              f"normalize_flip: flags {f}")
+    call = lambda: normalize_flip_cuda(images, flags, MEAN, STD)
+    ms, per_call = device_ms(torch, call)
+    check(per_call == 1, f"normalize_flip: {per_call} kernels per call (1)")
+    call_ms = time_ms(torch, call)
+    plain_ms, _ = device_ms(torch, lambda: normalize_flip_plain(
+        images, flags, MEAN, STD))
+    n = images.numel()
+    b_ms, b_by = bound(n + 4 * n, 0)
+    print(f"[K10b normalize_flip] {tuple(images.shape)} u8, flags mixed, "
+          f"all, none -> f32: bit for bit; device {ms:.4f} ms (profiler; "
+          f"events around each wrapper call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); no library "
+          f"call")
+    return dict(name="normalize_flip", route="cuda",
+                source="coin_tpu_torch/csrc/preprocess.cu",
+                replaces="coin_tpu/ops/preprocess.py:67", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, call_ms=call_ms)
+
+
+def phase_bench_preprocess_path(torch, counters):
+    """K10's main path: the port's tools/bench_preprocess through its
+    ``main``, as a user runs it (batch 3, a few iterations). K10a and K10b
+    must launch."""
+    from coin_tpu_torch.tools import bench_preprocess
+    for fn in counters:
+        fn.launches = 0
+    report = bench_preprocess.main(["--iters", "5"])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"[bench_preprocess path] normalize_flip {report['jnp_ms']:.4f} "
+          f"ms ({report['jnp_gbps']} GB/s), resize_bilinear "
+          f"{report['resize_ms']:.4f} ms ({report['resize_gbps']} GB/s); "
+          f"kernel launches {json.dumps(launches)}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the bench_preprocess path: "
+          f"{launches}")
+    return launches, report
+
+
+# ------------------------------------------------ the CLIP re-scorer
+def phase_clip_reference(torch, dev, ckpt):
+    """The full-width CLIP RN50 scorer (backbone, K1 on res4, res5, the
+    attention pool) and its 12-layer text trunk in f32 on the card
+    (kernels) against the same weights on the CPU (plain versions), TF32
+    off, on 2 x 128 x 192 with 8 boxes each and the 9 prompts of one
+    template."""
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.models import convert as C
+    from coin_tpu_torch.models.clip_scorer import CLIPScorer
+    from coin_tpu_torch.models.text_encoder import TextTransformer
+    parity_numerics()
+    sd = C.load_torch_state_dict(ckpt)
+    backbone, res5, attnpool = C.convert_clip_visual(sd)
+    geo = C.text_geometry(sd)
+    check(geo == dict(width=512, heads=8, layers=12, embed_dim=1024,
+                      vocab_size=49408, context_length=77),
+          f"not CLIP RN50's text trunk: {geo}")
+    text_sd = C.convert_clip_text(sd)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    cells = torch.randint(0, 256, (2, 8, 12, 3), generator=gen,
+                          dtype=torch.uint8)
+    images_u8 = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    boxes = random_boxes(torch, gen, (2, 8), (128, 192), 16.0, 96.0)
+    tokens = torch.randint(1, 400, (9, 77), generator=gen)
+    tokens[:, 12] = 49407                      # EOT, the largest id
+    tokens[:, 13:] = 0
+    out = {}
+    for name, d in (("cpu", "cpu"), ("gpu", dev)):
+        scorer = CLIPScorer(50).to(d)
+        scorer.backbone.load_state_dict(backbone)
+        scorer.res5.load_state_dict(res5)
+        scorer.attnpool.load_state_dict(attnpool)
+        trunk = TextTransformer(**geo).to(d)
+        trunk.load_state_dict(text_sd)
+        with torch.inference_mode():
+            text = trunk(tokens.to(d))
+            images = normalize_batch(images_u8.to(d))
+            feats = scorer.backbone(images, torch.float32)
+            probs = scorer(images, boxes.to(d), text, C.logit_scale_from(sd))
+        out[name] = dict(text=text.cpu(), res4=feats.cpu(), probs=probs.cpu())
+        del scorer, trunk
+    torch.cuda.empty_cache()
+    errs = {k: ((out["gpu"][k] - out["cpu"][k]).abs().max()
+                / out["cpu"][k].abs().max()).item() for k in out["cpu"]}
+    print(f"[CLIP reference] RN50 CLIPScorer + 12-layer text trunk in f32, "
+          f"card vs CPU, 2 x 128 x 192, 8 boxes each, 9 prompts: relative "
+          f"max errors {json.dumps(errs)} (tol 1e-3)")
+    check(all(v <= 1e-3 for v in errs.values()), f"CLIP reference: {errs}")
+
+
+def phase_clip_path(torch, dev, ckpt, bpe, cloud_store, counters):
+    """The CLIP re-scoring pass (stage 1b) as tools/collect runs it without
+    --skip-clip: build_clip_scorer of foggy_fast.yaml with TPU.CLIP_WEIGHTS
+    (a random checkpoint in OpenAI CLIP RN50's layout) and
+    TPU.CLIP_BPE_VOCAB (a merges file of the prompts' words) set in code,
+    then rescore_with_clip over the GDINO collection phase's store of the
+    same 12 synthetic 1024 x 2048 images (batches of 4 on 608 x 1216, both
+    views, TPU.CAP_TEACHER boxes each); CLIP_collect.npz written and read
+    back as the pre-train stage reads it. K1 and K4n must launch."""
+    import numpy as np
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.data.loader import TestLoader
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES,
+                                         make_synthetic_voc,
+                                         register_pascal_voc)
+    from coin_tpu_torch.engine import collect as collect_mod
+    from coin_tpu_torch.engine.cloud_factory import build_clip_scorer
+    from coin_tpu_torch.engine.results_store import ResultStore
+    root = os.path.join(REPO, "output", "chip_smoke_clip")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        make_synthetic_voc(os.path.join(root, "foggy"), num_images=12,
+                           class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED, split="train")
+        register_pascal_voc("chip_smoke_clip", "foggy", "train",
+                            CITYSCAPES_CLASSES, ".jpg")
+        cfg = load_config(os.path.join(REPO,
+                                       "configs/coin/GDINO/foggy_fast.yaml"))
+        cfg.TPU.CLIP_WEIGHTS, cfg.TPU.CLIP_BPE_VOCAB = ckpt, bpe
+        t0 = time.perf_counter()
+        scorer = build_clip_scorer(cfg, CITYSCAPES_CLASSES, device=dev)
+        build_s = time.perf_counter() - t0
+        itc = cfg.INPUT.TEACHER_CLOUD
+        loader = TestLoader("chip_smoke_clip", root, batch_size=4,
+                            min_size=itc.MIN_SIZE_TEST,
+                            max_size=itc.get("MAX_SIZE_TEST", 1333))
+        ids = sorted(r["image_id"] for r in loader.records)
+        check(sorted(cloud_store.image_ids()) == ids,
+              "the GDINO store is not of the same images")
+        cap = cfg.TPU.CAP_TEACHER
+        collect_mod.rescore_with_clip(scorer, cloud_store, loader, cap,
+                                      device=dev)            # warm-up
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect_mod.rescore_with_clip(scorer, cloud_store, loader, cap,
+                                            device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        npz = os.path.join(root, "CLIP_collect.npz")
+        out.save(npz)
+        back = ResultStore.load(npz)
+        check(sorted(back.image_ids()) == ids, "CLIP store image ids")
+        before = after = 0
+        for i in ids:
+            for view in ("RCNN", "RPN"):
+                v = back.get_view(i, view)
+                n = len(v["scores"])
+                after += n
+                before += min(len(cloud_store.get_view(i, view)["scores"]),
+                              cap)
+                check(v["probs"].shape == (n, 9)
+                      and bool(np.isfinite(v["probs"]).all())
+                      and bool(np.isfinite(v["boxes"]).all())
+                      and bool((v["classes"] < 8).all())
+                      and bool((np.abs(v["probs"].sum(-1) - 1) < 1e-4).all())
+                      and bool((v["scores"] == v["probs"].max(-1)).all()),
+                      f"CLIP store view {view} of {i}")
+        check(after > 0, "re-scoring kept no box")
+        batch, _ = next(iter(loader))
+        u8 = torch.from_numpy(batch.images).to(dev)
+        boxes = torch.from_numpy(np.stack([cloud_store.pack_view(
+            batch.image_ids[i], "RCNN", cap, float(batch.scale[i]), False,
+            float(batch.image_hw[i][1]))["boxes"]
+            for i in range(len(batch.image_ids))])).to(dev)
+        with torch.inference_mode():
+            batch_ms = time_ms(torch, lambda: scorer(u8, boxes), iters=10,
+                               warmup=2)
+        print(f"[CLIP path] build_clip_scorer(foggy_fast.yaml) from a "
+              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB RN50 checkpoint "
+              f"in {build_s:.1f} s; rescore_with_clip over 12 images (3 "
+              f"batches of 4 on 608 x 1216, both views, {cap} boxes each): "
+              f"{run_s:.3f} s, {run_s * 1e3 / 12:.2f} ms per image with "
+              f"host decode; device {batch_ms:.3f} ms per scorer call (4 "
+              f"images, one view); rows before {before}, after {after} "
+              f"(background-classified boxes dropped); kernel launches "
+              f"{json.dumps(launches)}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel was not launched on the CLIP path: {launches}")
+        return launches, dict(ms_per_image=run_s * 1e3 / 12,
+                              call_ms=batch_ms, rows=(before, after))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2782,6 +3112,8 @@ def main() -> int:
     from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
+    from coin_tpu_torch.kernels.preprocess import (normalize_flip_cuda,
+                                                   resize_bilinear_cuda)
     from coin_tpu_torch.kernels.qconv import (int8_conv_cuda,
                                               qconv_dgrad_cuda,
                                               qconv_fwd_cuda,
@@ -2805,6 +3137,8 @@ def main() -> int:
                         ms_deform_cuda, fusion_nms_cuda]
     glip_counters = [normalize_cuda, window_attention_cuda, deform_conv_cuda,
                      nms_sorted_cuda, fusion_nms_cuda]
+    preprocess_counters = [resize_bilinear_cuda, normalize_flip_cuda]
+    clip_counters = [roi_align_cuda, normalize_cuda]
     gen = torch.Generator().manual_seed(SEED)
     with torch.inference_mode():
         kernels = [phase_roi_align(torch, dev, gen),
@@ -2820,8 +3154,11 @@ def main() -> int:
                    phase_window_attention(torch, dev, gen),
                    phase_ms_deform(torch, dev, gen),
                    phase_fusion_nms(torch, dev, gen),
-                   phase_deform_conv(torch, dev, gen)]
+                   phase_deform_conv(torch, dev, gen),
+                   phase_resize(torch, dev, gen),
+                   phase_normalize_flip(torch, dev, gen)]
     torch.cuda.empty_cache()
+    pre_launches, _ = phase_bench_preprocess_path(torch, preprocess_counters)
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.data.voc import CITYSCAPES_CLASSES
     from coin_tpu_torch.engine.common import simple_class_tokens
@@ -2851,9 +3188,26 @@ def main() -> int:
           f"{sum(v.size for v in sd.values()) / 1e6:.1f} M values, drawn in "
           f"{time.perf_counter() - t0:.1f} s")
     phase_gdino_reference(torch, dev, sd)
-    collect_launches, _ = phase_collect_path(torch, dev, sd,
-                                             collect_counters)
+    collect_launches, collect_info = phase_collect_path(torch, dev, sd,
+                                                        collect_counters)
     del sd
+    torch.cuda.empty_cache()
+    import tempfile
+    from coin_tpu_torch.models.manifests import clip_assets
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    try:
+        t0 = time.perf_counter()
+        ckpt, bpe = clip_assets(tmp, CITYSCAPES_CLASSES,
+                                cfg.DATASETS.STYLE_NAME or "realistic", SEED)
+        print(f"[CLIP checkpoint] random RN50 in OpenAI's layout, "
+              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB, drawn and written "
+              f"in {time.perf_counter() - t0:.1f} s")
+        phase_clip_reference(torch, dev, ckpt)
+        clip_launches, _ = phase_clip_path(torch, dev, ckpt, bpe,
+                                           collect_info.pop("store"),
+                                           clip_counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sd = glip_checkpoint(torch)
@@ -2866,8 +3220,9 @@ def main() -> int:
     # the kernels line: launches are those of each kernel's main path (the
     # GDINO collection path for K6, K7 and K9, the GLIP collection path for
     # K8, the int8-RoI trainer path for K5 and K5b, the share-crops
-    # collection pass for K11, the trainer path for the rest); an entry of
-    # several wrappers counts them all
+    # collection pass for K11, the bench_preprocess path for K10a and
+    # K10b, the trainer path for the rest); an entry of several wrappers
+    # counts them all
     by_fn = {"roi_align": ["roi_align_cuda"],
              "roi_align_bwd": ["roi_align_backward_cuda"],
              "roi_align_int8": ["roi_align_int8_cuda"],
@@ -2883,16 +3238,21 @@ def main() -> int:
              "window_attention": ["window_attention_cuda"],
              "ms_deform": ["ms_deform_cuda"],
              "fusion_nms": ["fusion_nms_cuda"],
-             "deform_conv": ["deform_conv_cuda"]}
+             "deform_conv": ["deform_conv_cuda"],
+             "resize_bilinear": ["resize_bilinear_cuda"],
+             "normalize_flip": ["normalize_flip_cuda"]}
     paths = {"trainer": trainer_launches, "training": train_launches,
              "eval": eval_launches, "collect": collect_launches,
              "collect_glip": glip_launches, "int8_roi_trainer": roi_launches,
-             "share_crops": trainer["share_launches"]}
+             "share_crops": trainer["share_launches"],
+             "bench_preprocess": pre_launches, "clip_rescore": clip_launches}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
                   "fusion_nms": "collect", "deform_conv": "collect_glip",
                   "roi_align_int8": "int8_roi_trainer",
                   "roi_align_int8_bwd": "int8_roi_trainer",
-                  "self_cluster": "share_crops"}
+                  "self_cluster": "share_crops",
+                  "resize_bilinear": "bench_preprocess",
+                  "normalize_flip": "bench_preprocess"}
     for k in kernels:
         fns = by_fn[k["name"]]
         main_path = main_paths.get(k["name"], "trainer")

@@ -20,7 +20,11 @@ modules as flax does; DyConv's deformable kernels are HWIO convs like any
 other, the head's ``bias0`` and ``log_scale`` are scalars and its level
 ``scales`` a vector, the fusion gammas raw parameters) and a Flax BERT
 tree (``models/bert.py`` uses HF's names; ``nn.Embed``'s ``embedding`` is
-a ``weight``). ``load_jax_params`` loads any of them strictly.
+a ``weight``), the JAX ``CLIPScorer`` tree (``backbone``, ``res5``,
+``attnpool``: its q/k/v/c projections are Dense kernels, its positional
+embedding a raw parameter) into ``models.clip_scorer.CLIPScorer``, and an
+attnpool detector's tree into ``OpenVocabularyRCNN(pooling="attnpool")``.
+``load_jax_params`` loads any of them strictly.
 
 ``load_train_state`` carries a whole JAX ``TrainState`` of the adaptation
 step (its fields as numpy arrays) into the port's ``TrainState``.
@@ -80,7 +84,8 @@ def load_jax_params(module: torch.nn.Module, variables: Mapping[str, Any]
     """Load a JAX parameter tree (numpy leaves) into ``module`` strictly:
     the GroundingDINO tree into ``models.gdino.GroundingDINO``, the GLIP
     tree into ``models.glip.GLIP``, a Flax BERT tree into
-    ``models.bert.BertModel``, or any tree whose names the module
+    ``models.bert.BertModel``, the CLIP scorer's into
+    ``models.clip_scorer.CLIPScorer``, or any tree whose names the module
     mirrors."""
     dev = next(module.parameters()).device
     sd = {k: v.to(dev) for k, v in from_jax_variables(variables).items()}

@@ -20,7 +20,10 @@ from coin_tpu_torch.data.loader import TestLoader, TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import pipelines
 from coin_tpu_torch.engine.checkpoint import Checkpointer
-from coin_tpu_torch.engine.common import MetricLogger, simple_class_tokens
+from coin_tpu_torch.engine.clip_setup import (load_clip_into_model,
+                                              setup_clip_assets,
+                                              template_prototypes)
+from coin_tpu_torch.engine.common import MetricLogger
 from coin_tpu_torch.engine.evaluator import evaluate_detector
 
 logger = logging.getLogger(__name__)
@@ -28,9 +31,6 @@ logger = logging.getLogger(__name__)
 # TPU.* knobs the JAX trainers honour whose code the port does not have yet
 # (a knob that is set and not honoured would train another recipe silently)
 _NOT_PORTED = {
-    "TPU.CLIP_BPE_VOCAB": "the CLIP tokenizer and template prototypes "
-                          "(engine/clip_setup.py)",
-    "TPU.CLIP_WEIGHTS": "CLIP checkpoint loading (engine/clip_setup.py)",
     "TPU.TEACHER_FAST_HEAD": "the teacher's fast head (pool_boxes_fast)",
     "TEST.SAVE_DETECTION_PKLS": "detection pickles of the evaluator",
 }
@@ -79,9 +79,11 @@ def auto_scale_workers(cfg, num_workers: int):
 
 
 class DetectorTrainerBase:
-    """The detector (random weights from ``cfg.SEED``; f32 masters, int8
-    res5 under TPU.INT8_TRAIN), the pipeline configuration, the loss
-    weights, the checkpointer and the metric logger, on ``device``."""
+    """The detector (random weights from ``cfg.SEED``, then OpenAI CLIP's
+    under TPU.CLIP_WEIGHTS; f32 masters, int8 res5 under TPU.INT8_TRAIN),
+    its class tokens (CLIP BPE prompts under TPU.CLIP_BPE_VOCAB), the
+    pipeline configuration, the loss weights, the checkpointer and the
+    metric logger, on ``device``."""
 
     def __init__(self, cfg, class_tokens: Optional[np.ndarray] = None,
                  train_loader: Optional[TrainLoader] = None,
@@ -95,12 +97,20 @@ class DetectorTrainerBase:
             batch_size=cfg.SOLVER.IMG_PER_BATCH_UNLABEL, seed=cfg.SEED,
             min_size=cfg.INPUT.MIN_SIZE_TRAIN, max_size=cfg.INPUT.MAX_SIZE)
         self.num_classes = len(self.train_loader.spec.class_names)
-        self.class_tokens = (class_tokens if class_tokens is not None
-                             else simple_class_tokens(self.num_classes + 1))
+        if class_tokens is not None:
+            self.class_tokens, self.clip_tokenizer = class_tokens, None
+        else:
+            self.class_tokens, self.clip_tokenizer = setup_clip_assets(
+                cfg, self.train_loader.spec.class_names)
         self.tokens = torch.as_tensor(np.asarray(self.class_tokens),
                                       device=self.device).long()
         self.model = pipelines.build_detector(
             cfg, self.num_classes, self.device).random_init(cfg.SEED)
+        clip_path = cfg.get_path("TPU.CLIP_WEIGHTS", "")
+        if clip_path:
+            load_clip_into_model(
+                self.model, clip_path, cfg.MODEL.RESNETS.DEPTH,
+                region_clip_path=cfg.get_path("TPU.REGION_CLIP_WEIGHTS", ""))
         self.pcfg = pipelines.pipeline_config_from(cfg, self.num_classes)
         self.loss_weights = pipelines.loss_weights_from(cfg)
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
@@ -108,6 +118,20 @@ class DetectorTrainerBase:
             cfg.OUTPUT_DIR, cfg.SOLVER.MAX_ITER,
             tensorboard=cfg.get_path("TPU.TENSORBOARD", False))
         self._eval_loader = None
+
+    @torch.no_grad()
+    def init_prototypes(self) -> torch.Tensor:
+        """Template-mean prototypes (C+1, D) when CLIP assets are
+        configured, otherwise the learnable-prompt features at init."""
+        if self.clip_tokenizer is None:
+            return self.model.text_features(self.tokens).float()
+        names = list(self.train_loader.spec.class_names) + ["background"]
+        proto = template_prototypes(
+            lambda t: self.model.text_trunk(t.to(self.device)),
+            self.clip_tokenizer, names,
+            self.cfg.DATASETS.STYLE_NAME or "realistic")
+        return torch.as_tensor(proto, dtype=torch.float32,
+                               device=self.device)
 
     def evaluate(self, model) -> Dict[str, float]:
         """AP of ``model`` (the student or the teacher) on DATASETS.TEST[0];

@@ -1,9 +1,9 @@
 """Cloud-teacher construction from user-supplied checkpoints
 (counterpart of coin_tpu/engine/cloud_factory.py): the GroundingDINO
 detector and its class-only variant, the GLIP detector, plus the
-zero-asset stand-ins that pipeline rehearsals and tests use. The
-GDINO-1.5-API teacher (it needs the network) and the CLIP re-scorer
-(ROADMAP item 21) are not ported and raise.
+zero-asset stand-ins that pipeline rehearsals and tests use, and the
+CLIP re-scorer (``build_clip_scorer``). The GDINO-1.5-API teacher (it
+needs the network) raises.
 """
 
 from __future__ import annotations
@@ -15,7 +15,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from coin_tpu_torch.data.augment import normalize_batch
 from coin_tpu_torch.device import resolve_device
+from coin_tpu_torch.engine.clip_setup import template_prototypes
+from coin_tpu_torch.models.clip_resnet import DEPTH_CFG
+from coin_tpu_torch.models.clip_scorer import CLIPScorer
+from coin_tpu_torch.models.convert import (convert_clip_text,
+                                           convert_clip_visual,
+                                           load_torch_state_dict,
+                                           logit_scale_from, text_geometry)
 from coin_tpu_torch.models.convert_gdino import (bert_model,
                                                  clean_state_dict,
                                                  convert_gdino)
@@ -27,6 +35,8 @@ from coin_tpu_torch.models.gdino_variants import (ClassOnlyAdapter,
                                                   GDINO15APIDetector)
 from coin_tpu_torch.models.glip import GLIP
 from coin_tpu_torch.models.glip_detector import GLIPDetector
+from coin_tpu_torch.models.text_encoder import TextTransformer
+from coin_tpu_torch.models.tokenizer import ClipTokenizer
 from coin_tpu_torch.models.wordpiece import WordPieceTokenizer
 
 
@@ -145,9 +155,50 @@ def build_cloud_detector(cfg, arch, class_names, device="cuda",
     raise ValueError(f"unsupported cloud architecture: {arch}")
 
 
-def build_clip_scorer(cfg, class_names):
-    raise NotImplementedError(
-        "the CLIP re-scorer (CLIPScorer with AttentionPool2d, and "
-        "engine/clip_setup for its prototypes and weights) is not ported "
-        "(ROADMAP items 8b and 21); use --skip-clip, or --synthetic-teacher "
-        "for the stub scorer")
+def build_clip_scorer(cfg, class_names, device="cuda"):
+    """The CLIP re-scorer of the collection stage: ``scorer_apply(images_u8
+    (B, H, W, 3), boxes (B, N, 4)) -> probs (B, N, C+1)`` on ``device``.
+    TPU.CLIP_WEIGHTS (OpenAI CLIP's torch archive) gives the visual tower,
+    which computes in bf16 over f32 parameters (the attention pool in
+    f32), and the text trunk, which computes the frozen template-mean
+    prototypes of the classes and background in f32 (style
+    DATASETS.STYLE_NAME) once here; TPU.CLIP_BPE_VOCAB is the tokenizer's
+    merges file. The images are CLIP-normalised first (K4n on the card)."""
+    device = resolve_device(device)
+    clip_path = cfg.get_path("TPU.CLIP_WEIGHTS", "")
+    vocab = cfg.get_path("TPU.CLIP_BPE_VOCAB", "")
+    if not (clip_path and os.path.exists(clip_path)):
+        raise FileNotFoundError("TPU.CLIP_WEIGHTS missing for re-scoring")
+    if not (vocab and os.path.exists(vocab)):
+        raise FileNotFoundError("TPU.CLIP_BPE_VOCAB missing for re-scoring")
+    depth = cfg.MODEL.RESNETS.DEPTH
+    sd = load_torch_state_dict(clip_path)
+    backbone, res5, attnpool = convert_clip_visual(
+        sd, DEPTH_CFG[depth]["layers"])
+    scorer = CLIPScorer(depth, compute_dtype=torch.bfloat16)
+    scorer.backbone.load_state_dict(backbone, strict=True)
+    scorer.res5.load_state_dict(res5, strict=True)
+    scorer.attnpool.load_state_dict(attnpool, strict=True)
+    scorer = scorer.to(device).eval()
+    if device.type == "cuda":
+        scorer = scorer.to(memory_format=torch.channels_last)
+    logit_scale = logit_scale_from(sd)
+
+    # frozen text features: template-mean prototypes incl. background
+    trunk = TextTransformer(**text_geometry(sd))
+    trunk.load_state_dict(convert_clip_text(sd), strict=True)
+    trunk = trunk.to(device).eval()
+    del sd
+    names = list(class_names) + ["background"]
+    proto = template_prototypes(lambda t: trunk(t.to(device)),
+                                ClipTokenizer(vocab), names,
+                                cfg.DATASETS.STYLE_NAME or "realistic")
+    text_features = torch.as_tensor(proto, dtype=torch.float32,
+                                    device=device)
+
+    @torch.no_grad()
+    def scorer_apply(images_u8, boxes):
+        return scorer(normalize_batch(images_u8), boxes, text_features,
+                      logit_scale)
+
+    return scorer_apply

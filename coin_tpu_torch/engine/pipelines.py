@@ -126,13 +126,13 @@ def build_detector(cfg, num_classes: int, device="cuda"
 
     ``TPU.INT8_ROI`` makes every ``pool_boxes`` run the int8 RoIAlign
     (K5; ``quant_roi``), as ``coin_tpu/engine/base.py`` builds it.
+    ``MODEL.ROI_HEADS.POOLING_TYPE`` picks the mean pool or CLIP's
+    attention pool (``attnpool``) after res5.
 
-    Raises for the configurations whose code waits for a later slice:
-    attention pooling and per-class box regression.
+    Raises for per-class box regression, whose code waits for a later
+    slice (ROADMAP item 8c).
     """
     device = resolve_device(device)
-    if cfg.MODEL.ROI_HEADS.POOLING_TYPE != "meanpool":
-        raise NotImplementedError("POOLING_TYPE attnpool is not ported yet")
     if not cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG:
         raise NotImplementedError("per-class box regression is not ported")
     model = OpenVocabularyRCNN(
@@ -144,7 +144,8 @@ def build_detector(cfg, num_classes: int, device="cuda"
         text_heads=cfg.get_path("TPU.TEXT_HEADS", 8),
         compute_dtype=compute_dtype(cfg),
         quant_train_res5=int8_train_mode(cfg),
-        quant_roi=cfg.get_path("TPU.INT8_ROI", False))
+        quant_roi=cfg.get_path("TPU.INT8_ROI", False),
+        pooling=cfg.MODEL.ROI_HEADS.POOLING_TYPE)
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

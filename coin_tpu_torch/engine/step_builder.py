@@ -94,21 +94,24 @@ def hyper_from_cfg(cfg) -> StepHyper:
 
 
 def init_train_state(cfg, model, class_tokens: torch.Tensor,
-                     seed: int) -> TrainState:
+                     seed: int, proto0: Optional[torch.Tensor] = None
+                     ) -> TrainState:
     """The state at step 0 for ``model`` (already holding its weights):
     the freeze set of ``MODEL.BACKBONE.FREEZE_AT`` and
     ``CLOUD.UPDATE_BACKBONE``, the EMA teacher, a CKG net with random
     weights from ``seed + 2``, both optimizers (the merge one without
-    per-module multipliers) and the prototypes, which start as the prompt
-    text features (the JAX package's choice without CLIP assets). The
+    per-module multipliers) and the prototypes, which start as ``proto0``
+    (the trainer's template-mean prototypes under CLIP assets) or else as
+    the prompt text features (the JAX package's choice without them). The
     step's generator lives on the model's device, seeded ``seed + 1``."""
     dev = next(model.parameters()).device
     freeze(model, default_freeze_predicate(
         cfg.CLOUD.UPDATE_BACKBONE, cfg.MODEL.BACKBONE.FREEZE_AT))
     merge_model = CKGNet(cfg.MODEL.MERGE_DIM, model.num_classes + 1) \
         .random_init(seed + 2).to(dev)
-    with torch.no_grad():
-        proto0 = model.text_features(class_tokens).float()
+    if proto0 is None:
+        with torch.no_grad():
+            proto0 = model.text_features(class_tokens).float()
     return TrainState(
         model=model, teacher=make_teacher(model), merge_model=merge_model,
         optimizer=build_optimizer(trainable(model), cfg),

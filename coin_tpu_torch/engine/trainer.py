@@ -54,7 +54,8 @@ class CoinTrainer(DetectorTrainerBase):
         super().__init__(cfg, class_tokens, train_loader=loader,
                          device=device)
         self.store = store
-        self.state = init_train_state(cfg, self.model, self.tokens, cfg.SEED)
+        self.state = init_train_state(cfg, self.model, self.tokens, cfg.SEED,
+                                      proto0=self.init_prototypes())
         # the teacher's proposal budget (TPU.TEACHER_PRE/POST_NMS_TOPK) and
         # its res5-crop sharing (TPU.TEACHER_SHARE_CROPS/SHARE_THRESH)
         self.teacher_pcfg = dataclasses.replace(

@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("roi_align", "roi_align_bwd", "roi_align_int8",
            "roi_align_int8_bwd", "nms", "normalize", "augment", "quantize",
            "qconv", "qconv_wgrad", "window_attention", "ms_deform",
-           "fusion_nms", "deform_conv", "dedup")
+           "fusion_nms", "deform_conv", "dedup", "preprocess")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

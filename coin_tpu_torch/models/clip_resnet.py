@@ -1,5 +1,5 @@
-"""CLIP ModifiedResNet backbone and res5 head (counterpart of
-coin_tpu/models/clip_resnet.py:27-291).
+"""CLIP ModifiedResNet backbone, res5 head and attention pool (counterpart
+of coin_tpu/models/clip_resnet.py:27-331).
 
 3-conv stem with a trailing 2x2 average pool, anti-aliased strides (an
 average pool before every stride-2 1x1 conv), frozen BatchNorm, C4 layout:
@@ -19,11 +19,12 @@ them, never its bf16 cast.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from coin_tpu_torch.models.layers import Conv2d
+from coin_tpu_torch.models.layers import Conv2d, Linear
 from coin_tpu_torch.ops.qconv import int8_conv, int8_train_conv
 
 # channel/stride tables per depth (coin_tpu/models/clip_resnet.py:27-34)
@@ -177,3 +178,76 @@ class Res5Head(nn.Module):
     def forward(self, crops: torch.Tensor) -> torch.Tensor:
         """crops (N, r, r, C4) NHWC → (N, r/2, r/2, C5) NHWC."""
         return _to_nhwc(self.layer4(_to_nchw(crops)))
+
+
+def jax_resize_matrix(in_size: int, out_size: int) -> torch.Tensor:
+    """(out, in) f32 weights of ``jax.image.resize(..., "bilinear")`` along
+    one axis (jax/_src/image/scale.py ``compute_weight_mat``, antialiased):
+    sample (i + 0.5) / scale - 0.5, the triangle widened by 1/scale when
+    downsampling, each output's weights divided by their sum (0 where the
+    sum is below 1000 f32 eps), samples outside [-0.5, in - 0.5] zeroed."""
+    inv = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+    kernel_scale = torch.clamp_min(inv, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv - 0.5
+    grid = torch.arange(in_size, dtype=torch.float32)
+    x = (sample[:, None] - grid[None, :]).abs() / kernel_scale
+    w = (1.0 - x.abs()).clamp_min(0.0)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones(())),
+                    torch.zeros(()))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros(()))
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP's attention pooling (coin_tpu/models/clip_resnet.py:294): the
+    spatial mean token prepended, the positional embedding added (its
+    spatial part resized as ``jax.image.resize`` does when the map is not
+    ``spacial_dim`` square), one attention step with the mean token as the
+    only query, then ``c_proj``. The tokens and the embedding add in the
+    input's dtype; the projections run in f32 over the f32 parameters, as
+    flax's ``nn.Dense`` without a dtype promotes a bf16 input, and the
+    softmax in f32. Returns f32 (N, output_dim)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, output_dim: int,
+                 spacial_dim: int = 7):
+        super().__init__()
+        self.num_heads, self.spacial_dim = num_heads, spacial_dim
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(spacial_dim ** 2 + 1, embed_dim))
+        self.q_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(embed_dim, embed_dim)
+        self.v_proj = Linear(embed_dim, embed_dim)
+        self.c_proj = Linear(embed_dim, output_dim)
+        for m in (self.q_proj, self.k_proj, self.v_proj, self.c_proj):
+            m.compute_dtype = torch.float32
+
+    def _pos(self, h: int, w: int) -> torch.Tensor:
+        pos = self.positional_embedding
+        side = self.spacial_dim
+        if h * w == side ** 2:
+            return pos
+        ay = jax_resize_matrix(side, h).to(pos.device)
+        ax = jax_resize_matrix(side, w).to(pos.device)
+        spatial = torch.einsum("yi,xj,ijc->yxc", ay, ax,
+                               pos[1:].reshape(side, side, -1))
+        return torch.cat([pos[:1], spatial.reshape(h * w, -1)], 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, H, W, C) NHWC → (N, output_dim) f32."""
+        n, h, w, c = x.shape
+        tokens = x.reshape(n, h * w, c)
+        mean = tokens.mean(dim=1, keepdim=True, dtype=torch.float32)
+        tokens = torch.cat([mean.to(tokens.dtype), tokens], 1)
+        tokens = tokens + self._pos(h, w)[None].to(tokens.dtype)
+        hd = c // self.num_heads
+        split = lambda t: t.reshape(n, -1, self.num_heads, hd)
+        q = split(self.q_proj(tokens[:, :1]))
+        k, v = split(self.k_proj(tokens)), split(self.v_proj(tokens))
+        attn = torch.einsum("nqhd,nkhd->nhqk", q, k)
+        # divided by f32(√hd) (a correctly rounded division on every device)
+        attn = torch.softmax(attn / torch.full_like(
+            attn, float(np.float32(np.sqrt(hd)))), dim=-1)
+        out = torch.einsum("nhqk,nkhd->nqhd", attn, v)
+        return self.c_proj(out.reshape(n, c))

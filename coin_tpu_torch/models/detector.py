@@ -1,8 +1,9 @@
 """OpenVocabularyRCNN, the CLIPDET / target-detector meta-architecture
-(counterpart of coin_tpu/models/detector.py:35-189, mean pooling only).
+(counterpart of coin_tpu/models/detector.py:35-189).
 
 CLIP-ResNet C4 backbone → RPN head → RoIAlign(res4) → res5 on the
-collapsed B·N crop batch → mean pool → cosine classifier against
+collapsed B·N crop batch → mean pool (or CLIP's attention pool under
+``pooling="attnpool"``) → cosine classifier against
 learnable-prompt text features + class-agnostic box regression.
 Every parameter is held in f32, as flax keeps them; convolutions and the
 text tower's linears cast their weights to the compute dtype at each call
@@ -18,8 +19,9 @@ import itertools
 import torch
 from torch import nn
 
-from coin_tpu_torch.models.clip_resnet import (DEPTH_CFG, CLIPResNetBackbone,
-                                               QConv2d, Res5Head)
+from coin_tpu_torch.models.clip_resnet import (DEPTH_CFG, AttentionPool2d,
+                                               CLIPResNetBackbone, QConv2d,
+                                               Res5Head)
 from coin_tpu_torch.models.layers import Conv2d
 from coin_tpu_torch.models.roi_heads import BoxPredictor
 from coin_tpu_torch.models.rpn import RPNHead
@@ -40,7 +42,7 @@ class OpenVocabularyRCNN(nn.Module):
                  text_width: int = 512, text_heads: int = 8,
                  compute_dtype: torch.dtype = torch.float32,
                  quant_convs: bool = False, quant_train_res5: int = 0,
-                 quant_roi: bool = False):
+                 quant_roi: bool = False, pooling: str = "meanpool"):
         super().__init__()
         cfg = DEPTH_CFG[depth]
         self.num_classes = num_classes
@@ -52,7 +54,15 @@ class OpenVocabularyRCNN(nn.Module):
         self.backbone = CLIPResNetBackbone(depth)
         self.rpn_head = RPNHead(cfg["width"] * 16, num_anchors)
         self.res5 = Res5Head(depth)
-        self.box_predictor = BoxPredictor(cfg["width"] * 32, self.text_dim)
+        if pooling not in ("meanpool", "attnpool"):
+            raise ValueError(f"pooling {pooling!r} (meanpool or attnpool)")
+        self.pooling = pooling
+        feat_dim = cfg["width"] * 32          # res5 channels (2048, RN50)
+        if pooling == "attnpool":
+            self.attnpool = AttentionPool2d(feat_dim, cfg["heads"],
+                                            self.text_dim)
+            feat_dim = self.text_dim
+        self.box_predictor = BoxPredictor(feat_dim, self.text_dim)
         self.text_trunk = TextTransformer(width=text_width, heads=text_heads,
                                           layers=text_layers,
                                           embed_dim=self.text_dim)
@@ -130,12 +140,14 @@ class OpenVocabularyRCNN(nn.Module):
     def pool_boxes(self, feats: torch.Tensor, boxes: torch.Tensor,
                    resolution: int = 14) -> torch.Tensor:
         """RoIAlign(res4, stride 16; in int8 under ``quant_roi``) → res5 →
-        mean pool: feats (B, h, w, C), boxes (B, N, 4) image coordinates
-        → (B, N, D)."""
+        mean pool (the compute dtype) or attention pool (f32): feats (B,
+        h, w, C), boxes (B, N, 4) image coordinates → (B, N, D)."""
         ra = roi_align_int8_batched if self.quant_roi else roi_align_batched
         x = ra(feats, boxes, 1.0 / 16.0, resolution, 2)
         b, n = x.shape[:2]
         x = self.res5(x.reshape((b * n,) + x.shape[2:]))
+        if self.pooling == "attnpool":
+            return self.attnpool(x).reshape(b, n, -1)
         return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype) \
             .reshape(b, n, -1)
 

@@ -1,24 +1,27 @@
-"""Official Grounding DINO and GLIP checkpoint key manifests (the cloud
-teachers' part of coin_tpu/models/manifests.py, kept so that the port
+"""Official CLIP, Grounding DINO and GLIP checkpoint key manifests (the
+port's copy of coin_tpu/models/manifests.py, kept so that the port
 imports nothing of coin_tpu).
 
 Each manifest lists, key by key with shapes, the state dict of the
-official model definitions: IDEA-Research/GroundingDINO's
+official model definitions: openai/CLIP's ``clip/model.py``
+(``ModifiedResNet``, ``AttentionPool2d``, the text ``Transformer``: the
+RN50 archive); IDEA-Research/GroundingDINO's
 ``backbone/swin_transformer.py``, ``transformer.py``,
 ``fuse_modules.py`` and ``groundingdino.py``, plus HF ``BertModel`` under
 ``bert.`` (the ``groundingdino_swinb_cogcoor.pth`` layout); and
 microsoft/GLIP's maskrcnn_benchmark fork (Swin + FPN + VLDyHead, BERT under
 ``language_backbone.body.model.``, the ``glip_large_model.pth`` layout).
 Tests and ``chip_smoke.py`` build random checkpoints from them
-(:func:`synth_state_dict`), so ``models/convert_gdino`` and
-``models/convert_glip`` are held to the official key names, not to their
-own inverses. Buffers (non-parameter keys of the official state dicts)
+(:func:`synth_state_dict`, :func:`random_clip_state_dict`; with a BPE
+merges file, :func:`clip_assets`), so
+``models/convert``, ``models/convert_gdino`` and ``models/convert_glip``
+are held to the official key names, not to their own inverses. Buffers (non-parameter keys of the official state dicts)
 are listed apart; converters ignore them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Set, Tuple
+from typing import Dict, Iterable, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -42,6 +45,141 @@ def _lin(keys: Dict[str, Shape], p: str, o: int, i: int,
     keys[f"{p}.weight"] = (o, i)
     if bias:
         keys[f"{p}.bias"] = (o,)
+
+
+_CLIP_RN = {
+    # depth: (stage blocks, stem width, text width, text layers, embed
+    #         (output) dim, input resolution)
+    50: ((3, 4, 6, 3), 64, 512, 12, 1024, 224),
+    101: ((3, 4, 23, 3), 64, 512, 12, 512, 224),
+    200: ((4, 6, 10, 6), 80, 640, 12, 640, 288),    # RN50x4
+    800: ((6, 8, 18, 8), 96, 768, 12, 768, 384),    # RN50x16
+}
+
+
+def _bn(keys: Dict[str, Shape], bufs: Set[str], p: str, c: int) -> None:
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        keys[f"{p}.{leaf}"] = (c,)
+    bufs.add(f"{p}.num_batches_tracked")
+
+
+def clip_resnet_manifest(depth: int = 50, text_width: int = 0,
+                         text_layers: int = 0
+                         ) -> Tuple[Dict[str, Shape], Set[str]]:
+    """The official OpenAI CLIP RN state dict (params, buffers); a
+    ``text_width`` or ``text_layers`` other than 0 shrinks the text
+    transformer (tests)."""
+    blocks, width, t_width, t_layers, embed_dim, res = _CLIP_RN[depth]
+    t_width, t_layers = text_width or t_width, text_layers or t_layers
+    keys: Dict[str, Shape] = {}
+    bufs: Set[str] = set()
+    keys["visual.conv1.weight"] = (width // 2, 3, 3, 3)
+    _bn(keys, bufs, "visual.bn1", width // 2)
+    keys["visual.conv2.weight"] = (width // 2, width // 2, 3, 3)
+    _bn(keys, bufs, "visual.bn2", width // 2)
+    keys["visual.conv3.weight"] = (width, width // 2, 3, 3)
+    _bn(keys, bufs, "visual.bn3", width)
+    inplanes = width
+    for s, nblocks in enumerate(blocks):
+        planes = width * (2 ** s)
+        for b in range(nblocks):
+            p = f"visual.layer{s + 1}.{b}"
+            cin = inplanes if b == 0 else planes * 4
+            keys[f"{p}.conv1.weight"] = (planes, cin, 1, 1)
+            _bn(keys, bufs, f"{p}.bn1", planes)
+            keys[f"{p}.conv2.weight"] = (planes, planes, 3, 3)
+            _bn(keys, bufs, f"{p}.bn2", planes)
+            keys[f"{p}.conv3.weight"] = (planes * 4, planes, 1, 1)
+            _bn(keys, bufs, f"{p}.bn3", planes * 4)
+            if b == 0:  # Sequential('-1' avgpool, '0' conv, '1' bn)
+                keys[f"{p}.downsample.0.weight"] = (planes * 4, cin, 1, 1)
+                _bn(keys, bufs, f"{p}.downsample.1", planes * 4)
+        inplanes = planes * 4
+    feat_dim, spacial = width * 32, res // 32
+    keys["visual.attnpool.positional_embedding"] = (spacial * spacial + 1,
+                                                    feat_dim)
+    for proj in ("k_proj", "q_proj", "v_proj"):
+        _lin(keys, f"visual.attnpool.{proj}", feat_dim, feat_dim)
+    _lin(keys, "visual.attnpool.c_proj", embed_dim, feat_dim)
+    for i in range(t_layers):
+        p = f"transformer.resblocks.{i}"
+        keys[f"{p}.attn.in_proj_weight"] = (3 * t_width, t_width)
+        keys[f"{p}.attn.in_proj_bias"] = (3 * t_width,)
+        _lin(keys, f"{p}.attn.out_proj", t_width, t_width)
+        _ln(keys, f"{p}.ln_1", t_width)
+        _lin(keys, f"{p}.mlp.c_fc", 4 * t_width, t_width)
+        _lin(keys, f"{p}.mlp.c_proj", t_width, 4 * t_width)
+        _ln(keys, f"{p}.ln_2", t_width)
+    keys["token_embedding.weight"] = (49408, t_width)
+    keys["positional_embedding"] = (77, t_width)
+    _ln(keys, "ln_final", t_width)
+    keys["text_projection"] = (t_width, embed_dim)
+    keys["logit_scale"] = ()
+    # jit-archive int buffers build_model() deletes (model.py:428-430)
+    bufs.update({"input_resolution", "context_length", "vocab_size"})
+    return keys, bufs
+
+
+def random_clip_state_dict(depth: int = 50, seed: int = 0,
+                           text_width: int = 0, text_layers: int = 0
+                           ) -> Dict[str, np.ndarray]:
+    """A random CLIP checkpoint in the official layout (the manifest's
+    parameters, numpy f32) whose activations stay finite and O(1) through
+    the frozen-BN ResNet: He-normal convs, BN scales near 1 (the last of
+    each bottleneck near 0.2) over running variances in [0.5, 1.5],
+    LeCun-normal linears, CLIP's embedding scales, logit_scale ln 100."""
+    keys, _ = clip_resnet_manifest(depth, text_width, text_layers)
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, shape in keys.items():
+        leaf = k.rsplit(".", 1)[-1]
+        if len(shape) == 4:                        # conv (O, I, kh, kw)
+            fan_in = shape[1] * shape[2] * shape[3]
+            v = rng.randn(*shape) * np.sqrt(2.0 / fan_in)
+        elif leaf == "running_var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif leaf in ("running_mean", "bias") or k == "logit_scale":
+            v = rng.randn(*shape) * 0.05 if shape else np.log(100.0)
+        elif leaf == "weight" and len(shape) == 1:   # BN or LayerNorm scale
+            last = ".bn3." in k or ".downsample.1." in k
+            v = rng.uniform(0.8, 1.2, shape) * (0.2 if last else 1.0)
+        elif k == "token_embedding.weight":
+            v = rng.randn(*shape) * 0.02
+        elif k == "positional_embedding":
+            v = rng.randn(*shape) * 0.01
+        elif k.endswith("positional_embedding"):    # attnpool
+            v = rng.randn(*shape) * shape[1] ** -0.5
+        else:                                      # linears, projection
+            v = rng.randn(*shape) * shape[-1 if len(shape) == 2
+                                          and k != "text_projection"
+                                          else 0] ** -0.5
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def clip_assets(directory: str, class_names: Sequence[str], style: str,
+                seed: int, **text) -> Tuple[str, str]:
+    """A random checkpoint in OpenAI CLIP RN50's layout
+    (:func:`random_clip_state_dict`; ``text`` may shrink its text
+    transformer) and a BPE merges file that builds the words of the
+    template prompts of ``class_names`` and background in ``style``,
+    written into ``directory``: (checkpoint path, merges path)."""
+    import os
+    import re
+
+    import torch
+
+    from coin_tpu_torch.engine.clip_setup import PROMPT_TEMPLATES
+    from coin_tpu_torch.models.tokenizer import write_bpe_merges
+    sd = random_clip_state_dict(50, seed, **text)
+    ckpt = os.path.join(directory, "RN50_random.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
+    prompts = " ".join(t.replace("{0}", style).replace("{1}", n)
+                       for t in PROMPT_TEMPLATES
+                       for n in list(class_names) + ["background"])
+    bpe = os.path.join(directory, "bpe_random.txt.gz")
+    write_bpe_merges(bpe, re.findall("[a-z]+", prompts.lower()) + ["x"])
+    return ckpt, bpe
 
 
 def swin_manifest(variant: str = "swinB", prefix: str = "backbone.0",

@@ -1,7 +1,8 @@
 """Kernel-level profile of the port on one CUDA card.
 
     python -m coin_tpu_torch.profile_device
-        [--path eval|train|collect|collect_glip] [--iters 5] [--int8-roi]
+        [--path eval|train|collect|collect_glip|clip] [--iters 5]
+        [--int8-roi]
 
 ``--path eval``: the full-width bf16 detector of
 configs/coin/GDINO/foggy_fast.yaml with random weights from a seed,
@@ -29,6 +30,11 @@ official checkpoint layout): the detector on 4 random u8 images on the
 cloud teacher of configs/coin/GLIP/foggy.yaml at full width (Swin-L, 8
 VLDyHead blocks, BERT-base; bf16 over f32 parameters, DyConv in f32;
 random weights in the official checkpoint layout).
+
+``--path clip``: the CLIP re-scoring batch of foggy_fast.yaml's
+collection stage (``build_clip_scorer`` from a random full-width RN50
+checkpoint in OpenAI's layout: the bf16 visual tower, the attention pool
+in f32), both views of 128 boxes on 4 random u8 images.
 
 Prints the device time per call by kernel group and the top kernels, and
 the device's busy share of the window: the kernels' summed time over the
@@ -71,7 +77,9 @@ GROUPS = (
                       "window_attention_kernel", "ms_deform_kernel",
                       "fusion_nms_kernel", "deform_conv_kernel",
                       "deform_conv_reduce", "roi_align_int8_kernel",
-                      "roi_align_int8_bwd_kernel", "self_cluster_kernel")),
+                      "roi_align_int8_bwd_kernel", "self_cluster_kernel",
+                      "resize_weights", "resize_rows", "resize_cols",
+                      "normalize_flip_kernel")),
     ("elementwise", ("elementwise", "vectorized")),
     ("reduction", ("reduce",)),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
@@ -115,21 +123,36 @@ def eval_call(device):
     return call
 
 
-def train_call(device, int8_roi=False):
-    """One ``train_step_cached`` of foggy_fast.yaml at full width (with
-    ``int8_roi``, of its int8train_ps_roi arm), as a closure."""
+# the int8train_ps arm of tools/validate_cached_teacher.py:243-248 (with
+# TPU.INT8_ROI on top, the int8train_ps_roi arm)
+INT8_PS = {"INT8_TRAIN_WGRAD": False, "INT8_TRAIN_SCALE": "sample"}
+INT8_PS_ROI = dict(INT8_PS, INT8_ROI=True)
+
+
+def train_calls(device, config="GDINO/foggy_fast.yaml", tpu=None):
+    """The step flavours of ``config`` at full width (with the TPU.*
+    overrides ``tpu``, e.g. :data:`INT8_PS_ROI`), as closures over one
+    state and one batch: ``live`` (``train_step``), ``cached``
+    (``train_step_cached``), ``cached_two`` (``train_step_cached_two``)
+    and ``collect``, the collection pass's call on the same batch (the
+    teacher's inference at its proposal budget, through its int8 clone
+    under TPU.INT8_COLLECT). Batch IMG_PER_BATCH_UNLABEL on the
+    TPU.IMAGE_HW canvas, 128 synthetic cloud boxes per image, the
+    teacher's own predictions as the cached ones, the optimizers past
+    warmup."""
     import dataclasses
     from coin_tpu_torch.engine import step_builder as sb
-    cfg = load_config(os.path.join(CONFIGS, "GDINO/foggy_fast.yaml"))
-    if int8_roi:
-        cfg.TPU.INT8_TRAIN_WGRAD = False
-        cfg.TPU.INT8_TRAIN_SCALE = "sample"
-        cfg.TPU.INT8_ROI = True
+    cfg = load_config(os.path.join(CONFIGS, config))
+    for key, value in (tpu or {}).items():
+        cfg.TPU[key] = value
     num_classes = len(CITYSCAPES_CLASSES)
     pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    g = cfg.get_path
     teacher_pcfg = dataclasses.replace(
-        pcfg, pre_nms_topk_test=cfg.TPU.TEACHER_PRE_NMS_TOPK,
-        post_nms_topk_test=cfg.TPU.TEACHER_POST_NMS_TOPK)
+        pcfg, pre_nms_topk_test=g("TPU.TEACHER_PRE_NMS_TOPK",
+                                  pcfg.pre_nms_topk_test),
+        post_nms_topk_test=g("TPU.TEACHER_POST_NMS_TOPK",
+                             pcfg.post_nms_topk_test))
     model = pipelines.build_detector(cfg, num_classes, device)
     model.random_init(SEED)
     tokens = torch.as_tensor(simple_class_tokens(num_classes + 1),
@@ -139,8 +162,8 @@ def train_call(device, int8_roi=False):
         cfg.SOLVER.WARMUP_ITERS
     hyper = dataclasses.replace(sb.hyper_from_cfg(cfg), proto_start=0,
                                 loss_weights=pipelines.loss_weights_from(cfg))
-    _, cached, _ = sb.build_adaptation_steps(tokens, pcfg, teacher_pcfg,
-                                             hyper)
+    live, cached, cached_two = sb.build_adaptation_steps(
+        tokens, pcfg, teacher_pcfg, hyper)
     gen = torch.Generator().manual_seed(SEED)
     b, (h, w) = cfg.SOLVER.IMG_PER_BATCH_UNLABEL, cfg.TPU.IMAGE_HW
     images_u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen,
@@ -154,10 +177,19 @@ def train_call(device, int8_roi=False):
         offline = pipelines.inference(state.teacher,
                                       normalize_batch(images_u8), image_hw,
                                       tokens, teacher_pcfg)
+    teacher = (state.teacher.clone(quant_convs=True)
+               if g("TPU.INT8_COLLECT", False) else state.teacher)
 
-    def call():
-        return cached(state, images_u8, image_hw, *online, offline)
-    return call
+    @torch.inference_mode()
+    def collect():
+        return pipelines.inference(teacher, normalize_batch(images_u8),
+                                   image_hw, tokens, teacher_pcfg)
+    return {"live": lambda: live(state, images_u8, image_hw, *online),
+            "cached": lambda: cached(state, images_u8, image_hw, *online,
+                                     offline),
+            "cached_two": lambda: cached_two(state, images_u8, image_hw,
+                                             *online, offline),
+            "collect": collect, "batch": b}
 
 
 def _vocab_tokenizer():
@@ -240,16 +272,48 @@ def collect_call(device):
     return _collect_batch(det, cfg, device)
 
 
+def clip_call(device):
+    """One CLIP re-scoring batch of foggy_fast.yaml (the scorer of
+    ``build_clip_scorer`` from a random full-width RN50 checkpoint: bf16
+    visual tower, attention pool in f32) on 4 random u8 images on the
+    608 x 1216 canvas, both views (RCNN and RPN) of TPU.CAP_TEACHER random
+    boxes each, as a closure."""
+    import tempfile
+    from coin_tpu_torch.engine.cloud_factory import build_clip_scorer
+    from coin_tpu_torch.models.manifests import clip_assets
+    cfg = load_config(os.path.join(CONFIGS, "GDINO/foggy_fast.yaml"))
+    with tempfile.TemporaryDirectory() as d:
+        cfg.TPU.CLIP_WEIGHTS, cfg.TPU.CLIP_BPE_VOCAB = clip_assets(
+            d, CITYSCAPES_CLASSES, cfg.DATASETS.STYLE_NAME or "realistic",
+            seed=SEED)
+        scorer = build_clip_scorer(cfg, CITYSCAPES_CLASSES, device)
+    gen = torch.Generator().manual_seed(SEED)
+    h, w = cfg.TPU.IMAGE_HW
+    images_u8 = torch.randint(0, 256, (4, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(device)
+    views = [synthetic_detections(gen, 4, cfg.TPU.CAP_TEACHER,
+                                  len(CITYSCAPES_CLASSES), (h, w),
+                                  [cfg.TPU.CAP_TEACHER] * 4).boxes.to(device)
+             for _ in range(2)]
+
+    @torch.inference_mode()
+    def call():
+        return [scorer(images_u8, boxes) for boxes in views]
+    return call
+
+
 def profile_calls(path: str, iters: int, device="cuda",
                   int8_roi: bool = False):
     """(wall ms per call, {kernel name: (ms per call, launches per
     call)}) over ``iters`` profiled calls of ``path``."""
     device = resolve_device(device)
     if path == "train":
-        call = train_call(device, int8_roi)
+        call = train_calls(device, tpu=INT8_PS_ROI if int8_roi
+                           else None)["cached"]
     else:
         call = {"eval": eval_call, "collect": collect_call,
-                "collect_glip": collect_glip_call}[path](device)
+                "collect_glip": collect_glip_call,
+                "clip": clip_call}[path](device)
     for _ in range(2):
         call()
     torch.cuda.synchronize(device)
@@ -273,7 +337,8 @@ def profile_calls(path: str, iters: int, device="cuda",
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=("eval", "train", "collect",
-                                           "collect_glip"), default="eval")
+                                           "collect_glip", "clip"),
+                        default="eval")
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--int8-roi", action="store_true",
                         help="--path train: the int8train_ps_roi arm")
@@ -288,7 +353,9 @@ def main() -> int:
             "collect": "one GDINO collection batch (4 images, bf16, fusion "
                        "NMS)",
             "collect_glip": "one GLIP-L collection batch (4 images, bf16 "
-                            "with DyConv in f32, fusion NMS)"}[args.path]
+                            "with DyConv in f32, fusion NMS)",
+            "clip": "one CLIP re-scoring batch (4 images, both views, "
+                    "bf16 RN50)"}[args.path]
     print(f"{torch.cuda.get_device_name(0)}: {what} {wall_ms:.3f} ms wall, "
           f"{busy:.3f} ms of kernels: device busy "
           f"{100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f}"

@@ -10,11 +10,11 @@ online teacher's cache) and, unless ``--skip-clip``,
 ``$OUTPUT_DIR/CLIP_collect.npz`` (the re-scored detections). It needs
 MODEL.TEACHER_CLOUD.WEIGHT (a GroundingDINO or GLIP checkpoint, after
 MODEL.TEACHER_CLOUD.META_ARCHITECTURE) and TPU.BERT_VOCAB (BERT's
-vocab.txt); ``--synthetic-teacher`` needs neither: a random-weight
-tiny GDINO and a stub scorer rehearse the pipeline (the detections are
-meaningless). The CLIP re-scorer itself is not ported yet (ROADMAP item
-21), so without ``--synthetic-teacher`` the re-scoring pass raises. Runs
-on the card unless ``--device cpu``.
+vocab.txt); the re-scoring pass needs TPU.CLIP_WEIGHTS (OpenAI CLIP
+RN50's torch archive) and TPU.CLIP_BPE_VOCAB (its BPE merges file).
+``--synthetic-teacher`` needs none of them: a random-weight tiny GDINO and
+a stub scorer rehearse the pipeline (the detections are meaningless).
+Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def main(argv=None):
 
     scorer_apply = (build_stub_scorer(len(class_names))
                     if args.synthetic_teacher
-                    else build_clip_scorer(cfg, class_names))
+                    else build_clip_scorer(cfg, class_names, args.device))
     clip_store = collect_mod.rescore_with_clip(
         scorer_apply, store, loader,
         capacity=cfg.get_path("TPU.CAP_TEACHER", 128), device=args.device)

@@ -379,8 +379,10 @@ def test_unported_paths_raise(assets, glip_cfgs):
     with pytest.raises(NotImplementedError, match="item 20"):
         tcf.build_cloud_detector(assets["cfg"], "GDINO1_5_API", CLASSES,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item"):
-        tcf.build_clip_scorer(assets["cfg"], CLASSES)
+    # the CLIP re-scorer is ported (tests/test_torch_clip.py): without
+    # its checkpoint it raises for the missing file, naming the knob
+    with pytest.raises(FileNotFoundError, match="CLIP_WEIGHTS"):
+        tcf.build_clip_scorer(assets["cfg"], CLASSES, device="cpu")
     with pytest.raises(NotImplementedError, match="network"):
         tvar.GDINO15APIDetector("token", CLASSES)
     with pytest.raises(ValueError, match="unsupported"):
@@ -405,6 +407,7 @@ def test_entry_points_raise_without_cuda(assets, glip_cfgs, monkeypatch):
             lambda: tcf.build_cloud_detector(glip_cfgs[1], "GLIP",
                                              CLASSES),
             lambda: tcf.build_synthetic_detector(CLASSES),
+            lambda: tcf.build_clip_scorer(assets["cfg"], CLASSES),
             lambda: tcollect.collect_cloud(None, tl, 2),
             lambda: ttest.CloudLiveEvalTrainer(assets["cfg"]),
             lambda: online_view_to_detections(view),
@@ -441,6 +444,35 @@ def test_collect_cli_with_synthetic_teacher_on_cpu(assets):
     rescored = clip.get_view(clip.image_ids()[0], "RCNN")
     np.testing.assert_array_equal(rescored["classes"],
                                   rescored["probs"].argmax(-1))
+
+
+def test_collect_cli_with_clip_rescoring_on_cpu(assets, tmp_path):
+    """python -m coin_tpu_torch.tools.collect without --skip-clip: the
+    tiny GDINO teacher's store, then the CLIP re-scoring pass through
+    build_clip_scorer (a random RN50 checkpoint in OpenAI's layout with a
+    one-layer text tower, a small BPE merges file) writes
+    CLIP_collect.npz."""
+    from coin_tpu_torch.models.manifests import clip_assets
+    from coin_tpu_torch.tools import collect as cli
+    ckpt, bpe = clip_assets(str(tmp_path), CLASSES, "realistic", seed=5,
+                            text_width=128, text_layers=1)
+    out = os.path.join(assets["out"], "cli_clip")
+    cli.main(["--config", assets["yaml"], "--device", "cpu",
+              "OUTPUT_DIR", out, "MODEL.TEACHER_CLOUD.TYPE", "swinT",
+              "MODEL.TEACHER_CLOUD.WEIGHT", assets["ckpt"],
+              "TPU.BERT_VOCAB", assets["vocab"], "TPU.GDINO_ENC_LAYERS", "1",
+              "TPU.GDINO_DEC_LAYERS", "1", "TPU.CLIP_WEIGHTS", ckpt,
+              "TPU.CLIP_BPE_VOCAB", bpe])
+    raw = ResultStore.load(os.path.join(out, "GDINO_collect.npz"))
+    clip = ResultStore.load(os.path.join(out, "CLIP_collect.npz"))
+    assert sorted(clip.image_ids()) == sorted(raw.image_ids())
+    rows = 0
+    for i in clip.image_ids():
+        v = clip.get_view(i, "RCNN")
+        assert v["probs"].shape == (len(v["scores"]), 3)
+        assert (v["classes"] < 2).all() and np.isfinite(v["probs"]).all()
+        rows += len(v["scores"])
+    assert rows > 0
 
 
 def test_collect_cli_with_glip_on_cpu(assets, glip_cfgs):

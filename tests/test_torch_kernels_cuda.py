@@ -21,7 +21,10 @@ bit (exact integer sums; the same IoU arithmetic and the same lowest
 reachable index); the int8 RoIAlign backward (K5b) 1e-5 of the largest
 |d features| in f32 and 2**-7 (two bf16 ulps) in bf16: its atomics add in
 no fixed order, and a t near a bf16 rounding boundary may round to the
-neighbouring value.
+neighbouring value. The bilinear resize (K10a) 1e-5 relative and 1e-3
+absolute in 0-255 units (the dense plain version sums every term of a
+row in cuBLAS's order, the kernel its non-zero taps in ascending order);
+the normalise + flip (K10b) bit for bit.
 """
 
 import numpy as np
@@ -433,3 +436,39 @@ def test_self_cluster_matches_plain_version_on_card(cuda_device, thr):
         want_keep, want_rep = tdedup.self_cluster_index_plain(boxes, valid,
                                                               thr)
         assert torch.equal(keep, want_keep) and torch.equal(rep, want_rep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0,w0,scale,out_hw,dtype", [
+    (1024, 2048, 600 / 1024, (608, 1216), torch.uint8),
+    (200, 300, 1.5, (304, 448), torch.float32),
+    (100, 150, float(np.float32(0.305)), (32, 48), torch.uint8),
+    (77, 131, 0.21, (24, 32), torch.float32),
+], ids=["foggy", "up1.5", "f32-tie", "down0.21"])
+def test_resize_bilinear_matches_plain_version_on_card(
+        cuda_device, h0, w0, scale, out_hw, dtype):
+    """K10a against its dense plain version: the same taps summed over
+    the non-zero ones only; 1e-5 relative and 1e-3 absolute (0-255
+    units), and the zeros past the scaled extent equal."""
+    from coin_tpu_torch.ops import preprocess as tpre
+    rng = np.random.RandomState(12)
+    img = torch.from_numpy(rng.uniform(0, 256, (h0, w0, 3))).to(dtype) \
+        .to(cuda_device)
+    got = tpre.resize_bilinear(img, scale, out_hw)
+    want = tpre.resize_bilinear_plain(img, scale, out_hw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert torch.equal(got == 0, want == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flip", [[True, False, True], [True] * 3,
+                                  [False] * 3], ids=["mixed", "all", "none"])
+def test_normalize_flip_matches_plain_version_on_card(cuda_device, flip):
+    """K10b bit for bit against its plain version (odd widths included)."""
+    from coin_tpu_torch.ops import preprocess as tpre
+    images = torch.randint(0, 256, (3, 33, 17, 3), dtype=torch.uint8,
+                           device=cuda_device)
+    mean, std = (0.481, 0.457, 0.408), (0.268, 0.261, 0.275)
+    flags = torch.tensor(flip, device=cuda_device)
+    assert torch.equal(tpre.normalize_flip(images, flags, mean, std),
+                       tpre.normalize_flip_plain(images, flags, mean, std))

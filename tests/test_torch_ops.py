@@ -160,8 +160,9 @@ def test_normalize_batch_matches_jax(rng):
 
 # ------------------------------------------- package and device contract
 def test_port_imports_nothing_of_jax_or_coin_tpu():
-    """Every module of coin_tpu_torch imports in a fresh interpreter
-    without pulling in jax, flax or coin_tpu."""
+    """Every module of coin_tpu_torch (the K10 and CLIP modules named)
+    imports in a fresh interpreter without pulling in jax, flax or
+    coin_tpu."""
     code = """
 import pkgutil, importlib, sys
 import coin_tpu_torch
@@ -173,6 +174,11 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'coin_tpu'))
 assert not bad, bad
 assert len(names) >= 20, names
+new = {'coin_tpu_torch.' + m for m in (
+    'ops.preprocess', 'kernels.preprocess', 'tools.bench_preprocess',
+    'tools.bench', 'models.tokenizer', 'models.convert',
+    'models.clip_scorer', 'engine.clip_setup')}
+assert new <= set(names), new - set(names)
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -194,7 +200,8 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
                                    "quantize", "qconv", "qconv_wgrad",
                                    "window_attention", "ms_deform",
                                    "fusion_nms", "roi_align_int8",
-                                   "roi_align_int8_bwd", "self_cluster"])
+                                   "roi_align_int8_bwd", "self_cluster",
+                                   "resize_bilinear", "normalize_flip"])
 def test_cuda_launchers_refuse_cpu_tensors(which):
     """A launcher never falls back: a CPU tensor is refused before any
     build or launch."""
@@ -206,6 +213,8 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.kernels.normalize import normalize_cuda
     from coin_tpu_torch.kernels.dedup import self_cluster_cuda
+    from coin_tpu_torch.kernels.preprocess import (normalize_flip_cuda,
+                                                   resize_bilinear_cuda)
     from coin_tpu_torch.kernels.roi_align import (
         roi_align_cuda, roi_align_int8_backward_cuda, roi_align_int8_cuda)
     s8 = torch.zeros(1, 4, 4, 16, dtype=torch.int8)
@@ -238,6 +247,11 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
             torch.float32, 1.0, 7, 2),
         "self_cluster": lambda: self_cluster_cuda(
             torch.zeros(1, 8, 4), torch.ones(1, 8, dtype=torch.bool), 0.9),
+        "resize_bilinear": lambda: resize_bilinear_cuda(
+            torch.zeros(8, 8, 3), 0.5, (4, 4)),
+        "normalize_flip": lambda: normalize_flip_cuda(
+            torch.zeros(1, 2, 2, 3, dtype=torch.uint8), torch.zeros(
+                1, dtype=torch.bool), taug.CLIP_MEAN, taug.CLIP_STD),
         "fusion_nms": lambda: fusion_nms_cuda(
             torch.zeros(1, 8, 4), torch.zeros(1, 8, 3),
             torch.zeros(1, 8, dtype=torch.int32),

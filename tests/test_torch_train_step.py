@@ -36,15 +36,36 @@ backward runs K5b), held to the same INT8_REL and INT8_REL_MERGE
 (measured: losses 3.1e-4, updates and momentum 4.5e-3, the CKG 5.2e-2).
 
 ``cached_bf16`` is the cached step with the model in bf16 (f32 masters,
-as foggy_fast.yaml computes), against JAX's bf16 step. bf16 rounds at
-other places in the two packages (the convolutions' and matmuls'
-outputs and their gradients), and weight gradients that sum many bf16
-terms with cancellation move by a large share of their largest entry.
-Measured against JAX's bf16: losses 3.7e-2 (loss_merge_b; the others
-at most 4.1e-3), updates and momentum 0.151 of their largest entry (the
-RPN head's conv), the CKG 0.257, the prototypes 4e-7. JAX's own bf16 step
-is as far from its f32 step: losses 4.8e-2, updates 0.147 (the same RPN
-conv), the CKG 0.473. Held to BF16_LOSS_REL, BF16_REL and BF16_REL_MERGE.
+as foggy_fast.yaml computes), against JAX's bf16 step. By default XLA's
+CPU compiler keeps the bf16 intermediates of a fusion in f32 ("excess
+precision"), so where its results round depends on its fusion choices;
+the port rounds every op's result to bf16. The JAX step is therefore
+compiled with ``xla_allow_excess_precision`` off (JAX_COMPILER_OPTIONS),
+so that both round each op's result as flax declares it. bf16 still
+rounds at other places in the two packages (the convolutions' and
+matmuls' accumulation order, their gradients), and weight gradients
+that sum many bf16 terms with cancellation move by a large share of
+their largest entry. The port's bf16 convolutions and matmuls are
+oneDNN's, whose rounding depends on the host's instructions; the
+readings below come from ``_gaps`` on one host with AMX and with
+ONEDNN_MAX_CPU_ISA capping it. Measured (AMX; capped to
+AVX512_CORE_BF16, to AVX512_CORE): losses 1.33e-2, 1.32e-2, 1.29e-2
+(loss_cls), updates and momentum 0.150 of their largest entry in all
+three (the RPN head's conv), the CKG 0.093, 0.342, 0.303, the
+prototypes 4e-7. Held to BF16_LOSS_REL, BF16_REL and BF16_REL_MERGE,
+1.5, 1.3 and 1.17 times the largest reading. Capped to AVX2, the CKG
+reads 0.601, but there the f32 ``cached`` flavour's CKG misses its 5e-3
+too: the suite does not hold such a host.
+
+``test_bf16_step_within_jax_own_bf16_gap`` holds the port to JAX's
+bf16 step as the JAX package runs it, compiled with XLA's defaults: the
+port lies within BF16_OWN_GAP times as far from it as JAX's own steps
+that round elsewhere, its f32 step and its bf16 step without excess
+precision. Measured, the port against it (AMX; AVX512_CORE_BF16;
+AVX512_CORE): losses 3.7e-2, 3.7e-2, 3.5e-2, updates 0.151 in all, the
+CKG 0.461, 0.262, 0.614; JAX's own steps against it: losses 4.8e-2,
+updates 0.147, the CKG 0.540 (without excess precision; its f32 step
+0.478).
 """
 
 import dataclasses
@@ -84,9 +105,10 @@ REL = 1e-4
 REL_MERGE = 5e-3
 INT8_REL = 2e-2
 INT8_REL_MERGE = 0.1
-BF16_LOSS_REL = 5e-2
+BF16_LOSS_REL = 2e-2
 BF16_REL = 0.2
 BF16_REL_MERGE = 0.4
+BF16_OWN_GAP = 1.25
 # XLA's CPU int8 convolution is slow: the int8 steps sample 8 RoIs per
 # image (16 res5 crops with the C boxes) instead of 32
 ROI_BATCH = {"cached_int8": 8, "cached_int8_roi": 8}
@@ -94,6 +116,10 @@ ROI_BATCH = {"cached_int8": 8, "cached_int8_roi": 8}
 VARIANTS = {"cached_int8": dict(quant_train_res5=1),
             "cached_int8_roi": dict(quant_train_res5=3, quant_roi=True),
             "cached_bf16": dict(compute_dtype=jnp.bfloat16)}
+# XLA options of the JAX step of a flavor: the bf16 step rounds every
+# op's result to bf16, as flax declares it and the port computes it
+JAX_COMPILER_OPTIONS = {
+    "cached_bf16": {"xla_allow_excess_precision": False}}
 
 
 def _flavor_pcfg(pcfg, flavor):
@@ -231,6 +257,27 @@ def _draws(rng_state, pcfg, n_offline):
 
 
 _RUNS = {}
+_JAX_DEFAULT = {}
+
+
+def _jax_args(setup, flavor):
+    """(JAX state before, the other arguments) of one step of ``flavor``."""
+    inp = setup.inputs
+    jd = lambda d: JDet(**{k: jnp.asarray(v) for k, v in d.items()})
+    args = [jnp.asarray(inp["images"]), jnp.asarray(inp["hw"]),
+            jd(inp["online_rcnn"]), jd(inp["online_rpn"])]
+    if flavor != "live":
+        args.append(jd(inp["offline"]))
+    return setup.base.replace(step=jnp.asarray(STEP[flavor])), args
+
+
+def jax_bf16_default(setup):
+    """(state after, losses) of JAX's bf16 step compiled with XLA's
+    default options, as the JAX package runs foggy_fast.yaml."""
+    if not _JAX_DEFAULT:
+        j0, args = _jax_args(setup, "cached_bf16")
+        _JAX_DEFAULT["out"] = setup.steps["cached_bf16"](j0, *args)
+    return _JAX_DEFAULT["out"]
 
 
 def run(setup, flavor):
@@ -239,16 +286,15 @@ def run(setup, flavor):
     if flavor in _RUNS:
         return _RUNS[flavor]
     s = setup
-    j0 = s.base.replace(step=jnp.asarray(STEP[flavor]))
     inp = s.inputs
-    jd = lambda d: JDet(**{k: jnp.asarray(v) for k, v in d.items()})
     td = lambda d: Detections(**{k: torch.from_numpy(v)
                                  for k, v in d.items()})
-    args = [jnp.asarray(inp["images"]), jnp.asarray(inp["hw"]),
-            jd(inp["online_rcnn"]), jd(inp["online_rpn"])]
-    if flavor != "live":
-        args.append(jd(inp["offline"]))
-    j1, jlosses = s.steps[flavor](j0, *args)
+    j0, args = _jax_args(s, flavor)
+    jstep = s.steps[flavor]
+    if flavor in JAX_COMPILER_OPTIONS:
+        jstep = jstep.lower(j0, *args).compile(
+            compiler_options=JAX_COMPILER_OPTIONS[flavor])
+    j1, jlosses = jstep(j0, *args)
 
     tokens = torch.from_numpy(np.asarray(s.tokens)).long()
     fields = dict(VARIANTS.get(flavor, {}))
@@ -368,6 +414,58 @@ def test_step_teacher_prototypes_and_merge_match_jax(setup, flavor):
         _close(buffers[name].numpy(), mm1[name], f"merge momentum {name}",
                rel=_rel(flavor, REL_MERGE))
     assert state.merge_optimizer.count == 4
+
+
+def _jax_parts(j1, jlosses):
+    """(losses, student parameters, CKG parameters) of a JAX state."""
+    return ({k: float(v) for k, v in jlosses.items()}, _flat(j1.params),
+            _flat(j1.merge_params))
+
+
+def _port_parts(state, tlosses):
+    """(losses, student parameters, CKG parameters) of a port state."""
+    arrays = lambda m: {k: v.detach().numpy()
+                        for k, v in m.named_parameters()}
+    return ({k: float(v) for k, v in tlosses.items()},
+            arrays(state.model), arrays(state.merge_model))
+
+
+def _gaps(got, want, j0):
+    """How far ``got``'s losses, student update and CKG update lie from
+    ``want``'s, each as a share of ``want``'s largest entry (a loss's
+    beyond 1e-6, an update's beyond the f32 rounding of its parameters, as
+    in the tests above)."""
+    out = {"losses": max(max(abs(got[0][k] - v) - 1e-6, 0.0)
+                         / max(abs(v), 1e-12) for k, v in want[0].items())}
+    for part, i, tree in (("student", 1, j0.params),
+                          ("ckg", 2, j0.merge_params)):
+        worst = 0.0
+        for name, b in _flat(tree).items():
+            d = want[i][name] - b
+            ulps = 2 * float(np.spacing(np.abs(b).max().astype(np.float32)))
+            err = float(np.abs(got[i][name] - b - d).max()) - ulps
+            worst = max(worst, err / max(float(np.abs(d).max()), 1e-12))
+        out[part] = worst
+    return out
+
+
+def test_bf16_step_within_jax_own_bf16_gap(setup):
+    """The port's bf16 step is no farther from JAX's bf16 step compiled
+    with XLA's defaults, as the JAX package runs foggy_fast.yaml, than
+    about JAX's own steps that round elsewhere (its f32 step, its bf16
+    step without excess precision): in the losses, the student's update
+    and the CKG's update."""
+    j0, jx1, jxl, state, tl = run(setup, "cached_bf16")
+    _, jf1, jfl, _, _ = run(setup, "cached")
+    jd = _jax_parts(*jax_bf16_default(setup))
+    port = _gaps(_port_parts(state, tl), jd, j0)
+    own = [_gaps(_jax_parts(j1, jl), jd, j0)
+           for j1, jl in ((jf1, jfl), (jx1, jxl))]
+    for part, gap in port.items():
+        spread = max(g[part] for g in own)
+        assert gap <= BF16_OWN_GAP * spread, \
+            f"{part}: {gap:.3g} from JAX's bf16 step, whose own steps " \
+            f"that round elsewhere lie up to {spread:.3g} from it"
 
 
 def test_load_train_state_carries_every_field(setup):

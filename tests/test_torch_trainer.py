@@ -452,13 +452,10 @@ def test_checkpoint_resume_continues_bit_for_bit(setup, tmp_path,
     assert torch.equal(s1.generator.get_state(), s2.generator.get_state())
 
 
-@pytest.mark.parametrize("knob", [
-    "TPU.TEACHER_FAST_HEAD", "TPU.CLIP_BPE_VOCAB", "TPU.CLIP_WEIGHTS"])
+@pytest.mark.parametrize("knob", ["TPU.TEACHER_FAST_HEAD"])
 def test_unported_knobs_raise(setup, knob):
-    value = {"TPU.CLIP_BPE_VOCAB": "bpe.gz",
-             "TPU.CLIP_WEIGHTS": "RN50.pt"}.get(knob, True)
     with pytest.raises(NotImplementedError, match=knob.split(".")[1]):
-        _port_trainer(setup, **{knob: value})
+        _port_trainer(setup, **{knob: True})
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -483,6 +480,49 @@ def test_ported_knobs_build_what_jax_builds(setup, knob, value):
         "TPU.INT8_ROI": (True, 0, 0.9),
         "TPU.TEACHER_SHARE_CROPS": (False, 256, 0.9),
         "TPU.TEACHER_SHARE_THRESH": (False, 0, 0.8)}[knob]
+
+
+@pytest.mark.parametrize("knob", ["TPU.CLIP_BPE_VOCAB", "TPU.CLIP_WEIGHTS"])
+def test_clip_knobs_build_what_jax_builds(setup, tmp_path_factory, knob):
+    """TPU.CLIP_WEIGHTS loads OpenAI CLIP's tensors (here a random RN50
+    checkpoint with a one-layer 128-wide text transformer) into the
+    detector, and TPU.CLIP_BPE_VOCAB (set with the weights, so that the
+    text trunk is the same in both packages) gives the CLIP prompt tokens
+    of the classes and the template-mean prototypes, as the JAX trainer
+    does (coin_tpu/engine/base.py:117-124, 192-213): the same loaded
+    tensors and tokens, prototypes within 1e-5 of the largest entry
+    (without the vocab the prototypes start from each package's own random
+    prompt embeddings)."""
+    from coin_tpu_torch.convert_from_jax import from_jax_variables
+    from coin_tpu_torch.models.manifests import clip_assets
+    ckpt, bpe = clip_assets(str(tmp_path_factory.mktemp("clip")), CLASSES,
+                            "realistic", seed=7, text_width=128,
+                            text_layers=1)
+    over = {"TPU.CLIP_WEIGHTS": ckpt, "TPU.TEXT_WIDTH": 128}
+    if knob == "TPU.CLIP_BPE_VOCAB":
+        over[knob] = bpe
+    tr = _port_trainer(setup, **over)
+    jcfg = setup["jcfg"].clone()
+    for k, v in over.items():
+        node, _, leaf = k.rpartition(".")
+        jcfg.get_path(node)[leaf] = v
+    jtr = JTrainer(jcfg, store=setup["jstore"])
+    np.testing.assert_array_equal(np.asarray(tr.class_tokens),
+                                  np.asarray(jtr.class_tokens))
+    assert (tr.clip_tokenizer is None) == (knob == "TPU.CLIP_WEIGHTS")
+    if knob == "TPU.CLIP_BPE_VOCAB":
+        got = tr.state.prototypes.proto.numpy()
+        want = np.asarray(jtr.state.prototypes.proto)
+        assert got.shape == (3, 1024)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    jparams = from_jax_variables(jax.device_get(jtr.state.frozen))
+    jparams.update(from_jax_variables(jax.device_get(jtr.state.params)))
+    own = tr.model.state_dict()
+    keys = [k for k in own
+            if k.split(".")[0] in ("backbone", "res5", "text_trunk")]
+    assert len(keys) == 296
+    for k in keys:
+        assert torch.equal(own[k], jparams[k]), k
 
 
 def test_int8_clone_shares_the_weights():

@@ -606,7 +606,8 @@ def _int8_entry(name, source, replaces, cases, err=0.0):
     """A kernels-line entry of an int8 kernel whose numbers are the sums
     over ``cases`` weighted by their ``convs`` count (one res5 pass)."""
     tot = {k: sum(c[k] * c["convs"] for c in cases)
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "layout_ms")
+           if all(k in c for c in cases)}
     by = ("operations" if sum(c["convs"] for c in cases
                               if c["bound_by"] == "operations")
           >= sum(c["convs"] for c in cases) / 2 else "bytes")
@@ -732,13 +733,21 @@ def phase_qconv(torch, dev):
                 case["int_mm_ms"] = time_ms(torch, lambda: torch._int_mm(
                     a2, b2), iters=10)
             if kind == "wgrad":
+                check(torch.equal(kq.wgrad_layout_cuda(gq, k),
+                                  tq.wgrad_layout_plain(gq, k)),
+                      f"qconv wgrad layout {(n, h, co, k)} differs from the "
+                      f"plain version")
+                case["layout_ms"] = time_ms(torch, lambda: (
+                    kq.wgrad_layout_cuda(xq, k), kq.wgrad_layout_cuda(gq, k)),
+                    iters=10)
                 acc = tq.qconv_wgrad_s32_plain(xq, gq, k)
                 case["max_abs_s32"] = int(acc.long().abs().max())
                 top = max(top, case["max_abs_s32"])
                 del acc
             out[kind].append(case)
             extra = "".join(f", {key} {case[key]}" for key in
-                            ("int_mm_ms", "max_abs_s32") if key in case)
+                            ("int_mm_ms", "layout_ms", "max_abs_s32")
+                            if key in case)
             print(f"[K2 {kind}] N {n}, {h}x{h}, {ci} -> {co}, {k}x{k} (x"
                   f"{convs} in res5): identical to the plain version; "
                   f"{ms:.4f} ms ({case['tops']:.0f} TOPS), plain "
@@ -747,6 +756,12 @@ def phase_qconv(torch, dev):
         del x, w, grad, xq, gq, wq, wt, xb, wb, gb
         torch.cuda.empty_cache()
     print(f"[K2 wgrad] largest |s32| sum met: {top} (2**31 = {2 ** 31})")
+    for kind, cases in out.items():
+        tot = {key: sum(c[key] * c["convs"] for c in cases if key in c)
+               for key in ("ms", "library_ms", "bound_ms", "layout_ms")}
+        print(f"[K2 {kind}] one res5 pass: {tot['ms']:.3f} ms (layout pass "
+              f"{tot['layout_ms']:.3f}), cuDNN bf16 {tot['library_ms']:.3f} "
+              f"ms, bound {tot['bound_ms']:.3f} ms")
     src = "coin_tpu_torch/csrc/qconv.cu"
     return [
         _int8_entry("qconv_fwd", src, "coin_tpu/ops/qconv.py:136",

@@ -2,7 +2,8 @@
 convolution: ``csrc/quantize.cu`` (dynamic quantisation of activations,
 gradients and weights), ``csrc/qconv.cu`` (the s8 implicit-GEMM
 convolution with its f32 rescale, for the K2 forward, the K2 dgrad and K2s)
-and ``csrc/qconv_wgrad.cu`` (the s8 weight gradient).
+and ``csrc/qconv_wgrad.cu`` (the s8 weight gradient: a layout pass and a
+``wgmma`` GEMM).
 
 Counterparts of ``coin_tpu/ops/qconv.py`` ``int8_train_conv`` (:136, with
 ``_vjp_fwd`` :158 and ``_vjp_bwd`` :170) and
@@ -158,11 +159,34 @@ def int8_conv_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int):
 int8_conv_cuda.launches = 0
 
 
+def wgrad_layout_cuda(q: torch.Tensor, k: int) -> torch.Tensor:
+    """The layout pass of K2 wgrad: q (N, H, W, C) s8 → (C, Pp) s8,
+    channel-major over the padded grid of positions of
+    ``ops/qconv.wgrad_layout_plain`` (the same bytes)."""
+    from coin_tpu_torch.ops.qconv import wgrad_positions
+    _require_cuda("wgrad_layout_cuda", q)
+    if q.dtype != torch.int8 or q.dim() != 4 or q.shape[-1] % 4:
+        raise ValueError(f"wgrad_layout_cuda: {q.dtype} {tuple(q.shape)} "
+                         f"(s8 (N, H, W, C), C a multiple of 4)")
+    q = q.contiguous()
+    n, h, w, c = q.shape
+    pp = wgrad_positions(n, h, w, k)
+    out = torch.empty((c, pp), dtype=torch.int8, device=q.device)
+    err = _fn("qconv_wgrad", "coin_qconv_wgrad_layout",
+              [_P, _P] + [_I] * 5 + [_P])(
+        q.data_ptr(), out.data_ptr(), n, h, w, c, k, _stream(q))
+    check(err, "qconv_wgrad_layout")
+    return out
+
+
 def qconv_wgrad_cuda(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
                      gs: torch.Tensor, k: int) -> torch.Tensor:
     """K2 wgrad: xq (N, H, W, I) and gq (N, H, W, O) s8 of a stride-1
     'same' conv, xs and gs one f32 each → dw (O, I, k, k) f32 =
-    f32(s32 sum, wrapping) * (xs * gs)."""
+    f32(s32 sum, wrapping) * (xs * gs). The layout pass writes both
+    operands channel-major over the padded grid, then the wgmma GEMM sums
+    each tap as a shifted product and a last pass adds its splits and
+    rescales."""
     _require_cuda("qconv_wgrad_cuda", xq, gq, xs, gs)
     if xq.dtype != torch.int8 or gq.dtype != torch.int8:
         raise TypeError(f"qconv_wgrad_cuda: {xq.dtype}, {gq.dtype} (int8)")
@@ -173,14 +197,17 @@ def qconv_wgrad_cuda(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
         raise ValueError(f"qconv_wgrad_cuda: shapes {tuple(xq.shape)}, "
                          f"{tuple(gq.shape)} (channels multiples of 4), "
                          f"scales {xs.numel()}, {gs.numel()}")
-    xq, gq = xq.contiguous(), gq.contiguous()
+    xt = wgrad_layout_cuda(xq, k)
+    gt = wgrad_layout_cuda(gq, k)
     xs, gs = xs.float().contiguous(), gs.float().contiguous()
-    acc = torch.empty((k * k, o, i), dtype=torch.int32, device=xq.device)
+    splits = _fn("qconv_wgrad", "coin_qconv_wgrad_splits", [_I] * 6)(
+        n, h, w, i, o, k)
+    part = torch.empty((splits, k * k, o, i), dtype=torch.int32,
+                       device=xq.device)
     dw = torch.empty((o, i, k, k), dtype=torch.float32, device=xq.device)
-    err = _fn("qconv_wgrad", "coin_qconv_wgrad",
-              [_P] * 6 + [_I] * 7 + [_P])(
-        xq.data_ptr(), gq.data_ptr(), xs.data_ptr(), gs.data_ptr(),
-        acc.data_ptr(), dw.data_ptr(), n, h, w, i, o, k, k // 2,
+    err = _fn("qconv_wgrad", "coin_qconv_wgrad", [_P] * 6 + [_I] * 7 + [_P])(
+        xt.data_ptr(), gt.data_ptr(), xs.data_ptr(), gs.data_ptr(),
+        part.data_ptr(), dw.data_ptr(), n, h, w, i, o, k, splits,
         _stream(xq))
     check(err, "qconv_wgrad")
     qconv_wgrad_cuda.launches += 1

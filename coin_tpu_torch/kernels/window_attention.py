@@ -3,7 +3,8 @@
 
 Counterpart of ``coin_tpu/models/swin.py:57`` ``WindowAttention`` (its
 core, ``:69-90``); the plain PyTorch version and the module are in
-``coin_tpu_torch/models/swin.py``.
+``coin_tpu_torch/models/swin.py``. bf16 windows of up to 144 tokens run on
+the tensor cores (mma.sync), f32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from coin_tpu_torch.kernels.build import check, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
+MAX_BF16_TOKENS = 144  # the bf16 kernel keeps a row's scores in registers
 MAX_SMEM = 227 * 1024
 
 
@@ -26,9 +28,14 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.coin_window_attention_smem.argtypes = [ctypes.c_int] * 3
+    lib.coin_window_attention_smem.argtypes = [ctypes.c_int] * 4
     lib.coin_window_attention_smem.restype = ctypes.c_longlong
     return lib
+
+
+def _aligned(t: torch.Tensor, align: int) -> torch.Tensor:
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % align else t
 
 
 def window_attention_cuda(qkv: torch.Tensor, table: torch.Tensor,
@@ -62,13 +69,19 @@ def window_attention_cuda(qkv: torch.Tensor, table: torch.Tensor,
                          f"table {tuple(table.shape)}, index "
                          f"{tuple(index.shape)}, mask "
                          f"{None if mask is None else tuple(mask.shape)}")
+    if qkv.dtype == torch.bfloat16 and n > MAX_BF16_TOKENS:
+        raise ValueError(f"window_attention_cuda: bf16 windows of at most "
+                         f"{MAX_BF16_TOKENS} tokens, not {n}")
     lib = _lib()
-    if lib.coin_window_attention_smem(n, d, table.shape[0]) > MAX_SMEM:
+    if lib.coin_window_attention_smem(n, d, table.shape[0],
+                                      _DTYPES[qkv.dtype]) > MAX_SMEM:
         raise ValueError(f"window_attention_cuda: a window of {n} tokens "
                          "does not fit in shared memory")
-    qkv, table, index = qkv.contiguous(), table.contiguous(), \
-        index.contiguous()
-    mask = None if mask is None else mask.contiguous()
+    # the bf16 kernel copies rows 16 bytes at a time and reads index and
+    # mask rows two entries at a time
+    qkv, index = _aligned(qkv, 16), _aligned(index, 8)
+    table = table.contiguous()
+    mask = None if mask is None else _aligned(mask, 8)
     out = torch.empty((bn, n, heads * d), dtype=qkv.dtype, device=dev)
     if bn == 0:
         return out

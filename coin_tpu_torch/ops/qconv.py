@@ -134,6 +134,53 @@ def qconv_wgrad_s32_plain(xq: torch.Tensor, gq: torch.Tensor,
     return _wrap_s32(acc)
 
 
+def wgrad_image_block(k: int) -> int:
+    """Images per block of K2 wgrad's layout: 128 for a k x k conv with
+    k > 1, so that every tap shifts the positions by whole 128-byte TMA
+    boxes; 1 for a 1 x 1 conv, whose layout is NHWC's own order."""
+    return 128 if k > 1 else 1
+
+
+def wgrad_positions(n: int, h: int, w: int, k: int) -> int:
+    """Row length of K2 wgrad's layout: ceil(N / B) blocks of B images,
+    each an (H + p) x (W + p) grid of pixels of B positions, p = k // 2,
+    rounded up to 16 bytes."""
+    p, b = k // 2, wgrad_image_block(k)
+    return -(-(-(-n // b) * (h + p) * (w + p) * b) // 16) * 16
+
+
+def wgrad_layout_plain(q: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of K2 wgrad's layout pass: q (N, H, W, C) → (C, Pp),
+    channel-major over the positions (b, h, w, j) of image B b + j in
+    blocks of B images (:func:`wgrad_image_block`), each block an (H + p) x
+    (W + p) grid with p = k // 2 halo rows below and halo columns right of
+    the image; zeros on the halo, for the images past N and past the grid.
+    Tap (kh, kw) of the weight gradient is then the product of the
+    gradient's layout with the input's shifted by a multiple of B positions
+    (:func:`wgrad_tap_offset`)."""
+    n, h, w, c = q.shape
+    p, b = k // 2, wgrad_image_block(k)
+    nb = -(-n // b)
+    images = q.new_zeros((nb * b, h, w, c))
+    images[:n] = q
+    grid = q.new_zeros((nb, h + p, w + p, b, c))
+    grid[:, :h, :w] = images.reshape(nb, b, h, w, c).permute(0, 2, 3, 1, 4)
+    out = q.new_zeros((c, wgrad_positions(n, h, w, k)))
+    out[:, :grid.numel() // c] = grid.reshape(-1, c).t()
+    return out
+
+
+def wgrad_tap_offset(w: int, k: int, tap: int) -> int:
+    """The shift of tap ``tap`` = kh k + kw along the layout's positions:
+    ((kh - p) (W + p) + kw - p) B. A pixel shifted by at most p rows and
+    columns lands on its neighbour, on a halo column (of its row, or of the
+    row above for a shift off the left edge), on a halo row (of its block,
+    or of the block before for a shift off the top edge) or before the
+    first position, where the shifted product reads zeros."""
+    p = k // 2
+    return ((tap // k - p) * (w + p) + (tap % k - p)) * wgrad_image_block(k)
+
+
 def qconv_wgrad_plain(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
                       gs: torch.Tensor, k: int) -> torch.Tensor:
     """Plain version of the s8 weight gradient of a stride-1 'same' conv:

@@ -21,6 +21,7 @@ import torch
 
 from coin_tpu.data import augment as jaug
 from coin_tpu_torch.data import augment as taug
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -40,17 +40,9 @@ from coin_tpu_torch.models.convert_gdino import (bert_state_dict,
 from coin_tpu_torch.models.wordpiece import WordPieceTokenizer as TTok
 from coin_tpu_torch.ops import nms as tnms
 from coin_tpu_torch.structures import Detections as TDet
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads beside the suite's other pytest workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def close(got, want, tol=TOL):

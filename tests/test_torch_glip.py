@@ -33,19 +33,11 @@ from coin_tpu_torch.models.convert_gdino import bert_state_dict
 from coin_tpu_torch.models.convert_glip import BERT_PREFIX
 from coin_tpu_torch.models.convert_glip import convert_glip as tconvert
 from test_torch_gdino import close, loaded, random_params, run_pair
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 # five levels whose stage-to-stage ratios are not integers: the FPN's
 # nearest and the high branch's bilinear upsampling at odd sizes
 LEVELS = [(9, 13), (5, 7), (3, 4), (2, 2), (1, 1)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads beside the suite's other pytest workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tensors(args):

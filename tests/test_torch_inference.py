@@ -26,6 +26,7 @@ from coin_tpu_torch.engine import pipelines as tpipe
 from coin_tpu_torch.models import roi_heads as trh
 from coin_tpu_torch.models import rpn as trpn
 from tests.test_torch_models import CANVAS, tiny_pair
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

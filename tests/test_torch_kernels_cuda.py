@@ -226,9 +226,14 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
                 want = tq.qconv_plain(xq, wq, rs, cs, st, k // 2)
                 assert torch.equal(got, want), (n, h, w, c, o, k, st)
     else:
+        # ragged tiles, then both 3x3 res5 shapes with N off the tiles
         for n, h, w, i, o, k in ((5, 14, 14, 64, 136, 3), (3, 7, 7, 36, 20, 1),
-                                 (40, 14, 14, 16, 8, 3)):
+                                 (40, 14, 14, 16, 8, 3),
+                                 (37, 14, 14, 512, 512, 3),
+                                 (91, 7, 7, 512, 512, 3)):
             xq, gq = _s8(rng, (n, h, w, i), dev), _s8(rng, (n, h, w, o), dev)
+            assert torch.equal(kq.wgrad_layout_cuda(xq, k),
+                               tq.wgrad_layout_plain(xq, k))
             xs = torch.tensor([0.03], device=dev)
             gs = torch.tensor([1e-4], device=dev)
             got = kq.qconv_wgrad_cuda(xq, gq, xs, gs, k)
@@ -305,9 +310,15 @@ def test_collection_kernel_matches_plain_version_on_card(cuda_device, which):
     rng = np.random.RandomState(3)
     dev = cuda_device
     if which == "window_attention":
+        # Swin-B's first stage, the tiny Swin-T's n = 49 at d = 32 and 64,
+        # Swin-L's 6 heads at n = 144, and 5 heads of 6 windows: 30
+        # window-heads, an odd count (the bf16 kernel takes one a block, a
+        # window's heads in neighbouring blocks)
         for heads, d, win, windows, shift in ((4, 32, 12, 6, 6),
                                               (3, 32, 7, 4, 0),
-                                              (2, 64, 7, 4, 3)):
+                                              (2, 64, 7, 4, 3),
+                                              (6, 32, 12, 4, 6),
+                                              (5, 32, 12, 3, 0)):
             n = win * win
             qkv = torch.from_numpy(rng.randn(2 * windows, n, 3, heads, d)
                                    .astype(np.float32)).to(dev)

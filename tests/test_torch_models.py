@@ -32,6 +32,17 @@ CANVAS = (64, 128)
 NUM_CLASSES = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op torch threads in every module that imports this
+    fixture: the suite runs beside other pytest workers, where torch's
+    default of one thread per core oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _init_leaf(rng, path, shape):
     """A numpy draw for one flax parameter, by its name."""
     name = "/".join(str(getattr(p, "key", p)) for p in path)

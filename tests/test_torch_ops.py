@@ -26,6 +26,7 @@ from coin_tpu_torch.data import augment as taug
 from coin_tpu_torch.ops import boxes as tboxes
 from coin_tpu_torch.ops import nms as tnms
 from coin_tpu_torch.ops import roi_align as troi
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -31,6 +31,7 @@ from jax import lax
 from coin_tpu.models.clip_resnet import Int8Conv as JInt8Conv
 from coin_tpu.ops.qconv import int8_train_conv as jconv
 from coin_tpu_torch.ops import qconv as tq
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -226,3 +227,78 @@ def test_plain_integer_sums_are_exact(which):
                          gq.astype(np.int64))
     assert np.abs(want).max() > 2 ** 24          # past f32's exact range
     np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+def _shifted_gemm(xq, gq, k):
+    """K2 wgrad's algorithm in int64: both operands through the plain
+    layout pass, each tap the gradient's layout times the input's shifted
+    along the positions (zeros off either end, as TMA reads them), wrapped
+    to s32."""
+    w = xq.shape[2]
+    xt = tq.wgrad_layout_plain(torch.from_numpy(xq), k).numpy()
+    gt = tq.wgrad_layout_plain(torch.from_numpy(gq), k).numpy()
+    xt, gt = xt.astype(np.int64), gt.astype(np.int64)
+    pp = xt.shape[1]
+    out = np.zeros((gq.shape[-1], xq.shape[-1], k, k), np.int64)
+    for tap in range(k * k):
+        off = tq.wgrad_tap_offset(w, k, tap)
+        shifted = np.zeros_like(xt)
+        if off >= 0:
+            shifted[:, :pp - off] = xt[:, off:]
+        else:
+            shifted[:, -off:] = xt[:, :pp + off]
+        out[:, :, tap // k, tap % k] = gt @ shifted.T
+    return ((out + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,hw,cin,cout,k,wrap", [
+    (3, 7, 8, 12, 1, False), (5, 7, 8, 4, 3, False),
+    (3, 14, 4, 8, 3, False), (5, 14, 12, 8, 1, False),
+    (2719, 7, 4, 4, 3, True)])
+def test_wgrad_layout_shifted_gemm_matches_jax(n, hw, cin, cout, k, wrap):
+    """K2 wgrad's design on the CPU: the layout pass's plain version (the
+    channel-major grid of pixels, blocks of images innermost, with k // 2
+    halo rows and columns) feeding a GEMM per tap shifted by
+    ``wgrad_tap_offset`` (whole 128-byte TMA boxes) gives the s32
+    sums of ``qconv_wgrad_s32_plain`` and of JAX's wgrad
+    (coin_tpu/ops/qconv.py:203) bit for bit, and so the same f32 gradient.
+    The last case's centre tap passes 2**31 (2719 x 49 products of 127 x
+    127) and wraps."""
+    rng = np.random.RandomState(n + k)
+    if wrap:
+        xq = np.full((n, hw, hw, cin), 127, np.int8)
+        gq = np.full((n, hw, hw, cout), 127, np.int8)
+        gq[..., 1] = -127
+    else:
+        xq = rng.randint(-127, 128, (n, hw, hw, cin)).astype(np.int8)
+        gq = rng.randint(-127, 128, (n, hw, hw, cout)).astype(np.int8)
+    layout = tq.wgrad_layout_plain(torch.from_numpy(xq), k).numpy()
+    p, b = k // 2, tq.wgrad_image_block(k)
+    nb = -(-n // b)
+    size = nb * (hw + p) ** 2 * b
+    assert layout.shape == (cin, tq.wgrad_positions(n, hw, hw, k))
+    assert layout.shape[1] % 16 == 0 and not layout[:, size:].any()
+    grid = layout[:, :size].reshape(cin, nb, hw + p, hw + p, b)
+    images = np.zeros((nb * b, hw, hw, cin), np.int8)
+    images[:n] = xq
+    np.testing.assert_array_equal(
+        grid[:, :, :hw, :hw],
+        images.reshape(nb, b, hw, hw, cin).transpose(4, 0, 2, 3, 1))
+    assert not grid[:, :, hw:].any() and not grid[:, :, :, hw:].any()
+    got = _shifted_gemm(xq, gq, k)
+    plain = tq.qconv_wgrad_s32_plain(torch.from_numpy(xq),
+                                     torch.from_numpy(gq), k).numpy()
+    jax_s32 = np.asarray(lax.conv_general_dilated(
+        jnp.asarray(xq), jnp.asarray(gq), (1, 1), [(p, p)] * 2,
+        dimension_numbers=("CHWN", "IHWO", "HWNC"),
+        preferred_element_type=jnp.int32)).transpose(3, 2, 0, 1)
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, jax_s32)
+    if wrap:
+        assert got[0, 0, p, p] < 0 < got[0, 0, 0, 0]
+    xs, gs = np.float32(0.03), np.float32(1.7e-4)
+    want = np.asarray(jnp.asarray(jax_s32, jnp.float32)
+                      * (jnp.float32(xs) * jnp.float32(gs)))
+    dw = tq._rescale(torch.from_numpy(got), torch.tensor(xs),
+                     torch.tensor(gs))
+    np.testing.assert_array_equal(dw.numpy(), want)

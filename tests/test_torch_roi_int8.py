@@ -32,6 +32,7 @@ import torch
 from coin_tpu.ops import roi_align as jroi
 from coin_tpu_torch.ops import roi_align as troi
 from tests.test_torch_models import _apply, random_rois, tiny_pair
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -47,6 +47,7 @@ from coin_tpu_torch.ops import matcher as tmatcher
 from coin_tpu_torch.ops import nms as tnms
 from coin_tpu_torch.ops import roi_align as troi
 from coin_tpu_torch.solver import build as tsolver
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 C = 3          # foreground classes

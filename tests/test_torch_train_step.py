@@ -92,6 +92,7 @@ from coin_tpu_torch.models.detector import OpenVocabularyRCNN
 from coin_tpu_torch.structures import Detections
 from tests.test_torch_augment import jax_augment_draws
 from tests.test_torch_models import CANVAS, NUM_CLASSES, tiny_pair
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 from tests.test_torch_train_ops import priorities
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,17 +156,6 @@ def _dets(rng, n_valid, cap, anchor_boxes=None):
                 scores=probs[..., :C].max(-1).astype(np.float32),
                 classes=np.where(valid, classes, -1).astype(np.int32),
                 valid=valid, probs=probs.astype(np.float32))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads: the suite runs these tests beside other pytest
-    workers, where torch's default of one thread per core oversubscribes
-    the CPU many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

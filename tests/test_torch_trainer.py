@@ -24,6 +24,7 @@ int8 backbone is held bit for bit to JAX run op by op instead.
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +50,7 @@ from coin_tpu_torch.engine.trainer import CoinTrainer
 from tests.test_adaptation_e2e import synth_store
 from tests.test_torch_inference import _inputs, _tcfg
 from tests.test_torch_models import tiny_pair
+from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("car", "person")
@@ -96,17 +98,6 @@ def _settings(cfg, root, out):
     cfg.CLOUD.PROTOTYPE_UPDATE_START = 1
     cfg.CLOUD.CLASSES_WEIGHT = [1.0, 1.0, 0.9]
     return cfg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two intra-op threads: the suite runs these tests beside other pytest
-    workers, where torch's default of one thread per core oversubscribes
-    the CPU many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -393,20 +384,29 @@ def test_train_flavor_and_refresh_sequence_matches_jax(setup, jax_trainer,
         "collect", "cached_two", "cached_two"] * 3
 
 
-def test_train_runs_with_finite_losses(setup, tmp_path):
+@pytest.fixture
+def out_dir(tmp_path):
+    """The trainer's OUTPUT_DIR. Its checkpoints (about half a GB each with
+    the full-width trunk) are deleted after the test: pytest keeps the
+    temporary directories of its last runs, and they fill the disk."""
+    yield tmp_path
+    shutil.rmtree(tmp_path / "checkpoints", ignore_errors=True)
+
+
+def test_train_runs_with_finite_losses(setup, out_dir):
     """``train(max_iter=4)`` on the CPU: a collection pass, 2 cached steps
     of int8 res5, a refresh, 2 cached_two steps; finite losses in
     metrics.json, the burn-up checkpoint, a finite teacher."""
-    tr = _port_trainer(setup, OUTPUT_DIR=str(tmp_path))
+    tr = _port_trainer(setup, OUTPUT_DIR=str(out_dir))
     before = {n: p.detach().clone() for n, p in
               tr.state.model.named_parameters() if p.requires_grad}
     state = tr.train(max_iter=4)
     assert state.step == 4
     rows = [json.loads(line) for line in
-            open(os.path.join(str(tmp_path), "metrics.json"))]
+            open(os.path.join(str(out_dir), "metrics.json"))]
     losses = [v for r in rows for k, v in r.items() if k.startswith("loss")]
     assert losses and all(np.isfinite(losses))
-    assert os.path.exists(os.path.join(str(tmp_path), "checkpoints",
+    assert os.path.exists(os.path.join(str(out_dir), "checkpoints",
                                        "burn_up_0000001"))
     res5 = [n for n in before if n.startswith("res5.")]
     assert res5 and all(not torch.equal(before[n], dict(
@@ -415,17 +415,16 @@ def test_train_runs_with_finite_losses(setup, tmp_path):
                for p in state.teacher.parameters())
 
 
-def test_checkpoint_resume_continues_bit_for_bit(setup, tmp_path,
-                                                 pil_decode):
+def test_checkpoint_resume_continues_bit_for_bit(setup, out_dir, pil_decode):
     """Save after two steps, resume in a new trainer, and take the same
     step in both: losses, parameters, momentum, teacher, prototypes and the
     generator agree exactly."""
     live = {"CLOUD.BURN_UP_STEP": 1, "TPU.CACHE_TEACHER": False,
             "TPU.TEACHER_REFRESH_EPOCHS": 0}
-    tr = _port_trainer(setup, OUTPUT_DIR=str(tmp_path), **live)
+    tr = _port_trainer(setup, OUTPUT_DIR=str(out_dir), **live)
     tr.train(max_iter=2)
     tr.checkpointer.save(tr.state, 2)
-    tr2 = _port_trainer(setup, OUTPUT_DIR=str(tmp_path), **live)
+    tr2 = _port_trainer(setup, OUTPUT_DIR=str(out_dir), **live)
     tr2.resume_or_load(resume=True)
     assert tr2.state.step == 2
     batch = tr.train_loader.pack_batch([0, 1], np.array([False, True]))

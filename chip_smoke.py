@@ -182,6 +182,37 @@ def device_ms(torch, fn, kernels=(), iters: int = 20, warmup: int = 3):
     return us / 1e3 / iters, n / iters
 
 
+def graph_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events; the median
+    replay over ``iters``. Free of the host's launch time, as a stream of
+    back-to-back launches would be, without the profiler."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def random_boxes(torch, gen, shape, hw, min_wh, max_wh):
     h, w = hw
     xy = torch.rand(shape + (2,), generator=gen) \
@@ -606,7 +637,8 @@ def _int8_entry(name, source, replaces, cases, err=0.0):
     """A kernels-line entry of an int8 kernel whose numbers are the sums
     over ``cases`` weighted by their ``convs`` count (one res5 pass)."""
     tot = {k: sum(c[k] * c["convs"] for c in cases)
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "layout_ms")
+           for k in ("ms", "ms_f32", "plain_ms", "bound_ms", "library_ms",
+                     "layout_ms")
            if all(k in c for c in cases)}
     by = ("operations" if sum(c["convs"] for c in cases
                               if c["bound_by"] == "operations")
@@ -666,15 +698,20 @@ def phase_quantize(torch, dev):
 
 def phase_qconv(torch, dev):
     """K2 at every res5 shape of the training step, N = 1728 crops: the
-    forward (csrc/qconv.cu), the dgrad (the same kernel on the gradient's
-    s8 and the flipped per-input-channel weights) and the wgrad
-    (csrc/qconv_wgrad.cu), each bit for bit against its plain version.
-    Library yardsticks, timed and used nowhere in the port: the cuDNN bf16
-    conv, dgrad and wgrad of the same shape (what the bf16 step runs), and
-    torch._int_mm's s8 GEMM for the 1x1 forwards."""
+    forward and the dgrad (csrc/qconv.cu's wgmma GEMM; the dgrad on the
+    gradient's s8 and the flipped per-input-channel weights) in the bf16
+    the main path writes and in f32, and the wgrad (csrc/qconv_wgrad.cu),
+    each bit for bit against its plain version (whose bf16 output is its
+    f32 output rounded). The forward's and the dgrad's times are device
+    times of launches replayed from a CUDA graph (``graph_ms``), their
+    bounds count the bf16 output's bytes. Library yardsticks, timed and
+    used nowhere in the port: the cuDNN bf16 conv, dgrad and wgrad of the
+    same shape (what the bf16 step runs), and torch._int_mm's s8 GEMM (s32
+    out) for the 1x1 forwards."""
     from coin_tpu_torch.kernels import qconv as kq
     from coin_tpu_torch.ops import qconv as tq
     F = torch.nn.functional
+    bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     n = RES5_N
     out = {"fwd": [], "dgrad": [], "wgrad": []}
@@ -682,7 +719,7 @@ def phase_qconv(torch, dev):
     for h, ci, co, k, convs in RES5_SHAPES:
         p = k // 2
         x = torch.randn((n, h, h, ci), generator=g, device=dev,
-                        dtype=torch.bfloat16).relu_()
+                        dtype=bf16).relu_()
         w = torch.randn((co, ci, k, k), generator=g, device=dev) \
             / (ci * k * k) ** 0.5
         grad = torch.randn((n, h, h, co), generator=g, device=dev) * 1e-4
@@ -691,17 +728,16 @@ def phase_qconv(torch, dev):
         gq, gs = kq.quantize_cuda(grad, False)
         wt, ki = kq.quantize_weight_cuda(w, True)
         runs = {
-            "fwd": (lambda: kq.qconv_fwd_cuda(xq, wq, xs, ks, 1, p),
+            "fwd": (lambda dt: kq.qconv_fwd_cuda(xq, wq, xs, ks, 1, p, dt),
                     lambda: tq.qconv_plain(xq, wq, xs, ks, 1, p)),
-            "dgrad": (lambda: kq.qconv_dgrad_cuda(gq, wt, gs, ki, p),
+            "dgrad": (lambda dt: kq.qconv_dgrad_cuda(gq, wt, gs, ki, p, dt),
                       lambda: tq.qconv_plain(gq, wt, gs, ki, 1, p)),
             "wgrad": (lambda: kq.qconv_wgrad_cuda(xq, gq, xs, gs, k),
                       lambda: tq.qconv_wgrad_plain(xq, gq, xs, gs, k)),
         }
         xb = x.permute(0, 3, 1, 2)
-        wb = w.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        gb = grad.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = w.to(bf16).contiguous(memory_format=torch.channels_last)
+        gb = grad.to(bf16).permute(0, 3, 1, 2)
         library = {
             "fwd": lambda: F.conv2d(xb, wb, padding=p),
             "dgrad": lambda: torch.nn.grad.conv2d_input(
@@ -710,28 +746,41 @@ def phase_qconv(torch, dev):
                 xb, wb.shape, gb, padding=p),
         }
         macs = n * h * h * ci * co * k * k
-        nbytes = {"fwd": xq.numel() + wq.numel() + 4 * n * h * h * co,
-                  "dgrad": gq.numel() + wt.numel() + 4 * n * h * h * ci,
+        nbytes = {"fwd": xq.numel() + wq.numel() + 2 * n * h * h * co,
+                  "dgrad": gq.numel() + wt.numel() + 2 * n * h * h * ci,
                   "wgrad": xq.numel() + gq.numel() + 4 * w.numel()}
         for kind, (kernel, plain) in runs.items():
-            got = kernel()
             want = plain()
-            check(torch.equal(got, want),
-                  f"qconv {kind} {(n, h, ci, co, k)}: "
-                  f"{int((got != want).sum())} values differ from the plain "
-                  f"version")
-            del got, want
-            ms = time_ms(torch, kernel, iters=10)
+            case = dict(case=f"{h}x{h} {ci}->{co} k{k}", convs=convs)
+            if kind == "wgrad":
+                got = kernel()
+                check(torch.equal(got, want),
+                      f"qconv wgrad {(n, h, ci, co, k)}: "
+                      f"{int((got != want).sum())} values differ from the "
+                      f"plain version")
+                ms = time_ms(torch, kernel, iters=10)
+                lib_ms = time_ms(torch, library[kind], iters=10)
+            else:
+                for dt in (bf16, torch.float32):
+                    got = kernel(dt)
+                    check(got.dtype == dt and torch.equal(got, want.to(dt)),
+                          f"qconv {kind} {(n, h, ci, co, k)} {dt}: "
+                          f"{int((got != want.to(dt)).sum())} values differ "
+                          f"from the plain version")
+                    del got
+                ms = graph_ms(torch, lambda: kernel(bf16))
+                case["ms_f32"] = graph_ms(torch, lambda: kernel(torch.float32))
+                lib_ms = graph_ms(torch, library[kind])
+            del want
             plain_ms = time_ms(torch, plain, iters=2, warmup=1)
-            lib_ms = time_ms(torch, library[kind], iters=10)
             b_ms, b_by = bound(nbytes[kind] + 8, 2 * macs, INT8_OPS)
-            case = dict(case=f"{h}x{h} {ci}->{co} k{k}", convs=convs, ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib_ms, tops=2 * macs / ms / 1e9)
+            case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms,
+                        tops=2 * macs / ms / 1e9)
             if kind == "fwd" and k == 1:
                 a2, b2 = xq.view(-1, ci), wq.view(co, ci).t()
-                case["int_mm_ms"] = time_ms(torch, lambda: torch._int_mm(
-                    a2, b2), iters=10)
+                case["int_mm_ms"] = graph_ms(torch,
+                                             lambda: torch._int_mm(a2, b2))
             if kind == "wgrad":
                 check(torch.equal(kq.wgrad_layout_cuda(gq, k),
                                   tq.wgrad_layout_plain(gq, k)),
@@ -745,84 +794,147 @@ def phase_qconv(torch, dev):
                 top = max(top, case["max_abs_s32"])
                 del acc
             out[kind].append(case)
-            extra = "".join(f", {key} {case[key]}" for key in
-                            ("int_mm_ms", "layout_ms", "max_abs_s32")
-                            if key in case)
+            extra = "".join(f", {key} {case[key]:.4f}" if
+                            isinstance(case[key], float) else
+                            f", {key} {case[key]}" for key in
+                            ("ms_f32", "int_mm_ms", "layout_ms",
+                             "max_abs_s32") if key in case)
+            lib = "cuDNN bf16" + (" (graph)" if kind != "wgrad" else "")
             print(f"[K2 {kind}] N {n}, {h}x{h}, {ci} -> {co}, {k}x{k} (x"
-                  f"{convs} in res5): identical to the plain version; "
+                  f"{convs} in res5): identical to the plain version"
+                  f"{' in bf16 and f32' if kind != 'wgrad' else ''}; "
                   f"{ms:.4f} ms ({case['tops']:.0f} TOPS), plain "
-                  f"{plain_ms:.3f} ms, cuDNN bf16 {lib_ms:.4f} ms, bound "
+                  f"{plain_ms:.3f} ms, {lib} {lib_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}){extra}")
         del x, w, grad, xq, gq, wq, wt, xb, wb, gb
         torch.cuda.empty_cache()
     print(f"[K2 wgrad] largest |s32| sum met: {top} (2**31 = {2 ** 31})")
     for kind, cases in out.items():
         tot = {key: sum(c[key] * c["convs"] for c in cases if key in c)
-               for key in ("ms", "library_ms", "bound_ms", "layout_ms")}
-        print(f"[K2 {kind}] one res5 pass: {tot['ms']:.3f} ms (layout pass "
-              f"{tot['layout_ms']:.3f}), cuDNN bf16 {tot['library_ms']:.3f} "
-              f"ms, bound {tot['bound_ms']:.3f} ms")
+               for key in ("ms", "ms_f32", "library_ms", "bound_ms",
+                           "layout_ms")}
+        print(f"[K2 {kind}] one res5 pass: {tot['ms']:.3f} ms"
+              + (f" in bf16, {tot['ms_f32']:.3f} in f32" if kind != "wgrad"
+                 else f" (layout pass {tot['layout_ms']:.3f})")
+              + f", cuDNN bf16 {tot['library_ms']:.3f} ms, bound "
+              f"{tot['bound_ms']:.3f} ms")
+    ones = [c for c in out["fwd"] if "int_mm_ms" in c]
+    int_mm = sum(c["int_mm_ms"] * c["convs"] for c in ones)
+    ones_ms = sum(c["ms"] * c["convs"] for c in ones)
+    print(f"[K2 fwd] the 1x1 convs of one res5 pass: {ones_ms:.3f} ms in "
+          f"bf16, torch._int_mm (s32 out) {int_mm:.3f} ms")
     src = "coin_tpu_torch/csrc/qconv.cu"
+    fwd = _int8_entry("qconv_fwd", src, "coin_tpu/ops/qconv.py:136",
+                      out["fwd"])
+    fwd.update(int_mm_ms=int_mm, ms_1x1=ones_ms)
     return [
-        _int8_entry("qconv_fwd", src, "coin_tpu/ops/qconv.py:136",
-                    out["fwd"]),
+        fwd,
         _int8_entry("qconv_dgrad", src, "coin_tpu/ops/qconv.py:170",
                     out["dgrad"]),
         _int8_entry("qconv_wgrad", "coin_tpu_torch/csrc/qconv_wgrad.cu",
                     "coin_tpu/ops/qconv.py:203", out["wgrad"])]
 
 
+def backbone_convs(torch, dev, images=4, hw=(608, 1216)):
+    """(input NCHW shape, weight shape, stride) of each of the CLIP-RN50
+    backbone's 45 convs in one collection batch (``images`` on the
+    ``hw`` canvas), as forward hooks see them."""
+    from coin_tpu_torch.models.clip_resnet import CLIPResNetBackbone, QConv2d
+    net = CLIPResNetBackbone(50).to(dev)
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: shapes.append((tuple(a[0].shape), tuple(m.weight.shape),
+                                    m.stride[0])))
+        for m in net.modules() if isinstance(m, QConv2d)]
+    net(torch.zeros((images, *hw, 3), device=dev), torch.bfloat16)
+    for hk in hooks:
+        hk.remove()
+    return shapes
+
+
 def phase_int8_conv(torch, dev):
-    """K2s at the collection pass's shapes, 4 images on the 608 x 1216
-    canvas: the stem conv1 (3x3, stride 2, 3 -> 32 channels) and layer1's
-    3x3 (64 -> 64 at 152 x 304); the library yardstick is the cuDNN bf16
-    conv of the same shape."""
+    """K2s over the 45 backbone convs of one collection call (4 images on
+    the 608 x 1216 canvas; the stem conv1, 3x3 stride 2 from 3 channels,
+    runs the direct kernel, the others the wgmma GEMM): each bit for bit
+    against the plain version in the bf16 the collection pass writes and
+    in f32, its device time in bf16 (``graph_ms``) beside the cuDNN bf16
+    conv of the same shape; the stem conv1 and layer1's 3x3 (64 -> 64 at
+    152 x 304) also timed in f32. The entry's numbers are the sums over the
+    45 convs (per collection call); its bound counts the bf16 output's
+    bytes."""
     from coin_tpu_torch.kernels import qconv as kq
     from coin_tpu_torch.ops import qconv as tq
     F = torch.nn.functional
+    bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
-    cases = []
-    for label, (n, h, w_, ci, co, stride) in (
-            ("stem conv1", (4, 608, 1216, 3, 32, 2)),
-            ("layer1 conv2", (4, 152, 304, 64, 64, 1))):
+    shapes = backbone_convs(torch, dev)
+    check(len(shapes) == 45, f"{len(shapes)} backbone convs, not 45")
+    named = {0: "stem conv1", 4: "layer1 conv2"}
+    check(shapes[0][1] == (32, 3, 3, 3) and shapes[4][1] == (64, 64, 3, 3),
+          f"backbone convs 0 and 4: {shapes[0]}, {shapes[4]}")
+    cases, tot = [], {}
+    for i, ((n, ci, h, w_), (co, _, k, _), stride) in enumerate(shapes):
+        p = k // 2
         x = torch.randn((n, h, w_, ci), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        w = torch.randn((co, ci, 3, 3), generator=g, device=dev) \
-            / (9 * ci) ** 0.5
+                        dtype=bf16).relu_()
+        w = torch.randn((co, ci, k, k), generator=g, device=dev) \
+            / (k * k * ci) ** 0.5
         xq, xs = kq.quantize_cuda(x, False)
         wq, ks = kq.quantize_weight_cuda(w, False)
-        got = kq.int8_conv_cuda(xq, wq, xs, ks, stride, 1)
-        want = tq.qconv_plain(xq, wq, xs, ks, stride, 1)
-        check(torch.equal(got, want), f"int8_conv {label}: "
-              f"{int((got != want).sum())} values differ from the plain "
-              f"version")
-        ms = time_ms(torch, lambda: kq.int8_conv_cuda(xq, wq, xs, ks,
-                                                      stride, 1))
-        plain_ms = time_ms(torch, lambda: tq.qconv_plain(xq, wq, xs, ks,
-                                                         stride, 1),
-                           iters=3, warmup=1)
+        want = tq.qconv_plain(xq, wq, xs, ks, stride, p)
+        for dt in (bf16, torch.float32):
+            got = kq.int8_conv_cuda(xq, wq, xs, ks, stride, p, dt)
+            check(torch.equal(got, want.to(dt)),
+                  f"int8_conv {i} {(n, h, w_, ci, co, k, stride)} {dt}: "
+                  f"{int((got != want.to(dt)).sum())} values differ from "
+                  f"the plain version")
+        ho, wo = want.shape[1:3]
+        del got, want
+        ms = graph_ms(torch, lambda: kq.int8_conv_cuda(
+            xq, wq, xs, ks, stride, p, bf16))
+        plain_ms = time_ms(torch, lambda: tq.qconv_plain(
+            xq, wq, xs, ks, stride, p), iters=2, warmup=1)
         xb = x.permute(0, 3, 1, 2)
-        wb = w.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        lib_ms = time_ms(torch, lambda: F.conv2d(xb, wb, stride=stride,
-                                                 padding=1))
-        macs = got.numel() * ci * 9
-        b_ms, b_by = bound(xq.numel() + wq.numel() + 4 * got.numel() + 8,
-                           2 * macs, INT8_OPS)
-        cases.append(dict(case=label, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        print(f"[K2s int8_conv {label}] {tuple(x.shape)} -> "
-              f"{tuple(got.shape)}, 3x3 stride {stride}: identical to the "
-              f"plain version; {ms:.4f} ms, plain {plain_ms:.3f} ms, cuDNN "
-              f"bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        del x, xq, got, want, xb
-    a = cases[0]
+        wb = w.to(bf16).contiguous(memory_format=torch.channels_last)
+        lib_ms = graph_ms(torch, lambda: F.conv2d(xb, wb, stride=stride,
+                                                  padding=p))
+        outs = n * ho * wo * co
+        b_ms, b_by = bound(xq.numel() + wq.numel() + 2 * outs + 8,
+                           2 * outs * ci * k * k, INT8_OPS)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms",
+                       lib_ms), ("bound_ms", b_ms), (b_by, b_ms)):
+            tot[key] = tot.get(key, 0.0) + v
+        if i in named:
+            case = dict(case=named[i], ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            case["ms_f32"] = graph_ms(torch, lambda: kq.int8_conv_cuda(
+                xq, wq, xs, ks, stride, p, torch.float32))
+            case["bound_ms_f32"], _ = bound(
+                xq.numel() + wq.numel() + 4 * outs + 8,
+                2 * outs * ci * k * k, INT8_OPS)
+            cases.append(case)
+            print(f"[K2s int8_conv {named[i]}] {tuple(x.shape)} -> "
+                  f"{(n, ho, wo, co)}, {k}x{k} stride {stride}: identical "
+                  f"to the plain version in bf16 and f32; {ms:.4f} ms bf16 "
+                  f"(bound {b_ms:.4f}), {case['ms_f32']:.4f} ms f32 (bound "
+                  f"{case['bound_ms_f32']:.4f}), plain {plain_ms:.3f} ms, "
+                  f"cuDNN bf16 {lib_ms:.4f} ms ({b_by})")
+        del x, xq, xb, wb
+    torch.cuda.empty_cache()
+    print(f"[K2s int8_conv] the 45 backbone convs of one collection call, "
+          f"each identical to the plain version in bf16 and f32: "
+          f"{tot['ms']:.3f} ms in bf16, cuDNN bf16 {tot['library_ms']:.3f} "
+          f"ms, plain "
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
     return dict(name="int8_conv", route="cuda",
                 source="coin_tpu_torch/csrc/qconv.cu",
                 replaces="coin_tpu/models/clip_resnet.py:62",
-                max_abs_err=0.0, ms=a["ms"], plain_ms=a["plain_ms"],
-                bound_ms=a["bound_ms"], bound_by=a["bound_by"],
-                library_ms=a["library_ms"], cases=cases)
+                max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"],
+                bound_by=max(("bytes", "operations"),
+                             key=lambda by: tot.get(by, 0.0)),
+                library_ms=tot["library_ms"], convs=len(shapes),
+                cases=cases)
 
 
 # -------------------------------------------------------- reference phase

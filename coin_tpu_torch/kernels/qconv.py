@@ -1,9 +1,10 @@
 """Launchers of K2, the int8 training convolution, and K2s, the int8 serving
 convolution: ``csrc/quantize.cu`` (dynamic quantisation of activations,
-gradients and weights), ``csrc/qconv.cu`` (the s8 implicit-GEMM
-convolution with its f32 rescale, for the K2 forward, the K2 dgrad and K2s)
-and ``csrc/qconv_wgrad.cu`` (the s8 weight gradient: a layout pass and a
-``wgmma`` GEMM).
+gradients and weights), ``csrc/qconv.cu`` (the s8 convolution with its
+f32 rescale, written in f32 or bf16: a ``wgmma`` implicit GEMM for the K2
+forward, the K2 dgrad and K2s, and a direct kernel for the stem's 3
+channels) and ``csrc/qconv_wgrad.cu`` (the s8 weight gradient: a layout
+pass and a ``wgmma`` GEMM).
 
 Counterparts of ``coin_tpu/ops/qconv.py`` ``int8_train_conv`` (:136, with
 ``_vjp_fwd`` :158 and ``_vjp_bwd`` :170) and
@@ -99,10 +100,12 @@ quantize_weight_cuda.launches = 0
 
 def _qconv(what: str, xq: torch.Tensor, wq: torch.Tensor,
            row_scale: torch.Tensor, col_scale: torch.Tensor, stride: int,
-           pad: int) -> torch.Tensor:
+           pad: int, out_dtype: torch.dtype) -> torch.Tensor:
     _require_cuda(what, xq, wq, row_scale, col_scale)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"{what}: operands {xq.dtype}, {wq.dtype} (int8)")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"{what}: output {out_dtype} (f32 or bf16)")
     n, h, w, c = xq.shape
     o, k, k2, c2 = wq.shape
     if (k != k2 or c != c2 or row_scale.numel() not in (1, n)
@@ -115,21 +118,23 @@ def _qconv(what: str, xq: torch.Tensor, wq: torch.Tensor,
     col_scale = col_scale.float().contiguous()
     ho = (h + 2 * pad - k) // stride + 1
     wo = (w + 2 * pad - k) // stride + 1
-    out = torch.empty((n, ho, wo, o), dtype=torch.float32, device=xq.device)
+    out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=xq.device)
     err = _fn("qconv", "coin_qconv",
-              [_P] * 5 + [_I] * 9 + [_P])(
+              [_P] * 5 + [_I] * 10 + [_P])(
         xq.data_ptr(), wq.data_ptr(), row_scale.data_ptr(),
         col_scale.data_ptr(), out.data_ptr(), n, h, w, c, o, k, stride, pad,
-        int(row_scale.numel() > 1), _stream(xq))
+        int(row_scale.numel() > 1), _DTYPES[out_dtype], _stream(xq))
     check(err, what)
     return out
 
 
-def qconv_fwd_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int):
+def qconv_fwd_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int,
+                   out_dtype: torch.dtype = torch.float32):
     """K2 forward: xq (N, H, W, C) s8, wq (O, k, k, C) s8, row_scale (1,)
-    or (N,), col_scale (O,) → (N, Ho, Wo, O) f32 =
-    f32(acc) * (row_scale * col_scale)."""
-    out = _qconv("qconv_fwd", xq, wq, row_scale, col_scale, stride, pad)
+    or (N,), col_scale (O,) → (N, Ho, Wo, O) in ``out_dtype`` (f32 or
+    bf16) = f32(acc) * (row_scale * col_scale), rounded to it."""
+    out = _qconv("qconv_fwd", xq, wq, row_scale, col_scale, stride, pad,
+                 out_dtype)
     qconv_fwd_cuda.launches += 1
     return out
 
@@ -137,10 +142,13 @@ def qconv_fwd_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int):
 qconv_fwd_cuda.launches = 0
 
 
-def qconv_dgrad_cuda(gq, wt, row_scale, col_scale, pad: int):
+def qconv_dgrad_cuda(gq, wt, row_scale, col_scale, pad: int,
+                     out_dtype: torch.dtype = torch.float32):
     """K2 dgrad: the gradient's s8 (N, H, W, O) against the flipped,
-    per-input-channel weights (I, k, k, O) → (N, H, W, I) f32."""
-    out = _qconv("qconv_dgrad", gq, wt, row_scale, col_scale, 1, pad)
+    per-input-channel weights (I, k, k, O) → (N, H, W, I) in
+    ``out_dtype``."""
+    out = _qconv("qconv_dgrad", gq, wt, row_scale, col_scale, 1, pad,
+                 out_dtype)
     qconv_dgrad_cuda.launches += 1
     return out
 
@@ -148,10 +156,12 @@ def qconv_dgrad_cuda(gq, wt, row_scale, col_scale, pad: int):
 qconv_dgrad_cuda.launches = 0
 
 
-def int8_conv_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int):
+def int8_conv_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int,
+                   out_dtype: torch.dtype = torch.float32):
     """K2s, the serving convolution (any stride, the stem's 3 input
     channels included): the same function as :func:`qconv_fwd_cuda`."""
-    out = _qconv("int8_conv", xq, wq, row_scale, col_scale, stride, pad)
+    out = _qconv("int8_conv", xq, wq, row_scale, col_scale, stride, pad,
+                 out_dtype)
     int8_conv_cuda.launches += 1
     return out
 

@@ -42,7 +42,7 @@ class QConv2d(Conv2d):
     ``qt`` (0 off, 1 full int8, 2 exact wgrad, 3 per-sample scales with an
     exact wgrad, 4 per-sample int8 forward only) selects ``Int8TrainConv``,
     else ``quant`` selects ``Int8Conv``; either returns the compute
-    dtype."""
+    dtype, which the kernel's epilogue writes."""
     quant: bool = False
     qt: int = 0
 
@@ -57,10 +57,10 @@ class QConv2d(Conv2d):
             out = int8_train_conv(x, self.weight, stride,
                                   wgrad_int8=qt == 1,
                                   per_sample=qt in (3, 4),
-                                  dgrad_int8=qt != 4)
+                                  dgrad_int8=qt != 4, out_dtype=dtype)
         else:
-            out = int8_conv(x, self.weight, stride)
-        return out.to(dtype).permute(0, 3, 1, 2)
+            out = int8_conv(x, self.weight, stride, dtype)
+        return out.permute(0, 3, 1, 2)
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1) -> QConv2d:

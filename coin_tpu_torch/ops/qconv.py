@@ -107,16 +107,16 @@ def _rescale(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def qconv_plain(xq: torch.Tensor, wq: torch.Tensor, row_scale: torch.Tensor,
-                col_scale: torch.Tensor, stride: int, pad: int
-                ) -> torch.Tensor:
+                col_scale: torch.Tensor, stride: int, pad: int,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of the s8 convolution: xq (N, H, W, C), wq
-    (O, k, k, C) → (N, Ho, Wo, O) f32 = f32(s32 sum) * (row_scale *
-    col_scale), row_scale (1,) or (N,)."""
+    (O, k, k, C) → (N, Ho, Wo, O) = f32(s32 sum) * (row_scale *
+    col_scale), row_scale (1,) or (N,), rounded to ``out_dtype``."""
     conv = lambda a, b: F.conv2d(a, b, stride=stride, padding=pad)
     acc = _exact_sum(conv, xq.permute(0, 3, 1, 2), wq.permute(0, 3, 1, 2),
                      wq[0].numel()).permute(0, 2, 3, 1)
     rs = row_scale.float().reshape(-1, 1, 1, 1)
-    return _rescale(_wrap_s32(acc), rs, col_scale.float())
+    return _rescale(_wrap_s32(acc), rs, col_scale.float()).to(out_dtype)
 
 
 def qconv_wgrad_s32_plain(xq: torch.Tensor, gq: torch.Tensor,
@@ -204,18 +204,34 @@ def quantize_weight(w: torch.Tensor, per_input: bool = False):
     return quantize_weight_plain(w, per_input)
 
 
+def _conv(which: str, xq: torch.Tensor, wq: torch.Tensor,
+          row_scale: torch.Tensor, col_scale: torch.Tensor, stride: int,
+          pad: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The s8 convolution, written in ``out_dtype`` (f32 or bf16), of one
+    of the kernel's three users (``fwd``, ``dgrad``, ``serve``, counted
+    apart) on a CUDA tensor; its plain version on a CPU one."""
+    if not xq.is_cuda:
+        return qconv_plain(xq, wq, row_scale, col_scale, stride, pad,
+                           out_dtype)
+    from coin_tpu_torch.kernels import qconv as kq
+    if which == "fwd":
+        return kq.qconv_fwd_cuda(xq, wq, row_scale, col_scale, stride, pad,
+                                 out_dtype)
+    if which == "dgrad":
+        return kq.qconv_dgrad_cuda(xq, wq, row_scale, col_scale, pad,
+                                   out_dtype)
+    return kq.int8_conv_cuda(xq, wq, row_scale, col_scale, stride, pad,
+                             out_dtype)
+
+
 def _fwd_parts(x: torch.Tensor, w: torch.Tensor, stride: int,
-               per_sample: bool):
-    """Quantised forward (qconv.py:83-98): (f32 output, xq, xs)."""
+               per_sample: bool, out_dtype: torch.dtype):
+    """Quantised forward (qconv.py:83-98): (output in ``out_dtype``, xq,
+    xs)."""
     k = w.shape[-1]
     xq, xs = quantize(x, per_sample)
     wq, ks = quantize_weight(w)
-    if x.is_cuda:
-        from coin_tpu_torch.kernels.qconv import qconv_fwd_cuda
-        out = qconv_fwd_cuda(xq, wq, xs, ks, stride, k // 2)
-    else:
-        out = qconv_plain(xq, wq, xs, ks, stride, k // 2)
-    return out, xq, xs
+    return _conv("fwd", xq, wq, xs, ks, stride, k // 2, out_dtype), xq, xs
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -227,13 +243,21 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 
 
 class Int8TrainConv(torch.autograd.Function):
-    """The custom VJP of coin_tpu/ops/qconv.py:135-215."""
+    """The custom VJP of coin_tpu/ops/qconv.py:135-215, with the output's
+    dtype chosen by the caller (JAX returns f32 and its modules cast right
+    after: ``Int8TrainConv.__call__``'s ``out.astype(self.dtype)``, the
+    same round to nearest even of the same f32 that the kernel's epilogue
+    writes). With a bf16 output the cotangent reaches ``backward`` as bf16
+    instead of that bf16 widened to f32 by the cast's backward:
+    ``quantize(g.float())`` and the exact paths' ``g.to(x_dtype)`` see the
+    same values either way."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, wgrad_int8, per_sample, dgrad_int8):
+    def forward(ctx, x, w, stride, wgrad_int8, per_sample, dgrad_int8,
+                out_dtype):
         int8_res = wgrad_int8 and dgrad_int8 and stride == 1 \
             and not per_sample
-        out, xq, xs = _fwd_parts(x, w, stride, per_sample)
+        out, xq, xs = _fwd_parts(x, w, stride, per_sample, out_dtype)
         ctx.meta = (stride, wgrad_int8, per_sample, dgrad_int8, int8_res,
                     x.dtype, tuple(x.shape))
         # mode 1 keeps the s8 activation and its scale, not x: half the
@@ -258,12 +282,7 @@ class Int8TrainConv(torch.autograd.Function):
         if stride == 1 and dgrad_int8:
             gq, gs = quantize(g.float(), per_sample)
             wt, ks_i = quantize_weight(w, per_input=True)
-            if g.is_cuda:
-                from coin_tpu_torch.kernels.qconv import qconv_dgrad_cuda
-                dx = qconv_dgrad_cuda(gq, wt, gs, ks_i, p)
-            else:
-                dx = qconv_plain(gq, wt, gs, ks_i, 1, p)
-            dx = dx.to(x_dtype)
+            dx = _conv("dgrad", gq, wt, gs, ks_i, 1, p, x_dtype)
         else:
             dx = _nhwc(torch.nn.grad.conv2d_input(
                 (x_shape[0], x_shape[3], x_shape[1], x_shape[2]),
@@ -279,29 +298,29 @@ class Int8TrainConv(torch.autograd.Function):
             dw = torch.nn.grad.conv2d_weight(
                 _nchw(x), tuple(w.shape), _nchw(g.to(x.dtype)),
                 stride=stride, padding=p)
-        return dx, dw.to(w.dtype), None, None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None, None
 
 
 def int8_train_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                     wgrad_int8: bool = False, per_sample: bool = False,
-                    dgrad_int8: bool = True) -> torch.Tensor:
+                    dgrad_int8: bool = True,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (N, H, W, I) in the compute dtype, w (O, I, k, k) the f32 master
-    weight → (N, Ho, Wo, O) f32; padding k // 2. Gradients: dx in x's
-    dtype, dw in w's."""
+    weight → (N, Ho, Wo, O); padding k // 2. The output is f32 as JAX's
+    function returns it, or its rounding to ``out_dtype``, written by the
+    kernel. Gradients: dx in x's dtype, dw in w's."""
     return Int8TrainConv.apply(x.contiguous(), w, stride, wgrad_int8,
-                               per_sample, dgrad_int8)
+                               per_sample, dgrad_int8, out_dtype)
 
 
-def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1
-              ) -> torch.Tensor:
+def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K2s, the serving conv (clip_resnet.py:62-92): x (N, H, W, I), w
-    (O, I, k, k) f32 → (N, Ho, Wo, O) f32 with per-tensor activation and
-    per-output-channel weight scales; no gradient."""
+    (O, I, k, k) f32 → (N, Ho, Wo, O) with per-tensor activation and
+    per-output-channel weight scales, f32 or rounded to ``out_dtype`` (the
+    module's ``.astype(dtype)``); no gradient."""
     k = w.shape[-1]
     with torch.no_grad():
         xq, xs = quantize(x.contiguous())
         wq, ks = quantize_weight(w)
-        if x.is_cuda:
-            from coin_tpu_torch.kernels.qconv import int8_conv_cuda
-            return int8_conv_cuda(xq, wq, xs, ks, stride, k // 2)
-        return qconv_plain(xq, wq, xs, ks, stride, k // 2)
+        return _conv("serve", xq, wq, xs, ks, stride, k // 2, out_dtype)

@@ -256,9 +256,9 @@ def test_load_clip_into_model_matches_jax(assets, tmp_path, region):
     checkpoint) equals the port's after ``load_clip_into_model``; with
     ``region``, visual and text tensors come from a RegionCLIP checkpoint
     ('backbone.*', 'lang_encoder.*'), logit_scale from the OpenAI one."""
-    region_path = ""
+    region_path, src = "", assets["sd"]        # drawn with seed 5
     if region:
-        other = random_clip_state_dict(50, seed=6, **TEXT)
+        other = src = random_clip_state_dict(50, seed=6, **TEXT)
         rsd = {("backbone." + k[len("visual."):] if k.startswith("visual.")
                 else "lang_encoder." + k): torch.from_numpy(v)
                for k, v in other.items() if k != "logit_scale"}
@@ -286,7 +286,6 @@ def test_load_clip_into_model_matches_jax(assets, tmp_path, region):
     assert not any(k.startswith("text_trunk.resblock_1.") for k in want)
     for k, v in want.items():
         assert torch.equal(own[k], v), k
-    src = random_clip_state_dict(50, seed=6 if region else 5, **TEXT)
     np.testing.assert_array_equal(own["backbone.conv1.weight"].numpy(),
                                   src["visual.conv1.weight"])
 

@@ -210,11 +210,29 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
                 want = tq.quantize_weight_plain(w.to(dev), per_input)
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
     elif which == "qconv":
-        # (N, H, W, C, O, k, stride): res5-like, ragged tiles, the stem
+        # (N, H, W, C, O, k, stride): res5-like, ragged tiles, the stem;
+        # then the wgmma GEMM's paths: res5's 1x1 and both 3x3 shapes with
+        # N off the 128-row tiles, C = 32, 48 and 64 (several taps in one
+        # 128-byte stage, a last stage past K), O off the 64, 128 and 256
+        # column tiles and rows of bf16 off 16 bytes (the per-warp
+        # epilogue), stride 2, N = 1; and the direct kernel at the stem's
+        # geometry on an odd image and at other channel counts; each in f32
+        # and bf16, with one row scale and with one per sample
         for n, h, w, c, o, k, st in ((3, 14, 14, 64, 200, 3, 1),
                                      (2, 7, 9, 32, 48, 1, 1),
                                      (2, 19, 23, 3, 32, 3, 2),
-                                     (1, 12, 12, 48, 136, 3, 2)):
+                                     (1, 12, 12, 48, 136, 3, 2),
+                                     (37, 14, 14, 1024, 512, 1, 1),
+                                     (37, 14, 14, 512, 512, 3, 1),
+                                     (91, 7, 7, 512, 512, 3, 1),
+                                     (5, 7, 7, 2048, 300, 1, 1),
+                                     (3, 15, 17, 32, 64, 3, 1),
+                                     (2, 13, 11, 48, 72, 3, 1),
+                                     (4, 16, 10, 64, 260, 1, 2),
+                                     (1, 9, 9, 128, 96, 3, 2),
+                                     (1, 37, 61, 3, 32, 3, 2),
+                                     (2, 11, 9, 5, 40, 3, 1),
+                                     (1, 8, 8, 20, 16, 1, 1)):
             xq = _s8(rng, (n, h, w, c), dev)
             wq = _s8(rng, (o, k, k, c), dev)
             cs = torch.from_numpy(rng.uniform(1e-3, 1e-2, o)
@@ -222,9 +240,11 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
             for rs in (torch.tensor([0.02], device=dev),
                        torch.from_numpy(rng.uniform(1e-3, 1e-1, n)
                                         .astype(np.float32)).to(dev)):
-                got = kq.qconv_fwd_cuda(xq, wq, rs, cs, st, k // 2)
-                want = tq.qconv_plain(xq, wq, rs, cs, st, k // 2)
-                assert torch.equal(got, want), (n, h, w, c, o, k, st)
+                for dt in (torch.float32, torch.bfloat16):
+                    got = kq.qconv_fwd_cuda(xq, wq, rs, cs, st, k // 2, dt)
+                    want = tq.qconv_plain(xq, wq, rs, cs, st, k // 2, dt)
+                    assert got.dtype == dt and torch.equal(got, want), \
+                        (n, h, w, c, o, k, st, rs.numel(), dt)
     else:
         # ragged tiles, then both 3x3 res5 shapes with N off the tiles
         for n, h, w, i, o, k in ((5, 14, 14, 64, 136, 3), (3, 7, 7, 36, 20, 1),

@@ -114,6 +114,69 @@ def test_int8_conv_stride2_stem_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("qt", [0, 1, 3])
+def test_bf16_output_matches_jax_modules(qt):
+    """The convolution written in bf16 (the kernels' epilogue; on the CPU
+    ``qconv_plain(..., out_dtype)``) against JAX's modules with
+    ``dtype=bfloat16``, which round the f32 result: ``Int8Conv`` (qt 0,
+    ``int8_conv``, 3x3 at stride 1 and 2) and ``Int8TrainConv`` (qt 1 and
+    3, ``int8_train_conv``), bit for bit; for qt 1 the gradients from a
+    bf16 cotangent too (the int8 dgrad and wgrad: bit for bit)."""
+    from coin_tpu.models.clip_resnet import Int8TrainConv as JInt8Train
+    x, w, g = _inputs(50 + qt, 3)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    params = {"params": {"kernel": jnp.asarray(w)}}
+    if qt == 0:
+        for stride in (1, 2):
+            with jax.disable_jit():
+                want = JInt8Conv(8, 3, stride, dtype=jnp.bfloat16).apply(
+                    params, jx)
+            got = tq.int8_conv(tx, _oihw(w), stride,
+                               out_dtype=torch.bfloat16)
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+        return
+    flags = _flags(qt)
+    module = JInt8Train(8, 3, 1, dtype=jnp.bfloat16, wgrad_int8=flags[0],
+                        per_sample=flags[1], dgrad_int8=flags[2])
+    jg = jnp.asarray(g, jnp.bfloat16)
+    with jax.disable_jit():
+        jy, vjp = jax.vjp(lambda a, b: module.apply(
+            {"params": {"kernel": b}}, a), jx, jnp.asarray(w))
+        jdx, jdw = vjp(jg)
+    tx.requires_grad_(True)
+    tw = _oihw(w).requires_grad_(True)
+    ty = tq.int8_train_conv(tx, tw, 1, *flags, out_dtype=torch.bfloat16)
+    assert ty.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_as_f32(ty.detach()), _as_f32(jy))
+    if qt == 1:
+        ty.backward(torch.from_numpy(g).to(torch.bfloat16))
+        np.testing.assert_array_equal(_as_f32(tx.grad), _as_f32(jdx))
+        np.testing.assert_array_equal(tw.grad.numpy().transpose(2, 3, 1, 0),
+                                      np.asarray(jdw))
+
+
+@pytest.mark.parametrize("qt", [1, 2, 3, 4])
+def test_bf16_output_gradients_equal_f32_outputs(qt):
+    """``out_dtype=bf16`` changes where the f32 result is rounded, not what
+    flows back: the output equals the f32 output cast to bf16, and the
+    gradients from one bf16 cotangent (which reaches the backward as bf16
+    instead of widened to f32) are the same bits in every mode."""
+    x, w, g = _inputs(60 + qt, 3)
+    flags = _flags(qt)
+    res = []
+    for out_dtype in (torch.bfloat16, torch.float32):
+        tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+        tw = _oihw(w).requires_grad_(True)
+        ty = tq.int8_train_conv(tx, tw, 1, *flags, out_dtype=out_dtype)
+        ty = ty.to(torch.bfloat16)
+        ty.backward(torch.from_numpy(g).to(torch.bfloat16))
+        res.append((ty.detach(), tx.grad, tw.grad))
+    for name, a, b in zip(("y", "dx", "dw"), *res):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
 def test_quantizers_match_jax_bit_for_bit():
     """The s8 values and scales of both quantisations, per tensor and per
     sample, and of the weight per output and per input channel (flipped

@@ -481,8 +481,17 @@ def test_ported_knobs_build_what_jax_builds(setup, knob, value):
         "TPU.TEACHER_SHARE_THRESH": (False, 0, 0.8)}[knob]
 
 
+@pytest.fixture(scope="module")
+def clip_files(tmp_path_factory):
+    """One random RN50 checkpoint with a one-layer 128-wide text
+    transformer and its BPE merges, shared by both knobs' cases."""
+    from coin_tpu_torch.models.manifests import clip_assets
+    return clip_assets(str(tmp_path_factory.mktemp("clip")), CLASSES,
+                       "realistic", seed=7, text_width=128, text_layers=1)
+
+
 @pytest.mark.parametrize("knob", ["TPU.CLIP_BPE_VOCAB", "TPU.CLIP_WEIGHTS"])
-def test_clip_knobs_build_what_jax_builds(setup, tmp_path_factory, knob):
+def test_clip_knobs_build_what_jax_builds(setup, clip_files, knob):
     """TPU.CLIP_WEIGHTS loads OpenAI CLIP's tensors (here a random RN50
     checkpoint with a one-layer 128-wide text transformer) into the
     detector, and TPU.CLIP_BPE_VOCAB (set with the weights, so that the
@@ -493,10 +502,7 @@ def test_clip_knobs_build_what_jax_builds(setup, tmp_path_factory, knob):
     (without the vocab the prototypes start from each package's own random
     prompt embeddings)."""
     from coin_tpu_torch.convert_from_jax import from_jax_variables
-    from coin_tpu_torch.models.manifests import clip_assets
-    ckpt, bpe = clip_assets(str(tmp_path_factory.mktemp("clip")), CLASSES,
-                            "realistic", seed=7, text_width=128,
-                            text_layers=1)
+    ckpt, bpe = clip_files
     over = {"TPU.CLIP_WEIGHTS": ckpt, "TPU.TEXT_WIDTH": 128}
     if knob == "TPU.CLIP_BPE_VOCAB":
         over[knob] = bpe

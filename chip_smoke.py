@@ -20,7 +20,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    backward K5b; K11 on 4 x 512 boxes with real clusters), with its median
    time, the plain version's, a library call's where PyTorch has one, and
    the card's bound. The int8 kernels (quantisation, K2 forward, dgrad and
-   wgrad at each res5 shape, K2s, K5) and K11 must agree bit for bit.
+   wgrad at each res5 shape, K2s, K5) and K11 must agree bit for bit; the
+   quantiser also writes K2 wgrad's layout at every res5 shape (byte for
+   byte) and quantises both weights of each res5 conv in one launch, and
+   the sum of its launches over one res5 forward and backward is timed
+   from CUDA-graph replays. K1b is also timed on the RoIs of the trainer
+   path's first cached step (phase 8), recorded as it runs.
 4. reference: the full-width detector in f32 on the card against the same
    weights on the CPU (plain versions throughout) on a small canvas.
 5. step reference: one train_step_cached and one train_step of the
@@ -386,6 +391,61 @@ def phase_roi_align_bwd(torch, dev, gen):
                 library_ms=None)
 
 
+def record_first_call(module, name):
+    """Wrap ``module.name`` (a dispatch function that takes a gradient and
+    RoIs first) so that the RoIs and shapes of its first call are kept;
+    returns (the record, a function that puts the function back)."""
+    orig = getattr(module, name)
+    seen = {}
+
+    def wrapper(grad, rois, *args):
+        if not seen:
+            seen.update(grad_shape=tuple(grad.shape), grad_dtype=grad.dtype,
+                        rois=rois.detach().clone(), args=args)
+        return orig(grad, rois, *args)
+    setattr(module, name, wrapper)
+    return seen, lambda: setattr(module, name, orig)
+
+
+def k1b_on_trainer_rois(torch, dev, rec):
+    """K1b on the RoIs of the trainer path's first cached step (recorded by
+    ``record_first_call``) with a random gradient of that step's shape:
+    within 1e-5 of the largest |d feature| of the plain version in f32,
+    timed in the step's dtype."""
+    from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
+    from coin_tpu_torch.ops.roi_align import roi_align_backward_plain
+    check(bool(rec), "the trainer path ran no RoIAlign backward")
+    rois = rec["rois"]
+    shape, _, *args = rec["args"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    g = torch.randn(rec["grad_shape"], generator=gen, device=dev).to(
+        rec["grad_dtype"])
+    want = roi_align_backward_plain(g, rois, shape, torch.float32, *args)
+    got = roi_align_backward_cuda(g, rois, shape, torch.float32, *args)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 1e-5 * scale, f"roi_align_bwd on the trainer's RoIs: max "
+          f"abs err {err} > 1e-5 x {scale}")
+    del got, want
+    dt = rec["grad_dtype"]
+    ms = time_ms(torch, lambda: roi_align_backward_cuda(g, rois, shape, dt,
+                                                        *args))
+    plain_ms = time_ms(torch, lambda: roi_align_backward_plain(
+        g, rois, shape, dt, *args), iters=3, warmup=1)
+    n = g.numel()
+    b_ms, b_by = bound(n * g.element_size() + rois.numel() * 4
+                       + g.element_size() * math.prod(shape), n * 4 * 4 * 2)
+    side = (rois[..., 2:] - rois[..., :2]).float()
+    print(f"[K1b roi_align_bwd, the trainer's RoIs] grad {tuple(g.shape)} "
+          f"{dt}, rois {tuple(rois.shape)} (median side "
+          f"{side.median().item():.1f} px) -> {tuple(shape)}: max abs err "
+          f"{err:.3g} (tol 1e-5 x {scale:.3g}, f32); {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(trainer_ms=ms, trainer_plain_ms=plain_ms,
+                trainer_bound_ms=b_ms, trainer_max_abs_err=err,
+                trainer_rois=list(rois.shape))
+
+
 def phase_roi_align_int8(torch, dev, gen):
     """K5 at the student's shapes (3 images of res4 38 x 76 x 1024 bf16,
     512 + 64 RoIs each: 1728 crops), the teacher's (4 images, 512
@@ -637,8 +697,7 @@ def _int8_entry(name, source, replaces, cases, err=0.0):
     """A kernels-line entry of an int8 kernel whose numbers are the sums
     over ``cases`` weighted by their ``convs`` count (one res5 pass)."""
     tot = {k: sum(c[k] * c["convs"] for c in cases)
-           for k in ("ms", "ms_f32", "plain_ms", "bound_ms", "library_ms",
-                     "layout_ms")
+           for k in ("ms", "ms_f32", "plain_ms", "bound_ms", "library_ms")
            if all(k in c for c in cases)}
     by = ("operations" if sum(c["convs"] for c in cases
                               if c["bound_by"] == "operations")
@@ -648,17 +707,27 @@ def _int8_entry(name, source, replaces, cases, err=0.0):
 
 
 def phase_quantize(torch, dev):
-    """csrc/quantize.cu at the main path's shapes: the res5 input (bf16,
-    per tensor), the largest res5 gradient (f32), per-sample scales, and
-    the weights per output and per input channel."""
+    """csrc/quantize.cu at the main path's shapes, every s8 value and scale
+    against the plain version: the res5 input (bf16), the largest res5
+    gradient in f32 and in bf16 (the dtype the backward reads), each per
+    tensor and per sample; K2 wgrad's layout written by the same launch at
+    every res5 shape (bf16 activation and gradient, N = 1728), byte for byte
+    against ``wgrad_layout_plain(quantize_plain(x))``; both weight
+    quantisations in one launch at every res5 weight shape, and the serving
+    conv's per-output weights. Then the quant launches of one res5 forward
+    and backward of mode 1 (per conv: the activation with its layout, both
+    weights, the gradient with its layout), device time from CUDA-graph
+    replays, summed over res5's convs beside their bound."""
     from coin_tpu_torch.kernels import qconv as kq
     from coin_tpu_torch.ops import qconv as tq
+    bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     acts = {"res5_input_bf16": torch.randn((RES5_N, 14, 14, 1024),
                                            generator=g, device=dev,
-                                           dtype=torch.bfloat16),
+                                           dtype=bf16),
             "res5_grad_f32": torch.randn((RES5_N, 7, 7, 2048), generator=g,
                                          device=dev) * 1e-4}
+    acts["res5_grad_bf16"] = acts["res5_grad_f32"].to(bf16)
     cases = []
     for label, x in acts.items():
         for per_sample in (False, True):
@@ -667,6 +736,7 @@ def phase_quantize(torch, dev):
             check(torch.equal(q, wq) and torch.equal(s, ws),
                   f"quantize {label} per_sample={per_sample}: s8 values or "
                   f"scales differ from the plain version")
+            del q, wq
         ms = time_ms(torch, lambda: kq.quantize_cuda(x, False))
         plain_ms = time_ms(torch, lambda: tq.quantize_plain(x, False),
                            iters=5, warmup=1)
@@ -678,22 +748,67 @@ def phase_quantize(torch, dev):
               f"tensor and per sample: s8 values and scales identical; "
               f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
+    del acts
     for o, i, k in ((512, 512, 3), (2048, 512, 1)):
         w = torch.randn((o, i, k, k), generator=g, device=dev) / (i * k * k)
-        for per_input in (False, True):
-            got = kq.quantize_weight_cuda(w, per_input)
-            want = tq.quantize_weight_plain(w, per_input)
-            check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"quantize_weight {(o, i, k)} per_input={per_input} "
-                  f"differs from the plain version")
+        check(all(torch.equal(a, b) for a, b in zip(
+            kq.quantize_weight_cuda(w), tq.quantize_weight_plain(w))),
+              f"quantize_weight {(o, i, k)} differs from the plain version")
     print("[quantize weights] (512, 512, 3, 3) and (2048, 512, 1, 1) per "
-          "output and per input channel (flipped, transposed): identical")
+          "output channel (the serving conv's): identical")
+    steps = []
+    for h, ci, co, k, convs in RES5_SHAPES:
+        x = torch.randn((RES5_N, h, h, ci), generator=g, device=dev,
+                        dtype=bf16).relu_()
+        grad = (torch.randn((RES5_N, h, h, co), generator=g, device=dev)
+                * 1e-4).to(bf16)
+        w = torch.randn((co, ci, k, k), generator=g, device=dev) \
+            / (ci * k * k) ** 0.5
+        for what, t in (("activation", x), ("gradient", grad)):
+            q, s, lay = kq.quantize_cuda(t, False, k)
+            wq, ws = tq.quantize_plain(t)
+            check(torch.equal(q, wq) and torch.equal(s, ws)
+                  and torch.equal(lay, tq.wgrad_layout_plain(wq, k)),
+                  f"quantize with layout, {what} {tuple(t.shape)} k {k}: "
+                  f"differs from wgrad_layout_plain(quantize_plain(x))")
+            del q, lay, wq
+        check(all(torch.equal(a, b) for a, b in zip(
+            kq.quantize_weight_pair_cuda(w), tq.quantize_weight_pair_plain(w))),
+              f"quantize_weight_pair {(co, ci, k)} differs from the plain "
+              f"version")
+
+        def step():
+            kq.quantize_cuda(x, False, k)
+            kq.quantize_weight_pair_cuda(w)
+            kq.quantize_cuda(grad, False, k)
+        ms = graph_ms(torch, step)
+        pp = tq.wgrad_positions(RES5_N, h, h, k)
+        nbytes = (3 * x.numel() + ci * pp + 3 * grad.numel() + co * pp
+                  + 6 * w.numel() + 4 * (ci + co) + 8)
+        b_ms, b_by = bound(nbytes, 4 * (x.numel() + grad.numel()))
+        steps.append(dict(case=f"{h}x{h} {ci}->{co} k{k}", convs=convs,
+                          ms=ms, bound_ms=b_ms, bound_by=b_by, launches=3))
+        print(f"[quantize one conv of res5] N {RES5_N}, {h}x{h}, {ci} -> "
+              f"{co}, {k}x{k} (x{convs}): activation and gradient (bf16) "
+              f"with their layouts and both weights identical to the plain "
+              f"versions; 3 launches {ms:.4f} ms (graph), bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        del x, grad, w
+        torch.cuda.empty_cache()
+    step_ms = sum(c["ms"] * c["convs"] for c in steps)
+    step_bound = sum(c["bound_ms"] * c["convs"] for c in steps)
+    step_launches = sum(c["launches"] * c["convs"] for c in steps)
+    print(f"[quantize] one res5 forward and backward (mode 1): "
+          f"{step_launches} launches, {step_ms:.3f} ms (graph), bound "
+          f"{step_bound:.3f} ms")
     a = cases[0]
     return dict(name="quantize", route="cuda",
                 source="coin_tpu_torch/csrc/quantize.cu",
                 replaces="coin_tpu/ops/qconv.py:63", max_abs_err=0.0,
                 ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-                bound_by=a["bound_by"], library_ms=None, cases=cases)
+                bound_by=a["bound_by"], library_ms=None, cases=cases,
+                step_ms=step_ms, step_bound_ms=step_bound,
+                step_launches=step_launches, step_cases=steps)
 
 
 def phase_qconv(torch, dev):
@@ -723,16 +838,16 @@ def phase_qconv(torch, dev):
         w = torch.randn((co, ci, k, k), generator=g, device=dev) \
             / (ci * k * k) ** 0.5
         grad = torch.randn((n, h, h, co), generator=g, device=dev) * 1e-4
-        xq, xs = kq.quantize_cuda(x, False)
-        wq, ks = kq.quantize_weight_cuda(w, False)
-        gq, gs = kq.quantize_cuda(grad, False)
-        wt, ki = kq.quantize_weight_cuda(w, True)
+        xq, xs, xt = kq.quantize_cuda(x, False, k)
+        wq, ks, wt, ki = kq.quantize_weight_pair_cuda(w)
+        gq, gs, gt = kq.quantize_cuda(grad, False, k)
         runs = {
             "fwd": (lambda dt: kq.qconv_fwd_cuda(xq, wq, xs, ks, 1, p, dt),
                     lambda: tq.qconv_plain(xq, wq, xs, ks, 1, p)),
             "dgrad": (lambda dt: kq.qconv_dgrad_cuda(gq, wt, gs, ki, p, dt),
                       lambda: tq.qconv_plain(gq, wt, gs, ki, 1, p)),
-            "wgrad": (lambda: kq.qconv_wgrad_cuda(xq, gq, xs, gs, k),
+            "wgrad": (lambda: kq.qconv_wgrad_cuda(xt, gt, xs, gs, n, h, h,
+                                                  k),
                       lambda: tq.qconv_wgrad_plain(xq, gq, xs, gs, k)),
         }
         xb = x.permute(0, 3, 1, 2)
@@ -782,13 +897,6 @@ def phase_qconv(torch, dev):
                 case["int_mm_ms"] = graph_ms(torch,
                                              lambda: torch._int_mm(a2, b2))
             if kind == "wgrad":
-                check(torch.equal(kq.wgrad_layout_cuda(gq, k),
-                                  tq.wgrad_layout_plain(gq, k)),
-                      f"qconv wgrad layout {(n, h, co, k)} differs from the "
-                      f"plain version")
-                case["layout_ms"] = time_ms(torch, lambda: (
-                    kq.wgrad_layout_cuda(xq, k), kq.wgrad_layout_cuda(gq, k)),
-                    iters=10)
                 acc = tq.qconv_wgrad_s32_plain(xq, gq, k)
                 case["max_abs_s32"] = int(acc.long().abs().max())
                 top = max(top, case["max_abs_s32"])
@@ -797,8 +905,8 @@ def phase_qconv(torch, dev):
             extra = "".join(f", {key} {case[key]:.4f}" if
                             isinstance(case[key], float) else
                             f", {key} {case[key]}" for key in
-                            ("ms_f32", "int_mm_ms", "layout_ms",
-                             "max_abs_s32") if key in case)
+                            ("ms_f32", "int_mm_ms", "max_abs_s32")
+                            if key in case)
             lib = "cuDNN bf16" + (" (graph)" if kind != "wgrad" else "")
             print(f"[K2 {kind}] N {n}, {h}x{h}, {ci} -> {co}, {k}x{k} (x"
                   f"{convs} in res5): identical to the plain version"
@@ -806,16 +914,15 @@ def phase_qconv(torch, dev):
                   f"{ms:.4f} ms ({case['tops']:.0f} TOPS), plain "
                   f"{plain_ms:.3f} ms, {lib} {lib_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}){extra}")
-        del x, w, grad, xq, gq, wq, wt, xb, wb, gb
+        del x, w, grad, xq, gq, xt, gt, wq, wt, xb, wb, gb
         torch.cuda.empty_cache()
     print(f"[K2 wgrad] largest |s32| sum met: {top} (2**31 = {2 ** 31})")
     for kind, cases in out.items():
         tot = {key: sum(c[key] * c["convs"] for c in cases if key in c)
-               for key in ("ms", "ms_f32", "library_ms", "bound_ms",
-                           "layout_ms")}
+               for key in ("ms", "ms_f32", "library_ms", "bound_ms")}
         print(f"[K2 {kind}] one res5 pass: {tot['ms']:.3f} ms"
               + (f" in bf16, {tot['ms_f32']:.3f} in f32" if kind != "wgrad"
-                 else f" (layout pass {tot['layout_ms']:.3f})")
+                 else " (operands laid out by the quantiser)")
               + f", cuDNN bf16 {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound_ms']:.3f} ms")
     ones = [c for c in out["fwd"] if "int_mm_ms" in c]
@@ -880,7 +987,7 @@ def phase_int8_conv(torch, dev):
         w = torch.randn((co, ci, k, k), generator=g, device=dev) \
             / (k * k * ci) ** 0.5
         xq, xs = kq.quantize_cuda(x, False)
-        wq, ks = kq.quantize_weight_cuda(w, False)
+        wq, ks = kq.quantize_weight_cuda(w)
         want = tq.qconv_plain(xq, wq, xs, ks, stride, p)
         for dt in (bf16, torch.float32):
             got = kq.int8_conv_cuda(xq, wq, xs, ks, stride, p, dt)
@@ -3246,7 +3353,8 @@ def main() -> int:
                                               qconv_fwd_cuda,
                                               qconv_wgrad_cuda,
                                               quantize_cuda,
-                                              quantize_weight_cuda)
+                                              quantize_weight_cuda,
+                                              quantize_weight_pair_cuda)
     from coin_tpu_torch.kernels.roi_align import (
         roi_align_backward_cuda, roi_align_cuda, roi_align_int8_backward_cuda,
         roi_align_int8_cuda)
@@ -3257,7 +3365,8 @@ def main() -> int:
     train_counters = [roi_align_cuda, nms_sorted_cuda, normalize_cuda,
                       roi_align_backward_cuda, augment_cuda]
     trainer_counters = train_counters + quant + [
-        qconv_fwd_cuda, qconv_dgrad_cuda, qconv_wgrad_cuda, int8_conv_cuda]
+        quantize_weight_pair_cuda, qconv_fwd_cuda, qconv_dgrad_cuda,
+        qconv_wgrad_cuda, int8_conv_cuda]
     roi_counters = trainer_counters + [roi_align_int8_cuda,
                                        roi_align_int8_backward_cuda]
     collect_counters = [normalize_cuda, window_attention_cuda,
@@ -3303,8 +3412,18 @@ def main() -> int:
     train_launches, _ = phase_train_path(torch, dev, num_classes, tokens,
                                          train_counters)
     torch.cuda.empty_cache()
-    trainer_launches, trainer = phase_trainer_path(torch, dev, num_classes,
-                                                   trainer_counters)
+    from coin_tpu_torch.ops import roi_align as troi
+    rec, restore = record_first_call(troi, "roi_align_backward")
+    try:
+        trainer_launches, trainer = phase_trainer_path(
+            torch, dev, num_classes, trainer_counters)
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        next(k for k in kernels if k["name"] == "roi_align_bwd").update(
+            k1b_on_trainer_rois(torch, dev, rec))
+    del rec
     torch.cuda.empty_cache()
     roi_launches, _ = phase_int8_roi_trainer_path(torch, dev, num_classes,
                                                   roi_counters)
@@ -3357,7 +3476,8 @@ def main() -> int:
              "self_cluster": ["self_cluster_cuda"],
              "nms": ["nms_sorted_cuda"], "augment": ["augment_cuda"],
              "normalize": ["normalize_cuda"],
-             "quantize": ["quantize_cuda", "quantize_weight_cuda"],
+             "quantize": ["quantize_cuda", "quantize_weight_cuda",
+                          "quantize_weight_pair_cuda"],
              "qconv_fwd": ["qconv_fwd_cuda"],
              "qconv_dgrad": ["qconv_dgrad_cuda"],
              "qconv_wgrad": ["qconv_wgrad_cuda"],

@@ -16,8 +16,10 @@
 // Design. Hopper's s8 `wgmma` reads both operands K-major from shared memory,
 // and no instruction transposes 8-bit data, so the positions (K) have to be
 // contiguous before the GEMM:
-// 1. A layout pass (`layout_kernel`, once for xq and once for gq) writes each
-//    tensor channel-major: Xt (I, Pp) and Gt (O, Pp) over the positions
+// 1. The operands arrive laid out: K2's quantisation (csrc/quantize.cu)
+//    writes each s8 tensor of the int8 weight gradient a second time,
+//    channel-major, from the same pass that writes its NHWC values: Xt (I, Pp)
+//    and Gt (O, Pp) over the positions
 //    (b, h, w, j) of image B b + j, in blocks of B images, each block an
 //    (H+p) x (W+p) grid of pixels with p halo rows below and p halo columns
 //    right of the image; zeros on the halo and for the images past N. A tap
@@ -33,9 +35,8 @@
 //    shift is a whole stage; the shifts are short (at most 16 stages), so
 //    the 9 taps' blocks in flight read the same tiles through L2. The halo
 //    and the images up to 1792 cost 19 % more MACs at 14 x 14 and 35 % at
-//    7 x 7. The 1 x 1 convs have no shift (p = 0, B = 1): their pass is a
-//    plain transpose in NHWC's own order, which reads the source front to
-//    back.
+//    7 x 7. The 1 x 1 convs have no shift (p = 0, B = 1): their layout is a
+//    plain transpose in NHWC's own order.
 // 2. The GEMM (`gemm_kernel`): a 128 (o) x 256 (i) tile per block and tap,
 //    wgmma.m64n256k32.s32.s8.s8 from two consumer warpgroups (64 rows of o
 //    each, the s32 sums in 128 registers a thread), fed by one producer
@@ -68,8 +69,6 @@ constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kSmem = kStages * kStageBytes + 1024;  // + 1024-byte alignment
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr long long kWatchdogCycles = 20000000000LL;  // about ten seconds
-constexpr int kLP = 256;       // positions of a layout tile
-constexpr int kLC = 128;       // channels of a layout tile
 
 // images per block of the layout: 128 where taps shift the positions, 1
 // (the natural order of NHWC, read front to back) for a 1 x 1 conv
@@ -307,82 +306,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_sync();
 }
 
-// rows r0..r3 (one position each, four channels each) -> four words, one per
-// channel, holding the four positions
-__device__ __forceinline__ void transpose4(const uint32_t (&r)[4],
-                                           uint32_t (&c)[4]) {
-  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(lo01, lo23, 0x5410);
-  c[1] = __byte_perm(lo01, lo23, 0x7632);
-  c[2] = __byte_perm(hi01, hi23, 0x5410);
-  c[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-// src (N, H, W, C) s8 -> dst (C, Pp) s8 over the positions (b, h, w, j) of
-// blocks of IB images on the Hg x Wg grid, zeros on the halo, past N and
-// past the grid. A block moves 256 positions x 128 channels. Thread t reads
-// 16 channels of 8 positions (eight 16-byte loads), transposes each 4 x 4
-// byte square in registers and stores one word of 4 positions per channel
-// in shared memory (a warp's 32 threads on 32 banks); the block then writes
-// 16 bytes a thread, 256 positions of a channel in two lines. VEC: C a
-// multiple of 16 and src 16-byte aligned.
-template <bool VEC>
-__global__ void __launch_bounds__(256)
-    layout_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
-                  int N, int H, int W, int C, int Hg, int Wg, int IB,
-                  int Pp) {
-  __shared__ __align__(16) uint32_t T[kLC][kLP / 4 + 4];
-  const int t = threadIdx.x;
-  const int m0 = blockIdx.x * kLP, c0 = blockIdx.y * kLC;
-  const int cg = t >> 5, c = c0 + cg * 16;
-  const int P = (N + IB - 1) / IB * Hg * Wg * IB;  // the grid; Pp pads it
-#pragma unroll
-  for (int half = 0; half < kLP / 128; ++half) {
-    const int pq = (t & 31) + 32 * half;
-    uint32_t v[4][4];  // [position][channel quad]
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) v[r][w] = 0;
-      const int m = m0 + pq * 4 + r;
-      if (m >= P || c >= C) continue;
-      const int q = m / IB, j = m - q * IB;  // pixel (b, hh, ww), image b IB + j
-      const int ww = q % Wg, hh = (q / Wg) % Hg, n = q / Wg / Hg * IB + j;
-      if (hh >= H || ww >= W || n >= N) continue;
-      const int8_t* row = src + (((long long)n * H + hh) * W + ww) * C + c;
-      if (VEC) {
-        const uint4 x = *reinterpret_cast<const uint4*>(row);
-        v[r][0] = x.x; v[r][1] = x.y; v[r][2] = x.z; v[r][3] = x.w;
-      } else {
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          if (c + 4 * w < C)
-            v[r][w] = *reinterpret_cast<const uint32_t*>(row + 4 * w);
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const uint32_t r4[4] = {v[0][w], v[1][w], v[2][w], v[3][w]};
-      uint32_t col[4];
-      transpose4(r4, col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) T[cg * 16 + w * 4 + i][pq] = col[i];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int it = 0; it < kLC * kLP / 16 / 256; ++it) {
-    const int idx = it * 256 + t, cl = idx / (kLP / 16), qd = idx % (kLP / 16);
-    const int mm = m0 + qd * 16;
-    if (c0 + cl < C && mm < Pp)
-      *reinterpret_cast<uint4*>(dst + (long long)(c0 + cl) * Pp + mm) =
-          *reinterpret_cast<const uint4*>(&T[cl][qd * 4]);
-  }
-}
-
 // part (splits, k*k, O, I) s32 -> dw (O, I, k, k) f32 =
 // f32(wrapping sum over the splits) * (xs * gs)
 __global__ void finish_kernel(const int* __restrict__ part,
@@ -519,33 +442,6 @@ long long positions(int N, int H, int W, int k) {
 
 }  // namespace
 
-// src (N, H, W, C) s8 -> dst (C, Pp) s8, channel-major over the positions
-// (b, h, w, j) of image B b + j on the (H + p) x (W + p) grid of each block
-// of B images (p = k / 2, B = 128 for k > 1, else 1), zeros on the halo,
-// past N and past the grid; Pp = ceil(N / B) (H + p) (W + p) B rounded up
-// to 16, below 2**31; C a multiple of 4, src 4-byte and dst 16-byte
-// aligned. Returns the CUDA error code.
-extern "C" int coin_qconv_wgrad_layout(const void* src, void* dst, int N,
-                                       int H, int W, int C, int k,
-                                       void* stream) {
-  const long long Pp = positions(N, H, W, k);
-  if (N <= 0 || H <= 0 || W <= 0 || C % 4 || Pp >= (1LL << 31) ||
-      (uintptr_t)src % 4 || (uintptr_t)dst % 16)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((Pp + kLP - 1) / kLP), (unsigned)((C + kLC - 1) / kLC));
-  cudaStream_t st = (cudaStream_t)stream;
-  const int p = k / 2;
-  if (C % 16 == 0 && (uintptr_t)src % 16 == 0)
-    layout_kernel<true><<<grid, 256, 0, st>>>(
-        (const int8_t*)src, (int8_t*)dst, N, H, W, C, H + p, W + p,
-        image_block(k), (int)Pp);
-  else
-    layout_kernel<false><<<grid, 256, 0, st>>>(
-        (const int8_t*)src, (int8_t*)dst, N, H, W, C, H + p, W + p,
-        image_block(k), (int)Pp);
-  return (int)cudaGetLastError();
-}
-
 // The number of position splits of the GEMM (the leading dimension of its
 // s32 scratch).
 extern "C" int coin_qconv_wgrad_splits(int N, int H, int W, int I, int O,
@@ -555,7 +451,7 @@ extern "C" int coin_qconv_wgrad_splits(int N, int H, int W, int I, int O,
   return splits;
 }
 
-// xt (I, Pp) and gt (O, Pp) s8 from coin_qconv_wgrad_layout with pad = k / 2;
+// xt (I, Pp) and gt (O, Pp) s8 in the layout above (coin_quantize's `lay`);
 // xs, gs: one f32 each; part: splits x k*k x O x I s32 of scratch; dw:
 // (O, I, k, k) f32. Returns the CUDA error code of the launches.
 extern "C" int coin_qconv_wgrad(const void* xt, const void* gt,

@@ -1,10 +1,12 @@
 """Launchers of K2, the int8 training convolution, and K2s, the int8 serving
-convolution: ``csrc/quantize.cu`` (dynamic quantisation of activations,
-gradients and weights), ``csrc/qconv.cu`` (the s8 convolution with its
-f32 rescale, written in f32 or bf16: a ``wgmma`` implicit GEMM for the K2
-forward, the K2 dgrad and K2s, and a direct kernel for the stem's 3
-channels) and ``csrc/qconv_wgrad.cu`` (the s8 weight gradient: a layout
-pass and a ``wgmma`` GEMM).
+convolution: ``csrc/quantize.cu`` (dynamic quantisation of activations and
+gradients, one launch per tensor, writing K2 wgrad's layout beside the s8
+values on request; both weight quantisations of a conv in one launch),
+``csrc/qconv.cu`` (the s8 convolution with its f32 rescale, written in f32
+or bf16: a ``wgmma`` implicit GEMM for the K2 forward, the K2 dgrad and
+K2s, and a direct kernel for the stem's 3 channels) and
+``csrc/qconv_wgrad.cu`` (the s8 weight gradient: a ``wgmma`` GEMM over the
+laid-out operands).
 
 Counterparts of ``coin_tpu/ops/qconv.py`` ``int8_train_conv`` (:136, with
 ``_vjp_fwd`` :158 and ``_vjp_bwd`` :170) and
@@ -26,12 +28,22 @@ from coin_tpu_torch.kernels.build import check, library
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_bound = {}
+_scratch = {}
+# u32 words of the quantiser's scratch: its barrier, then one partial per
+# resident block (at most 8 blocks of 256 threads on each SM)
+_SCRATCH_HEAD = 32
 
 
-def _fn(lib: str, name: str, argtypes):
-    fn = getattr(library(lib), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+def _fn(lib: str, name: str, argtypes, restype=ctypes.c_int):
+    """A library function, bound once."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _bound[name] = fn
     return fn
 
 
@@ -45,9 +57,29 @@ def _require_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what}: every tensor must be on one CUDA device")
 
 
-def quantize_cuda(x: torch.Tensor, per_sample: bool):
+def _quant_scratch(dev: torch.device) -> torch.Tensor:
+    """The quantiser's barrier and partials on ``dev``: zeroed once, left
+    as the kernels find it by every launch. Launches that share it run in
+    one stream's order, as the port's are."""
+    t = _scratch.get(dev)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quantize: launch once before capturing a "
+                               "CUDA graph (its scratch is made then)")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        t = torch.zeros(_SCRATCH_HEAD + 8 * sms, dtype=torch.int32,
+                        device=dev)
+        _scratch[dev] = t
+    return t
+
+
+def quantize_cuda(x: torch.Tensor, per_sample: bool, layout_k=None):
     """x (N, ...) f32 or bf16 on a CUDA device → (q int8 of x's shape,
-    scale f32 of shape (N,) per sample or (1,) per tensor)."""
+    scale f32 of shape (N,) per sample or (1,) per tensor), in one launch.
+    With ``layout_k`` (per tensor, x (N, H, W, C), C a multiple of 4) the
+    same pass also writes K2 wgrad's layout of q for a k x k conv,
+    ``ops/qconv.wgrad_layout_plain(q, k)``, and returns it third."""
+    from coin_tpu_torch.ops.qconv import wgrad_positions
     _require_cuda("quantize_cuda", x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"quantize_cuda: {x.dtype} (f32 or bf16)")
@@ -58,44 +90,84 @@ def quantize_cuda(x: torch.Tensor, per_sample: bool):
         raise ValueError(f"quantize_cuda: shape {tuple(x.shape)}")
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((nseg,), dtype=torch.float32, device=x.device)
-    amax = torch.empty((nseg,), dtype=torch.int32, device=x.device)
+    lay = None
+    dims = (0, 0, 0, 0, 0)
+    if layout_k is not None:
+        if per_sample or x.dim() != 4 or x.shape[-1] % 4:
+            raise ValueError(f"quantize_cuda: a layout needs one scale and "
+                             f"(N, H, W, C), C a multiple of 4; got "
+                             f"{tuple(x.shape)}, per_sample={per_sample}")
+        dims = (*x.shape, layout_k)
+        lay = torch.empty((x.shape[-1], wgrad_positions(*x.shape[:3],
+                                                        layout_k)),
+                          dtype=torch.int8, device=x.device)
+    scratch = _quant_scratch(x.device)
     err = _fn("quantize", "coin_quantize",
-              [_P, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P, _P,
-               _P])(x.data_ptr(), _DTYPES[x.dtype], n, n // nseg, nseg,
-                    q.data_ptr(), scale.data_ptr(), amax.data_ptr(),
-                    _stream(x))
+              [_P, _I, _L, _I, _P, _P, _P] + [_I] * 5 + [_P, _I, _P])(
+        x.data_ptr(), _DTYPES[x.dtype], n, nseg, q.data_ptr(),
+        scale.data_ptr(), None if lay is None else lay.data_ptr(), *dims,
+        scratch.data_ptr(), scratch.numel(), _stream(x))
     check(err, "quantize")
     quantize_cuda.launches += 1
-    return q, scale
+    return (q, scale) if lay is None else (q, scale, lay)
 
 
 quantize_cuda.launches = 0
 
 
-def quantize_weight_cuda(w: torch.Tensor, per_input: bool):
-    """w (O, I, k, k) f32 on a CUDA device → (wq, scale): per output
-    channel, wq (O, k, k, I) and scale (O,); per input channel (the dgrad's
-    weights), wq (I, k, k, O) of the spatially flipped kernel and scale
-    (I,)."""
-    _require_cuda("quantize_weight_cuda", w)
-    if w.dtype != torch.float32 or w.dim() != 4 or w.shape[2] != w.shape[3]:
-        raise TypeError(f"quantize_weight_cuda: {w.dtype} {tuple(w.shape)} "
-                        f"(f32 (O, I, k, k))")
-    w = w.contiguous()
+def _weight(what: str, w: torch.Tensor, max_k: int = 0) -> torch.Tensor:
+    _require_cuda(what, w)
+    if (w.dtype != torch.float32 or w.dim() != 4 or w.shape[2] != w.shape[3]
+            or (max_k and w.shape[2] > max_k)):
+        raise TypeError(f"{what}: {w.dtype} {tuple(w.shape)} (f32 (O, I, k, "
+                        f"k){f', k <= {max_k}' if max_k else ''})")
+    return w.contiguous()
+
+
+def quantize_weight_cuda(w: torch.Tensor):
+    """w (O, I, k, k) f32 on a CUDA device → (wq (O, k, k, I), scale (O,)),
+    one scale per output channel (K2s and the int8-forward-only mode)."""
+    w = _weight("quantize_weight_cuda", w)
     o, i, k, _ = w.shape
-    rows, cols = (i, o) if per_input else (o, i)
-    wq = torch.empty((rows, k, k, cols), dtype=torch.int8, device=w.device)
-    scale = torch.empty((rows,), dtype=torch.float32, device=w.device)
-    err = _fn("quantize", "coin_quantize_weight",
-              [_P, _I, _I, _I, _I, _P, _P, _P])(
-        w.data_ptr(), o, i, k, int(per_input), wq.data_ptr(),
-        scale.data_ptr(), _stream(w))
+    wq = torch.empty((o, k, k, i), dtype=torch.int8, device=w.device)
+    scale = torch.empty((o,), dtype=torch.float32, device=w.device)
+    err = _fn("quantize", "coin_quantize_weight", [_P, _I, _I, _I, _P, _P,
+                                                   _P])(
+        w.data_ptr(), o, i, k, wq.data_ptr(), scale.data_ptr(), _stream(w))
     check(err, "quantize_weight")
     quantize_weight_cuda.launches += 1
     return wq, scale
 
 
 quantize_weight_cuda.launches = 0
+
+
+def quantize_weight_pair_cuda(w: torch.Tensor):
+    """w (O, I, k, k) f32 on a CUDA device, k <= 3 → (wq (O, k, k, I),
+    scale (O,), wt (I, k, k, O), scale_i (I,)) in one launch: the forward's
+    weights per output channel and the dgrad's per input channel, of the
+    spatially flipped kernel."""
+    w = _weight("quantize_weight_pair_cuda", w, max_k=3)
+    o, i, k, _ = w.shape
+    wq = torch.empty((o, k, k, i), dtype=torch.int8, device=w.device)
+    wt = torch.empty((i, k, k, o), dtype=torch.int8, device=w.device)
+    words = _fn("quantize", "coin_quantize_weight_pair_words", [_I, _I],
+                ctypes.c_longlong)(o, i)
+    # the scales, then the kernel's partial maxima: one allocation
+    buf = torch.empty((o + i + words,), dtype=torch.int32, device=w.device)
+    scales, part = buf[:o + i].view(torch.float32), buf[o + i:]
+    scratch = _quant_scratch(w.device)
+    err = _fn("quantize", "coin_quantize_weight_pair",
+              [_P, _I, _I, _I] + [_P] * 6 + [_I, _P])(
+        w.data_ptr(), o, i, k, wq.data_ptr(), scales.data_ptr(),
+        wt.data_ptr(), scales[o:].data_ptr(), part.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), _stream(w))
+    check(err, "quantize_weight_pair")
+    quantize_weight_pair_cuda.launches += 1
+    return wq, scales[:o], wt, scales[o:]
+
+
+quantize_weight_pair_cuda.launches = 0
 
 
 def _qconv(what: str, xq: torch.Tensor, wq: torch.Tensor,
@@ -169,56 +241,38 @@ def int8_conv_cuda(xq, wq, row_scale, col_scale, stride: int, pad: int,
 int8_conv_cuda.launches = 0
 
 
-def wgrad_layout_cuda(q: torch.Tensor, k: int) -> torch.Tensor:
-    """The layout pass of K2 wgrad: q (N, H, W, C) s8 → (C, Pp) s8,
-    channel-major over the padded grid of positions of
-    ``ops/qconv.wgrad_layout_plain`` (the same bytes)."""
+def qconv_wgrad_cuda(xt: torch.Tensor, gt: torch.Tensor, xs: torch.Tensor,
+                     gs: torch.Tensor, n: int, h: int, w: int,
+                     k: int) -> torch.Tensor:
+    """K2 wgrad of a stride-1 'same' conv over N images of H x W: xt (I,
+    Pp) and gt (O, Pp) the s8 input and gradient in the layout that
+    :func:`quantize_cuda` writes with ``layout_k=k``, xs and gs one f32 each
+    → dw (O, I, k, k) f32 = f32(s32 sum, wrapping) * (xs * gs). The wgmma
+    GEMM sums each tap as a shifted product; a last pass adds its splits
+    and rescales."""
     from coin_tpu_torch.ops.qconv import wgrad_positions
-    _require_cuda("wgrad_layout_cuda", q)
-    if q.dtype != torch.int8 or q.dim() != 4 or q.shape[-1] % 4:
-        raise ValueError(f"wgrad_layout_cuda: {q.dtype} {tuple(q.shape)} "
-                         f"(s8 (N, H, W, C), C a multiple of 4)")
-    q = q.contiguous()
-    n, h, w, c = q.shape
+    _require_cuda("qconv_wgrad_cuda", xt, gt, xs, gs)
+    if xt.dtype != torch.int8 or gt.dtype != torch.int8:
+        raise TypeError(f"qconv_wgrad_cuda: {xt.dtype}, {gt.dtype} (int8)")
+    i, o = xt.shape[0], gt.shape[0]
     pp = wgrad_positions(n, h, w, k)
-    out = torch.empty((c, pp), dtype=torch.int8, device=q.device)
-    err = _fn("qconv_wgrad", "coin_qconv_wgrad_layout",
-              [_P, _P] + [_I] * 5 + [_P])(
-        q.data_ptr(), out.data_ptr(), n, h, w, c, k, _stream(q))
-    check(err, "qconv_wgrad_layout")
-    return out
-
-
-def qconv_wgrad_cuda(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
-                     gs: torch.Tensor, k: int) -> torch.Tensor:
-    """K2 wgrad: xq (N, H, W, I) and gq (N, H, W, O) s8 of a stride-1
-    'same' conv, xs and gs one f32 each → dw (O, I, k, k) f32 =
-    f32(s32 sum, wrapping) * (xs * gs). The layout pass writes both
-    operands channel-major over the padded grid, then the wgmma GEMM sums
-    each tap as a shifted product and a last pass adds its splits and
-    rescales."""
-    _require_cuda("qconv_wgrad_cuda", xq, gq, xs, gs)
-    if xq.dtype != torch.int8 or gq.dtype != torch.int8:
-        raise TypeError(f"qconv_wgrad_cuda: {xq.dtype}, {gq.dtype} (int8)")
-    n, h, w, i = xq.shape
-    o = gq.shape[-1]
-    if (gq.shape[:3] != xq.shape[:3] or xs.numel() != 1 or gs.numel() != 1
-            or i % 4 or o % 4):
-        raise ValueError(f"qconv_wgrad_cuda: shapes {tuple(xq.shape)}, "
-                         f"{tuple(gq.shape)} (channels multiples of 4), "
-                         f"scales {xs.numel()}, {gs.numel()}")
-    xt = wgrad_layout_cuda(xq, k)
-    gt = wgrad_layout_cuda(gq, k)
+    if (xt.shape != (i, pp) or gt.shape != (o, pp) or xs.numel() != 1
+            or gs.numel() != 1 or i % 4 or o % 4):
+        raise ValueError(f"qconv_wgrad_cuda: layouts {tuple(xt.shape)}, "
+                         f"{tuple(gt.shape)} for {(n, h, w)} (rows "
+                         f"{pp}, channels multiples of 4), scales "
+                         f"{xs.numel()}, {gs.numel()}")
+    xt, gt = xt.contiguous(), gt.contiguous()
     xs, gs = xs.float().contiguous(), gs.float().contiguous()
     splits = _fn("qconv_wgrad", "coin_qconv_wgrad_splits", [_I] * 6)(
         n, h, w, i, o, k)
     part = torch.empty((splits, k * k, o, i), dtype=torch.int32,
-                       device=xq.device)
-    dw = torch.empty((o, i, k, k), dtype=torch.float32, device=xq.device)
+                       device=xt.device)
+    dw = torch.empty((o, i, k, k), dtype=torch.float32, device=xt.device)
     err = _fn("qconv_wgrad", "coin_qconv_wgrad", [_P] * 6 + [_I] * 7 + [_P])(
         xt.data_ptr(), gt.data_ptr(), xs.data_ptr(), gs.data_ptr(),
         part.data_ptr(), dw.data_ptr(), n, h, w, i, o, k, splits,
-        _stream(xq))
+        _stream(xt))
     check(err, "qconv_wgrad")
     qconv_wgrad_cuda.launches += 1
     return dw

@@ -5,9 +5,10 @@
 forward quantises the activation (one scale per tensor, or per sample) and
 the f32 master weight (one scale per output channel) to s8, accumulates in
 s32 and rescales to f32; the backward quantises the incoming gradient the
-same way against the weight requantised per input channel, flipped and
-transposed (dgrad), and takes the weight gradient either in s8 x s8 with
-per-tensor scales from the saved s8 activation (mode ``qt=1``) or exactly
+same way against the weight quantised per input channel, flipped and
+transposed (dgrad; the forward quantises both weights in one pass), and
+takes the weight gradient either in s8 x s8 with per-tensor scales from the
+saved s8 activation, kept in K2 wgrad's layout (mode ``qt=1``), or exactly
 in the activation's dtype. ``int8_conv`` (K2s) is the serving forward.
 
 On a CUDA tensor each step runs a kernel (``kernels/qconv.py``); on a CPU
@@ -71,6 +72,13 @@ def quantize_weight_plain(w: torch.Tensor, per_input: bool = False):
     s = _scale(w.abs().amax(dim=(1, 2, 3)))
     q = _s8(torch.round(w / s[:, None, None, None]))
     return q.permute(0, 2, 3, 1).contiguous(), s
+
+
+def quantize_weight_pair_plain(w: torch.Tensor):
+    """Plain version of the one-pass weight quantisation of the int8 dgrad
+    modes: (wq, scale) per output channel and (wt, scale_i) per input
+    channel, flipped, as :func:`quantize_weight_plain` gives them."""
+    return (*quantize_weight_plain(w), *quantize_weight_plain(w, True))
 
 
 # f32 holds every integer below 2**24 exactly, so an f32 convolution of s8
@@ -181,6 +189,17 @@ def wgrad_tap_offset(w: int, k: int, tap: int) -> int:
     return ((tap // k - p) * (w + p) + (tap % k - p)) * wgrad_image_block(k)
 
 
+def wgrad_unlayout_plain(t: torch.Tensor, n: int, h: int, w: int,
+                         k: int) -> torch.Tensor:
+    """The inverse of :func:`wgrad_layout_plain`: (C, Pp) → (N, H, W, C)."""
+    c = t.shape[0]
+    p, b = k // 2, wgrad_image_block(k)
+    nb = -(-n // b)
+    grid = t[:, :nb * (h + p) * (w + p) * b].reshape(c, nb, h + p, w + p, b)
+    images = grid[:, :, :h, :w].permute(1, 4, 2, 3, 0)
+    return images.reshape(nb * b, h, w, c)[:n].contiguous()
+
+
 def qconv_wgrad_plain(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
                       gs: torch.Tensor, k: int) -> torch.Tensor:
     """Plain version of the s8 weight gradient of a stride-1 'same' conv:
@@ -190,18 +209,45 @@ def qconv_wgrad_plain(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
 
 
 # ----------------------------------------------------------- dispatch
-def quantize(x: torch.Tensor, per_sample: bool = False):
+def quantize(x: torch.Tensor, per_sample: bool = False, layout_k=None):
+    """(q, scale) of x; with ``layout_k`` also K2 wgrad's layout of q for a
+    k x k conv, written by the same kernel launch on a CUDA tensor."""
     if x.is_cuda:
         from coin_tpu_torch.kernels.qconv import quantize_cuda
-        return quantize_cuda(x, per_sample)
-    return quantize_plain(x, per_sample)
+        return quantize_cuda(x, per_sample, layout_k)
+    q, s = quantize_plain(x, per_sample)
+    if layout_k is None:
+        return q, s
+    return q, s, wgrad_layout_plain(q, layout_k)
 
 
-def quantize_weight(w: torch.Tensor, per_input: bool = False):
+def quantize_weight(w: torch.Tensor):
+    """(wq, scale) per output channel."""
     if w.is_cuda:
         from coin_tpu_torch.kernels.qconv import quantize_weight_cuda
-        return quantize_weight_cuda(w, per_input)
-    return quantize_weight_plain(w, per_input)
+        return quantize_weight_cuda(w)
+    return quantize_weight_plain(w)
+
+
+def quantize_weight_pair(w: torch.Tensor):
+    """(wq, scale) per output channel and (wt, scale_i) per input channel,
+    flipped: one kernel launch on a CUDA tensor."""
+    if w.is_cuda:
+        from coin_tpu_torch.kernels.qconv import quantize_weight_pair_cuda
+        return quantize_weight_pair_cuda(w)
+    return quantize_weight_pair_plain(w)
+
+
+def qconv_wgrad(xt: torch.Tensor, gt: torch.Tensor, xs: torch.Tensor,
+                gs: torch.Tensor, n: int, h: int, w: int,
+                k: int) -> torch.Tensor:
+    """The s8 weight gradient from the laid-out operands: K2 wgrad on a
+    CUDA tensor, the plain version of the NHWC tensors on a CPU one."""
+    if xt.is_cuda:
+        from coin_tpu_torch.kernels.qconv import qconv_wgrad_cuda
+        return qconv_wgrad_cuda(xt, gt, xs, gs, n, h, w, k)
+    return qconv_wgrad_plain(wgrad_unlayout_plain(xt, n, h, w, k),
+                             wgrad_unlayout_plain(gt, n, h, w, k), xs, gs, k)
 
 
 def _conv(which: str, xq: torch.Tensor, wq: torch.Tensor,
@@ -224,16 +270,6 @@ def _conv(which: str, xq: torch.Tensor, wq: torch.Tensor,
                              out_dtype)
 
 
-def _fwd_parts(x: torch.Tensor, w: torch.Tensor, stride: int,
-               per_sample: bool, out_dtype: torch.dtype):
-    """Quantised forward (qconv.py:83-98): (output in ``out_dtype``, xq,
-    xs)."""
-    k = w.shape[-1]
-    xq, xs = quantize(x, per_sample)
-    wq, ks = quantize_weight(w)
-    return _conv("fwd", xq, wq, xs, ks, stride, k // 2, out_dtype), xq, xs
-
-
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
@@ -248,57 +284,77 @@ class Int8TrainConv(torch.autograd.Function):
     after: ``Int8TrainConv.__call__``'s ``out.astype(self.dtype)``, the
     same round to nearest even of the same f32 that the kernel's epilogue
     writes). With a bf16 output the cotangent reaches ``backward`` as bf16
-    instead of that bf16 widened to f32 by the cast's backward:
-    ``quantize(g.float())`` and the exact paths' ``g.to(x_dtype)`` see the
-    same values either way."""
+    and is quantised as it arrives: JAX widens the same bf16 values to f32
+    first (:181), which is exact, so the s8 values and scales are the same;
+    the exact paths' ``g.to(x_dtype)`` see the same values too.
+
+    The forward quantises both weights at once where the dgrad is int8
+    (the backward keeps them: the master weight does not change in
+    between) and, in mode 1, writes K2 wgrad's layout of the s8 activation
+    beside its NHWC values; it saves the layout, not the NHWC tensor. The
+    backward's quantisation of the gradient does the same for the
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, w, stride, wgrad_int8, per_sample, dgrad_int8,
                 out_dtype):
         int8_res = wgrad_int8 and dgrad_int8 and stride == 1 \
             and not per_sample
-        out, xq, xs = _fwd_parts(x, w, stride, per_sample, out_dtype)
-        ctx.meta = (stride, wgrad_int8, per_sample, dgrad_int8, int8_res,
-                    x.dtype, tuple(x.shape))
-        # mode 1 keeps the s8 activation and its scale, not x: half the
-        # bytes of a bf16 activation, and no requantisation in the backward
-        ctx.save_for_backward(*((xq, xs, w) if int8_res else (x, w)))
+        dgrad_i8 = dgrad_int8 and stride == 1
+        k = w.shape[-1]
+        if int8_res:
+            xq, xs, xt = quantize(x, layout_k=k)
+        else:
+            xq, xs = quantize(x, per_sample)
+        if dgrad_i8:
+            wq, ks, wt, ks_i = quantize_weight_pair(w)
+        else:
+            wq, ks = quantize_weight(w)
+        out = _conv("fwd", xq, wq, xs, ks, stride, k // 2, out_dtype)
+        ctx.meta = (stride, per_sample, dgrad_i8, int8_res, x.dtype,
+                    tuple(x.shape), tuple(w.shape), w.dtype)
+        # mode 1 keeps the s8 activation, laid out for the wgrad, and its
+        # scale, not x: half the bytes of a bf16 activation, and no
+        # requantisation in the backward
+        if int8_res:
+            ctx.save_for_backward(xt, xs, wt, ks_i)
+        elif dgrad_i8:
+            ctx.save_for_backward(x, wt, ks_i)
+        else:
+            ctx.save_for_backward(x, w)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        stride, wgrad_int8, per_sample, dgrad_int8, int8_res, x_dtype, \
-            x_shape = ctx.meta
+        stride, per_sample, dgrad_i8, int8_res, x_dtype, x_shape, w_shape, \
+            w_dtype = ctx.meta
         if int8_res:
-            xq, xs, w = ctx.saved_tensors
-            x = None
+            xt, xs, wt, ks_i = ctx.saved_tensors
+        elif dgrad_i8:
+            x, wt, ks_i = ctx.saved_tensors
         else:
             x, w = ctx.saved_tensors
-        k = w.shape[-1]
+        n, h, wd, _ = x_shape
+        k = w_shape[-1]
         p = k // 2
         g = g.contiguous()
-        dx = dw = None
-        gq = gs = None
-        if stride == 1 and dgrad_int8:
-            gq, gs = quantize(g.float(), per_sample)
-            wt, ks_i = quantize_weight(w, per_input=True)
+        if dgrad_i8:
+            if int8_res:
+                gq, gs, gt = quantize(g, layout_k=k)
+            else:
+                gq, gs = quantize(g, per_sample)
             dx = _conv("dgrad", gq, wt, gs, ks_i, 1, p, x_dtype)
         else:
             dx = _nhwc(torch.nn.grad.conv2d_input(
-                (x_shape[0], x_shape[3], x_shape[1], x_shape[2]),
-                w.to(x_dtype), _nchw(g.to(x_dtype)), stride=stride,
-                padding=p))
+                (n, x_shape[3], h, wd), w.to(x_dtype), _nchw(g.to(x_dtype)),
+                stride=stride, padding=p))
         if int8_res:
-            if g.is_cuda:
-                from coin_tpu_torch.kernels.qconv import qconv_wgrad_cuda
-                dw = qconv_wgrad_cuda(xq, gq, xs, gs, k)
-            else:
-                dw = qconv_wgrad_plain(xq, gq, xs, gs, k)
+            dw = qconv_wgrad(xt, gt, xs, gs, n, h, wd, k)
         else:
             dw = torch.nn.grad.conv2d_weight(
-                _nchw(x), tuple(w.shape), _nchw(g.to(x.dtype)),
-                stride=stride, padding=p)
-        return dx, dw.to(w.dtype), None, None, None, None, None
+                _nchw(x), w_shape, _nchw(g.to(x.dtype)), stride=stride,
+                padding=p)
+        return dx, dw.to(w_dtype), None, None, None, None, None
 
 
 def int8_train_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -308,7 +364,14 @@ def int8_train_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     """x (N, H, W, I) in the compute dtype, w (O, I, k, k) the f32 master
     weight → (N, Ho, Wo, O); padding k // 2. The output is f32 as JAX's
     function returns it, or its rounding to ``out_dtype``, written by the
-    kernel. Gradients: dx in x's dtype, dw in w's."""
+    kernel. Gradients: dx in x's dtype, dw in w's. Where no gradient is
+    taken (inference, a teacher's forward) only the forward's operands are
+    quantised."""
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        k = w.shape[-1]
+        xq, xs = quantize(x.contiguous(), per_sample)
+        wq, ks = quantize_weight(w)
+        return _conv("fwd", xq, wq, xs, ks, stride, k // 2, out_dtype)
     return Int8TrainConv.apply(x.contiguous(), w, stride, wgrad_int8,
                                per_sample, dgrad_int8, out_dtype)
 

@@ -73,7 +73,8 @@ GROUPS = (
                       "normalize_kernel", "gray_mean_kernel",
                       "vertical_kernel", "horizontal_kernel",
                       "qconv_kernel", "wgrad_kernel", "finish_kernel",
-                      "absmax_kernel", "quantize_kernel", "weight_kernel",
+                      "quant_tensor_kernel", "quant_sample_kernel",
+                      "quant_weight",
                       "window_attention_kernel", "ms_deform_kernel",
                       "fusion_nms_kernel", "deform_conv_kernel",
                       "deform_conv_reduce", "roi_align_int8_kernel",

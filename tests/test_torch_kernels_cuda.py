@@ -158,6 +158,40 @@ def test_training_kernel_matches_plain_version_on_card(cuda_device, which):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_roi_align_backward_footprints_on_card(cuda_device, dtype):
+    """K1b's per-RoI footprints against the plain version, 1e-5 of the
+    largest |d features| in f32 (one rounding of the gradient to bf16 for
+    both in bf16): RoIs below one feature pixel, larger than the map, off
+    the image and partly off it, at 1-4 samples, resolutions 7 and 14, and
+    channel counts off the 32-channel blocks and the 4-channel vectors."""
+    rng = np.random.RandomState(11)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    for (b, h, w, c), res, sampling in (((2, 38, 76, 64), 14, 2),
+                                        ((1, 9, 13, 36), 7, 1),
+                                        ((2, 11, 7, 6), 14, 3),
+                                        ((1, 20, 30, 40), 7, 4)):
+        n = 24
+        xy = rng.uniform(-200, 16 * max(h, w) + 100, (b, n, 2))
+        wh = rng.uniform(0.5, 16 * max(h, w) * 1.5, (b, n, 2))
+        wh[:, :6] = rng.uniform(0.2, 12, (b, 6, 2))         # below a pixel
+        xy[:, 6:9] = rng.uniform(-400, -300, (b, 3, 2))      # off the image
+        xy[:, 9:12] = -64.0                                  # larger than
+        wh[:, 9:12] = 16.0 * np.array([w, h]) + 128.0        # the map
+        rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                                .astype(np.float32)).to(cuda_device)
+        g = torch.from_numpy(rng.randn(b, n, res, res, c)
+                             .astype(np.float32)).to(cuda_device, dt)
+        got = troi.roi_align_backward(g, rois, (b, h, w, c), torch.float32,
+                                      1 / 16, res, sampling)
+        want = troi.roi_align_backward_plain(g, rois, (b, h, w, c),
+                                             torch.float32, 1 / 16, res,
+                                             sampling)
+        tol = 1e-5 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol, (h, w, c, res)
+
+
 def _s8(rng, shape, dev, lo=-127, hi=128):
     return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int8)).to(dev)
 
@@ -187,11 +221,20 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
                     assert int(s.isnan().sum()) == 1 and not q[1].any()
         w = torch.from_numpy(rng.randn(24, 36, 3, 3).astype(np.float32))
         w[5, 7, 1, 2] = float("nan")
-        for per_input in (False, True):
-            got = kq.quantize_weight_cuda(w.to(dev), per_input)
-            want = tq.quantize_weight_plain(w.to(dev), per_input)
-            assert torch.equal(got[0], want[0]) and same(got[1], want[1])
-            assert int(got[1].isnan().sum()) == 1
+        got = kq.quantize_weight_cuda(w.to(dev))
+        want = tq.quantize_weight_plain(w.to(dev))
+        assert torch.equal(got[0], want[0]) and same(got[1], want[1])
+        assert int(got[1].isnan().sum()) == 1
+        got = kq.quantize_weight_pair_cuda(w.to(dev))
+        want = tq.quantize_weight_pair_plain(w.to(dev))
+        assert torch.equal(got[0], want[0]) and same(got[1], want[1])
+        assert torch.equal(got[2], want[2]) and same(got[3], want[3])
+        assert int(got[3].isnan().sum()) == 1
+        # the layout written beside the s8 values carries the NaN's zeros
+        x = torch.from_numpy(rng.randn(130, 7, 7, 64).astype(np.float32))
+        x[3, 2, 1, 0] = float("nan")
+        q, s, lay = kq.quantize_cuda(x.to(dev, torch.bfloat16), False, 3)
+        assert bool(s.isnan().all()) and not q.any() and not lay.any()
     elif which == "quantize":
         # vector path (sizes a multiple of 8) and the scalar one (odd)
         for shape in ((5, 6, 6, 64), (3, 5, 7, 3)):
@@ -203,12 +246,29 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
                     q, s = kq.quantize_cuda(xd, per_sample)
                     wq, ws = tq.quantize_plain(xd, per_sample)
                     assert torch.equal(q, wq) and torch.equal(s, ws)
-        for o, i, k in ((8, 16, 3), (40, 3, 3), (24, 36, 1)):
+        # with K2 wgrad's layout: k = 1 and 3, N off the 128-image blocks,
+        # channels off the 64-channel tiles and off the 8-channel vectors
+        for n, h, w, c, k in ((5, 6, 6, 64, 3), (130, 7, 7, 12, 3),
+                              (3, 5, 7, 8, 1), (300, 3, 5, 4, 1),
+                              (37, 14, 14, 1024, 1), (131, 7, 7, 512, 3)):
+            x = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dev, dtype)
+                q, s, lay = kq.quantize_cuda(xd, False, k)
+                wq, ws = tq.quantize_plain(xd)
+                assert torch.equal(q, wq) and torch.equal(s, ws)
+                assert torch.equal(lay, tq.wgrad_layout_plain(wq, k)), \
+                    (n, h, w, c, k, dtype)
+        for o, i, k in ((8, 16, 3), (40, 3, 3), (24, 36, 1), (72, 100, 3),
+                        (2048, 512, 1)):
             w = torch.from_numpy(rng.randn(o, i, k, k).astype(np.float32))
-            for per_input in (False, True):
-                got = kq.quantize_weight_cuda(w.to(dev), per_input)
-                want = tq.quantize_weight_plain(w.to(dev), per_input)
-                assert all(torch.equal(a, b) for a, b in zip(got, want))
+            got = kq.quantize_weight_cuda(w.to(dev))
+            want = tq.quantize_weight_plain(w.to(dev))
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            got = kq.quantize_weight_pair_cuda(w.to(dev))
+            want = tq.quantize_weight_pair_plain(w.to(dev))
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                (o, i, k)
     elif which == "qconv":
         # (N, H, W, C, O, k, stride): res5-like, ragged tiles, the stem;
         # then the wgmma GEMM's paths: res5's 1x1 and both 3x3 shapes with
@@ -252,17 +312,18 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, which):
                                  (37, 14, 14, 512, 512, 3),
                                  (91, 7, 7, 512, 512, 3)):
             xq, gq = _s8(rng, (n, h, w, i), dev), _s8(rng, (n, h, w, o), dev)
-            assert torch.equal(kq.wgrad_layout_cuda(xq, k),
-                               tq.wgrad_layout_plain(xq, k))
             xs = torch.tensor([0.03], device=dev)
             gs = torch.tensor([1e-4], device=dev)
-            got = kq.qconv_wgrad_cuda(xq, gq, xs, gs, k)
+            got = kq.qconv_wgrad_cuda(tq.wgrad_layout_plain(xq, k),
+                                      tq.wgrad_layout_plain(gq, k), xs, gs,
+                                      n, h, w, k)
             want = tq.qconv_wgrad_plain(xq, gq, xs, gs, k)
             assert torch.equal(got, want), (n, h, w, i, o, k)
         # sums past 2**31 wrap as s32 sums do
         xq = torch.full((35, 64, 64, 4), 127, dtype=torch.int8, device=dev)
         one = torch.ones(1, device=dev)
-        got = kq.qconv_wgrad_cuda(xq, xq, one, one, 1)
+        xt = tq.wgrad_layout_plain(xq, 1)
+        got = kq.qconv_wgrad_cuda(xt, xt, one, one, 35, 64, 64, 1)
         want = tq.qconv_wgrad_plain(xq, xq, one, one, 1)
         assert torch.equal(got, want) and float(want.max()) < 0
 

@@ -198,7 +198,8 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["roi_align", "nms", "normalize",
-                                   "quantize", "qconv", "qconv_wgrad",
+                                   "quantize", "quantize_weight_pair",
+                                   "qconv", "qconv_wgrad",
                                    "window_attention", "ms_deform",
                                    "fusion_nms", "roi_align_int8",
                                    "roi_align_int8_bwd", "self_cluster",
@@ -225,7 +226,10 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
         "qconv": lambda: kq.qconv_fwd_cuda(
             s8, torch.zeros(8, 3, 3, 16, dtype=torch.int8), one,
             torch.ones(8), 1, 1),
-        "qconv_wgrad": lambda: kq.qconv_wgrad_cuda(s8, s8, one, one, 3),
+        "quantize_weight_pair": lambda: kq.quantize_weight_pair_cuda(
+            torch.zeros(8, 16, 3, 3)),
+        "qconv_wgrad": lambda: kq.qconv_wgrad_cuda(
+            s8[0, 0], s8[0, 0], one, one, 1, 1, 4, 1),
         "roi_align": lambda: roi_align_cuda(torch.zeros(1, 4, 4, 8),
                                             torch.zeros(1, 2, 4), 1.0, 7, 2),
         "nms": lambda: nms_sorted_cuda(torch.zeros(1, 8, 4),

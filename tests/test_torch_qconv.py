@@ -365,3 +365,93 @@ def test_wgrad_layout_shifted_gemm_matches_jax(n, hw, cin, cout, k, wrap):
     dw = tq._rescale(torch.from_numpy(got), torch.tensor(xs),
                      torch.tensor(gs))
     np.testing.assert_array_equal(dw.numpy(), want)
+
+
+@pytest.mark.parametrize("n,hw,c,k,nan", [
+    (3, 5, 8, 1, False), (130, 3, 12, 3, False), (5, 7, 16, 3, True),
+    (131, 2, 4, 1, True)])
+def test_quantize_writes_the_wgrad_layout_of_jax_s8(n, hw, c, k, nan):
+    """The layout that the quantisation writes beside the s8 values (mode
+    1's activation and gradient) is ``wgrad_layout_plain`` of JAX's
+    ``_quantize_x`` output (coin_tpu/ops/qconv.py:63), byte for byte: per
+    tensor, 1 x 1 and 3 x 3, N off the 128-image blocks, with a NaN (whose
+    NaN scale makes every value 0). The layout reads back to the same s8
+    tensor. The CUDA kernel is held to these plain versions in
+    test_torch_kernels_cuda.py."""
+    from coin_tpu.ops.qconv import _quantize_x
+    rng = np.random.RandomState(n + k)
+    x = rng.randn(n, hw, hw, c).astype(np.float32)
+    if nan:
+        x[n // 2, 0, hw - 1, c - 1] = np.nan
+    with jax.disable_jit():
+        jq, js = (np.array(a) for a in _quantize_x(jnp.asarray(x)))
+    q, s, lay = tq.quantize(torch.from_numpy(x), layout_k=k)
+    np.testing.assert_array_equal(q.numpy(), jq)
+    np.testing.assert_array_equal(s.numpy(), js.reshape(-1))
+    want = tq.wgrad_layout_plain(torch.from_numpy(jq), k)
+    assert lay.dtype == torch.int8 and torch.equal(lay, want)
+    assert lay.shape == (c, tq.wgrad_positions(n, hw, hw, k))
+    assert torch.equal(tq.wgrad_unlayout_plain(lay, n, hw, hw, k),
+                       torch.from_numpy(jq))
+    assert bool(np.isnan(js).all()) == nan and (nan or lay.any())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_weight_pair_matches_jax_forward_and_dgrad_weights(k):
+    """Both weight quantisations of one pass (the forward's per output
+    channel, qconv.py:92-93; the dgrad's per input channel, flipped and
+    transposed, :190-193) against JAX op by op, bit for bit, a NaN
+    included (its output and input channel get NaN scales and zeros)."""
+    rng = np.random.RandomState(20 + k)
+    w = (rng.randn(k, k, 24, 40) / np.sqrt(k * k * 24)).astype(np.float32)
+    w[0, k - 1, 5, 7] = np.nan
+    with jax.disable_jit():
+        wf = jnp.asarray(w)
+        ks = jnp.maximum(jnp.max(jnp.abs(wf), axis=(0, 1, 2)), 1e-12) / 127.0
+        ks_i = jnp.maximum(jnp.max(jnp.abs(wf), axis=(0, 1, 3)),
+                           1e-12) / 127.0
+        wq = np.asarray(jnp.round(wf / ks).astype(jnp.int8))
+        wq_i = np.asarray(jnp.round(wf / ks_i[None, None, :, None])
+                          .astype(jnp.int8))
+    got = tq.quantize_weight_pair(_oihw(w))
+    same = lambda a, b: np.testing.assert_array_equal(a.numpy(), b)
+    same(got[0], wq.transpose(3, 0, 1, 2))
+    same(got[1], np.asarray(ks))
+    same(got[2], wq_i[::-1, ::-1].transpose(2, 0, 1, 3))
+    same(got[3], np.asarray(ks_i))
+    assert np.isnan(got[1].numpy()).sum() == np.isnan(got[3].numpy()).sum() \
+        == 1
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+def test_bf16_cotangent_is_quantised_as_it_arrives(out):
+    """Mode 1 with a bf16 cotangent, read by the backward as it arrives,
+    gives the dx and dw of the same cotangent widened to f32 (widening is
+    exact, so the s8 gradient and its scale are the same), and those of
+    JAX's module (coin_tpu/models/clip_resnet.py ``Int8TrainConv``, whose
+    backward widens the bf16 cotangent at qconv.py:181) bit for bit, as
+    mode 1's int8 dgrad and wgrad are."""
+    from coin_tpu.models.clip_resnet import Int8TrainConv as JInt8Train
+    x, w, g = _inputs(70, 3)
+    tdt = DTYPES[out][1]
+    gb = torch.from_numpy(g).to(torch.bfloat16)
+    grads = []
+    for cot in (gb, gb.float()):
+        tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+        tw = _oihw(w).requires_grad_(True)
+        ty = tq.int8_train_conv(tx, tw, 1, *_flags(1), out_dtype=tdt)
+        ty.backward(cot.to(tdt) if cot.dtype != tdt else cot)
+        grads.append((tx.grad, tw.grad))
+    assert grads[0][0].dtype == torch.bfloat16
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    module = JInt8Train(8, 3, 1, dtype=jnp.bfloat16, wgrad_int8=True,
+                        per_sample=False, dgrad_int8=True)
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda a, b: module.apply(
+            {"params": {"kernel": b}}, a), jnp.asarray(x, jnp.bfloat16),
+            jnp.asarray(w))
+        jdx, jdw = vjp(jnp.asarray(g, jnp.bfloat16))
+    np.testing.assert_array_equal(_as_f32(grads[0][0]), _as_f32(jdx))
+    np.testing.assert_array_equal(
+        grads[0][1].numpy().transpose(2, 3, 1, 0), np.asarray(jdw))

@@ -462,6 +462,39 @@ def test_roi_align_backward_matches_jax_vjp(rng, hw):
         np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("case", ["below_one_pixel", "larger_than_map",
+                                  "off_the_image"])
+def test_roi_align_backward_footprints_match_jax_vjp(rng, case):
+    """K1b's plain version against jax.vjp of roi_align_batched in f32 at
+    the RoIs that bound the kernel's per-RoI footprint: RoIs narrower than
+    one feature pixel (every cell's samples on the same two or three taps),
+    RoIs larger than the map (the footprint is the whole map, the samples
+    past its edges weigh 0 or clamp) and RoIs wholly off the image (no
+    footprint), each mixed with ordinary RoIs, at 1, 2 and 3 samples."""
+    h, w = 11, 17
+    rois = random_boxes(rng, (2, 6), size=16.0 * w, max_wh=120.0)
+    if case == "below_one_pixel":
+        rois[:, :4, 2:] = rois[:, :4, :2] + rng.uniform(0.3, 14.0, (2, 4, 2))
+    elif case == "larger_than_map":
+        rois[:, 0] = [-50.0, -40.0, 16.0 * w + 60, 16.0 * h + 30]
+        rois[:, 1] = [-300.0, 20.0, 16.0 * w + 400, 16.0 * h + 250]
+    else:
+        rois[:, 0] = [-400.0, -300.0, -100.0, -60.0]
+        rois[:, 1] = [16.0 * w + 40, 16.0 * h + 40, 16.0 * w + 200,
+                      16.0 * h + 90]
+    feats = rng.randn(2, h, w, 8).astype(np.float32)
+    g = rng.randn(2, 6, 7, 7, 8).astype(np.float32)
+    for sampling in (1, 2, 3):
+        _, vjp = jax.vjp(lambda f: jroi.roi_align_batched(
+            f, jnp.asarray(rois), 1 / 16, 7, sampling), jnp.asarray(feats))
+        want, = vjp(jnp.asarray(g))
+        got = troi.roi_align_backward_plain(_t(g), _t(rois), feats.shape,
+                                            torch.float32, 1 / 16, 7,
+                                            sampling)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("hw", [(13, 21), (21, 13)], ids=["w>=h", "w<h"])
 def test_roi_align_bf16_rounds_once_within_two_ulps_of_jax(rng, monkeypatch,
                                                           hw):

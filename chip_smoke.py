@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of coin_tpu_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-rois FILE]
 
-Phases, each of which ends the run with a non-zero exit when it fails:
+(``--save-rois`` writes the RoIs of K1's recorded calls, phase 3, for
+``python -m coin_tpu_torch.tools.kernel_turns --rois FILE``.) Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: CUDA is required (there is no CPU path); prints the card's name
    and power limit as nvidia-smi reports them.
@@ -24,8 +25,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    quantiser also writes K2 wgrad's layout at every res5 shape (byte for
    byte) and quantises both weights of each res5 conv in one launch, and
    the sum of its launches over one res5 forward and backward is timed
-   from CUDA-graph replays. K1b is also timed on the RoIs of the trainer
-   path's first cached step (phase 8), recorded as it runs.
+   from CUDA-graph replays. K1 and K1b are also timed on the RoIs of the
+   trainer path's first cached step (phase 8), and K1 on the teacher's 4 x
+   512 proposals of its first collection batch, recorded as it runs. K3
+   runs at eval's 4 x 6000 RPN boxes, the trainer's 3 x 6000, the
+   teacher's 4 x 3000 and the box head's 4 x 1024, with the split between
+   its two launches (the mask and the sweep) and the time of the sorts and
+   gathers of nms_keep_mask around them.
 4. reference: the full-width detector in f32 on the card against the same
    weights on the CPU (plain versions throughout) on a small canvas.
 5. step reference: one train_step_cached and one train_step of the
@@ -275,13 +281,36 @@ def phase_roi_align(torch, dev, gen):
                 library_ms=None)
 
 
-def _nms_case(torch, dev, gen, label, n, thr, classes, hw, max_wh):
+def nms_split_ms(torch, call, iters: int = 20):
+    """Median device ms of K3's mask and sweep launches: ``call(mid)`` runs
+    the launcher, which records ``mid`` between them; a sleep on the card
+    ahead of the events keeps the host's launch time out of them."""
+    for _ in range(3):
+        call(None)
+    mid = torch.cuda.Event(enable_timing=True)
+    mid.record()                       # creates the event the launcher records
+    mask, sweep = [], []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        call(mid)
+        end.record()
+        end.synchronize()
+        mask.append(start.elapsed_time(mid))
+        sweep.append(mid.elapsed_time(end))
+    return statistics.median(mask), statistics.median(sweep)
+
+
+def _nms_case(torch, dev, gen, label, n, thr, classes, hw, max_wh,
+              batch=4):
     from coin_tpu_torch.kernels.nms import nms_sorted_cuda
     from coin_tpu_torch.ops import nms as nms_ops
-    boxes = random_boxes(torch, gen, (4, n), hw, 4.0, max_wh).to(dev)
-    scores = torch.rand((4, n), generator=gen).to(dev)
-    valid = (torch.rand((4, n), generator=gen) < 0.95).to(dev)
-    cls = (torch.randint(0, 8, (4, n), generator=gen).to(dev)
+    boxes = random_boxes(torch, gen, (batch, n), hw, 4.0, max_wh).to(dev)
+    scores = torch.rand((batch, n), generator=gen).to(dev)
+    valid = (torch.rand((batch, n), generator=gen) < 0.95).to(dev)
+    cls = (torch.randint(0, 8, (batch, n), generator=gen).to(dev)
            if classes else None)
     got = nms_ops.nms_keep_mask(boxes, scores, valid, thr, classes=cls)
     # the same wrapper on CPU tensors runs the plain version
@@ -308,26 +337,46 @@ def _nms_case(torch, dev, gen, label, n, thr, classes, hw, max_wh):
     ms = time_ms(torch, lambda: nms_sorted_cuda(sboxes, counts, thr, False))
     plain_ms = time_ms(torch, lambda: nms_ops.nms_sorted_plain(
         sboxes, counts, thr, False), iters=2, warmup=1)
+    # the device time of each launch (CUDA events, the launcher's between
+    # them), and of the whole nms_keep_mask call (class offset, sorts,
+    # gathers and the inverse scatter around K3)
+    mask_ms, sweep_ms = nms_split_ms(torch, lambda mid: nms_sorted_cuda(
+        sboxes, counts, thr, False, mid_event=mid))
+    call_ms = time_ms(torch, lambda: nms_ops.nms_keep_mask(
+        boxes, scores, valid, thr, classes=cls))
     pairs = sum(c * (c - 1) / 2 for c in counts.tolist())
-    b_ms, b_by = bound(sboxes.numel() * 4 + 16 + 4 * n, pairs * 15)
-    print(f"[K3 nms {label}] 4 x {n} boxes, IoU {thr}, class-aware "
+    b_ms, b_by = bound(sboxes.numel() * 4 + 4 * batch + batch * n,
+                       pairs * 15)
+    print(f"[K3 nms {label}] {batch} x {n} boxes, IoU {thr}, class-aware "
           f"{classes}: keep masks identical ({int(want.sum())} kept); "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})")
+          f"{ms:.4f} ms (device: mask {mask_ms:.4f}, sweep {sweep_ms:.4f}), "
+          f"plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); the whole nms_keep_mask call {call_ms:.4f}"
+          f" ms, {call_ms - ms:.4f} of it around the kernels")
     return dict(case=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, mask_ms=mask_ms, sweep_ms=sweep_ms,
+                call_ms=call_ms)
 
 
 def phase_nms(torch, dev, gen):
+    """K3 at eval's RPN (4 x 6000 at IoU 0.7) and box head (4 x 1024,
+    class-aware, 0.5), then the trainer's RPN (3 x 6000) and the teacher's
+    (TEACHER_PRE_NMS_TOPK: 4 x 3000), these two drawn from their own
+    generator; the keep masks must equal the plain version's."""
     rpn = _nms_case(torch, dev, gen, "rpn", 6000, 0.7, False, (608, 1216),
                     300.0)
     box = _nms_case(torch, dev, gen, "box_head", 1024, 0.5, True,
                     (608, 1216), 200.0)
+    own = torch.Generator().manual_seed(SEED + 13)
+    trainer = _nms_case(torch, dev, own, "trainer_rpn", 6000, 0.7, False,
+                        (608, 1216), 300.0, batch=3)
+    teacher = _nms_case(torch, dev, own, "teacher_rpn", 3000, 0.7, False,
+                        (608, 1216), 300.0)
     return dict(name="nms", route="cuda", source="coin_tpu_torch/csrc/nms.cu",
                 replaces="coin_tpu/ops/nms.py:110", max_abs_err=0.0,
                 ms=rpn["ms"], plain_ms=rpn["plain_ms"],
                 bound_ms=rpn["bound_ms"], bound_by=rpn["bound_by"],
-                library_ms=None, cases=[rpn, box])
+                library_ms=None, cases=[rpn, box, trainer, teacher])
 
 
 def phase_normalize(torch, dev, gen):
@@ -391,20 +440,65 @@ def phase_roi_align_bwd(torch, dev, gen):
                 library_ms=None)
 
 
-def record_first_call(module, name):
-    """Wrap ``module.name`` (a dispatch function that takes a gradient and
-    RoIs first) so that the RoIs and shapes of its first call are kept;
+def record_first_call(module, name, when=lambda x, rois: True):
+    """Wrap ``module.name`` (a dispatch function that takes a tensor, the
+    gradient or the features, and RoIs first) so that the RoIs and shapes
+    of its first call for which ``when(tensor, rois)`` holds are kept;
     returns (the record, a function that puts the function back)."""
     orig = getattr(module, name)
     seen = {}
 
-    def wrapper(grad, rois, *args):
-        if not seen:
-            seen.update(grad_shape=tuple(grad.shape), grad_dtype=grad.dtype,
+    def wrapper(x, rois, *args):
+        if not seen and when(x, rois):
+            seen.update(grad_shape=tuple(x.shape), grad_dtype=x.dtype,
                         rois=rois.detach().clone(), args=args)
-        return orig(grad, rois, *args)
+        return orig(x, rois, *args)
     setattr(module, name, wrapper)
     return seen, lambda: setattr(module, name, orig)
+
+
+def k1_on_recorded_rois(torch, dev, rec, label, seed):
+    """K1 on RoIs recorded by ``record_first_call`` from the main path, with
+    random features of that call's shape and dtype: within 1e-5 of the
+    plain version in f32 on the first image, one bf16 ulp + 1e-5 in bf16,
+    timed in the call's dtype."""
+    from coin_tpu_torch.kernels.roi_align import roi_align_cuda
+    from coin_tpu_torch.ops.roi_align import roi_align_plain
+    check(bool(rec), f"the trainer path ran no RoIAlign of the {label}")
+    rois = rec["rois"]
+    args = rec["args"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(rec["grad_shape"], generator=gen, device=dev).to(
+        rec["grad_dtype"])
+    f32 = feats[:1].float()
+    e32 = (roi_align_cuda(f32, rois[:1], *args)
+           - roi_align_plain(f32, rois[:1], *args)).abs().max().item()
+    check(e32 <= 1e-5, f"roi_align on the {label}'s RoIs f32: max abs err "
+          f"{e32} > 1e-5")
+    got = roi_align_cuda(feats, rois, *args).float()
+    want = roi_align_plain(feats, rois, *args).float()
+    err = (got - want).abs()
+    tol = torch.ldexp(torch.ones_like(want), torch.frexp(
+        torch.maximum(got.abs(), want.abs())).exponent - 8) + 1e-5
+    check(bool((err <= tol).all()), f"roi_align on the {label}'s RoIs: "
+          f"{int((err > tol).sum())} values over 1 bf16 ulp + 1e-5")
+    ms = time_ms(torch, lambda: roi_align_cuda(feats, rois, *args))
+    plain_ms = time_ms(torch, lambda: roi_align_plain(feats, rois, *args),
+                       iters=3, warmup=1)
+    nbytes = (feats.numel() * feats.element_size() + rois.numel() * 4
+              + got.numel() * feats.element_size())
+    b_ms, _ = bound(nbytes, got.numel() * 4 * 4 * 2)
+    side = (rois[..., 2:] - rois[..., :2]).float()
+    print(f"[K1 roi_align, the {label}'s RoIs] feats {tuple(feats.shape)} "
+          f"{feats.dtype}, rois {tuple(rois.shape)} (median side "
+          f"{side.median().item():.1f} px) -> {tuple(got.shape)}: max abs "
+          f"err {err.max().item():.3g} (tol 1 bf16 ulp + 1e-5), f32 err "
+          f"{e32:.3g} (tol 1e-5); {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms (bytes)")
+    return {f"{label}_ms": ms, f"{label}_plain_ms": plain_ms,
+            f"{label}_bound_ms": b_ms,
+            f"{label}_max_abs_err": max(err.max().item(), e32),
+            f"{label}_rois": list(rois.shape)}
 
 
 def k1b_on_trainer_rois(torch, dev, rec):
@@ -3414,16 +3508,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     from coin_tpu_torch.ops import roi_align as troi
     rec, restore = record_first_call(troi, "roi_align_backward")
+    # K1's first call in a training step (the student's features take a
+    # gradient), and the teacher's first over 512 proposals per image
+    rec_fwd, restore_fwd = record_first_call(
+        troi, "_forward", lambda f, rois: f.requires_grad)
+    rec_teacher, restore_teacher = record_first_call(
+        troi, "_forward", lambda f, rois: not f.requires_grad
+        and rois.shape[1] == 512)
     try:
         trainer_launches, trainer = phase_trainer_path(
             torch, dev, num_classes, trainer_counters)
     finally:
+        restore_teacher()
+        restore_fwd()
         restore()
     torch.cuda.empty_cache()
+    if "--save-rois" in sys.argv:
+        # K1's recorded RoIs, for tools/kernel_turns --rois
+        torch.save({label: r["rois"].cpu() for label, r in
+                    (("trainer", rec_fwd), ("teacher", rec_teacher)) if r},
+                   sys.argv[sys.argv.index("--save-rois") + 1])
     with torch.inference_mode():
         next(k for k in kernels if k["name"] == "roi_align_bwd").update(
             k1b_on_trainer_rois(torch, dev, rec))
-    del rec
+        k1 = next(k for k in kernels if k["name"] == "roi_align")
+        k1.update(k1_on_recorded_rois(torch, dev, rec_fwd, "trainer",
+                                      SEED + 14))
+        k1.update(k1_on_recorded_rois(torch, dev, rec_teacher, "teacher",
+                                      SEED + 15))
+    del rec, rec_fwd, rec_teacher
     torch.cuda.empty_cache()
     roi_launches, _ = phase_int8_roi_trainer_path(torch, dev, num_classes,
                                                   roi_counters)

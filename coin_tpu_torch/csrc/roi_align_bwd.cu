@@ -20,12 +20,13 @@
 // into L2 per distinct bilinear tap of each cell (196 cells x 4 to 16 taps
 // per RoI), and those atomics, most of them on the same few pixels for a RoI
 // a few feature pixels wide, kept it 20 times above its bound. Here:
-// 1. R threads compute the row taps and R the column taps exactly as
-//    csrc/roi_align.cu does (correctly rounded intrinsics in the JAX order;
-//    samples outside [-1, size] weigh 0, the rest are clamped), which give
-//    the footprint, the rectangle of feature pixels the RoI touches, and the
-//    weights ay, ax over it, each with the range of cells that reach each
-//    footprint row and column; once per block, for all its channels;
+// 1. R threads compute the row taps and R the column taps with
+//    csrc/roi_taps.cuh, as K1 does (correctly rounded intrinsics in the JAX
+//    order; samples outside [-1, size] weigh 0, the rest are clamped),
+//    which give the footprint, the rectangle of feature pixels the RoI
+//    touches, and the weights ay, ax over it, each with the range of cells
+//    that reach each footprint row and column; once per block, for all its
+//    channels;
 // 2. the block walks its channels 32 at a time: the R x R x 32 gradient
 //    tile of the next chunk streams into shared memory (cp.async, two
 //    buffers) while the block works on the current one;
@@ -49,6 +50,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "roi_taps.cuh"
+
 #if defined(__CUDACC_VER_MAJOR__) &&                                     \
     (__CUDACC_VER_MAJOR__ > 12 ||                                        \
      (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 5))
@@ -65,29 +68,6 @@ constexpr int kQ = kCs / 4;      // float4 per pixel of a block
 constexpr int kLQ = 3;           // log2(kQ)
 constexpr int kXC = 8;           // footprint columns of a band
 constexpr int kChunks = 8;       // chunks of kCs channels a block walks
-
-struct Tap {
-  int lo, hi;
-  float wlo, whi;
-  bool in;   // false when the sample is outside [-1, size]: weight 0
-};
-
-__device__ __forceinline__ Tap make_tap(float pos, int size) {
-  Tap t;
-  if (pos < -1.0f || pos > (float)size) {
-    t.lo = 0; t.hi = 0; t.wlo = 0.0f; t.whi = 0.0f; t.in = false;
-    return t;
-  }
-  float p = fminf(fmaxf(pos, 0.0f), (float)(size - 1));
-  int lo = (int)floorf(p);
-  t.lo = lo;
-  t.hi = min(lo + 1, size - 1);
-  float l = p - (float)lo;
-  t.wlo = 1.0f - l;
-  t.whi = l;
-  t.in = true;
-  return t;
-}
 
 __device__ __forceinline__ void fma4(float4& acc, float w, const float4& g) {
   acc.x = fmaf(w, g.x, acc.x);
@@ -118,9 +98,7 @@ __device__ __forceinline__ void taps(float start, float bin, int r, int S,
                                      int* lo, int* hi) {
   const float inv = 1.0f / (float)S;
   for (int k = 0; k < S; ++k) {
-    const float off = __fdiv_rn((float)k + 0.5f, (float)S);
-    const Tap t = make_tap(__fadd_rn(start, __fmul_rn(__fadd_rn((float)r, off),
-                                                      bin)), size);
+    const roi_taps::Tap t = roi_taps::sample_tap(start, bin, r, k, S, size);
     if (!t.in) continue;
     wt[(t.lo - f0) * R + r] += t.wlo * inv;
     wt[(t.hi - f0) * R + r] += t.whi * inv;
@@ -136,9 +114,7 @@ __device__ __forceinline__ void extent(float start, float bin, int r, int S,
                                        int size, int* f) {
   int mn = INT_MAX, mx = -1;
   for (int k = 0; k < S; ++k) {
-    const float off = __fdiv_rn((float)k + 0.5f, (float)S);
-    const Tap t = make_tap(__fadd_rn(start, __fmul_rn(__fadd_rn((float)r, off),
-                                                      bin)), size);
+    const roi_taps::Tap t = roi_taps::sample_tap(start, bin, r, k, S, size);
     if (!t.in) continue;
     mn = min(mn, t.lo);
     mx = max(mx, t.hi);
@@ -219,13 +195,9 @@ roi_align_bwd_kernel(const T* __restrict__ grad,
   const int chunks = min(kChunks, (C - first + kCs - 1) / kCs);
   const int b = (int)(roi / rois_per_image);
   const T* g = grad + roi * R * R * C;
-  const float* r4 = rois + 4 * roi;
-  const float x1 = __fsub_rn(__fmul_rn(r4[0], spatial_scale), 0.5f);
-  const float y1 = __fsub_rn(__fmul_rn(r4[1], spatial_scale), 0.5f);
-  const float x2 = __fsub_rn(__fmul_rn(r4[2], spatial_scale), 0.5f);
-  const float y2 = __fsub_rn(__fmul_rn(r4[3], spatial_scale), 0.5f);
-  const float bin_w = __fdiv_rn(__fsub_rn(x2, x1), (float)R);
-  const float bin_h = __fdiv_rn(__fsub_rn(y2, y1), (float)R);
+  const roi_taps::Frame f =
+      roi_taps::frame(rois + 4 * roi, spatial_scale, R);
+  const float x1 = f.x1, y1 = f.y1, bin_w = f.bin_w, bin_h = f.bin_h;
 
   if (t == 0) {
     fp[0] = INT_MAX; fp[1] = -1; fp[2] = INT_MAX; fp[3] = -1;

@@ -5,7 +5,8 @@ Each ``coin_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 with a plain C interface that is loaded with ``ctypes``. Nothing is built
 when the package is imported: a library is built the first time its
 kernel is launched (or by :func:`build_all`, which starts one ``nvcc`` per
-source at once), and rebuilt when its source is newer than the library.
+source at once), and rebuilt when its source or a shared header
+(``csrc/*.cuh``) is newer than the library.
 """
 
 from __future__ import annotations
@@ -49,9 +50,14 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header
+    (``csrc/*.cuh``)."""
     src, lib = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    inputs = [src] + [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                      if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, inputs))
 
 
 def _start(name: str, extra_flags: List[str]):

@@ -22,11 +22,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _fn():
     fn = library("roi_align").coin_roi_align_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:            # the first call into this library
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -55,12 +57,16 @@ def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
             or rois.shape[0] != features.shape[0]):
         raise ValueError(f"roi_align_cuda: shapes {tuple(features.shape)}, "
                          f"{tuple(rois.shape)}")
-    if resolution * sampling_ratio > 32:
-        raise ValueError("roi_align_cuda: resolution * sampling_ratio > 32")
+    if not 1 <= sampling_ratio <= 4 or resolution * sampling_ratio > 32:
+        raise ValueError(f"roi_align_cuda: sampling ratio {sampling_ratio} "
+                         f"outside 1-4 or resolution * sampling ratio > 32")
     features = features.contiguous()
     rois = rois.contiguous()
     b, h, w, c = features.shape
     n = rois.shape[1]
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"roi_align_cuda: a {h} x {w} x {c} map exceeds "
+                         "the kernel's 32-bit offsets")
     out = torch.empty((b, n, resolution, resolution, c),
                       dtype=features.dtype, device=features.device)
     if b * n == 0:

@@ -10,13 +10,16 @@ On a CUDA tensor the sorted-box suppression runs in kernel K3
 :func:`nms_sorted_plain` and :func:`fusion_nms_plain`, the plain PyTorch
 versions. Around K3 everything is PyTorch: the class offset, the +1 shift
 of valid rows, the stable descending score sort and the inverse
-permutation.
+permutation. :func:`iou_exceeds` is K3's division-free IoU test written in
+PyTorch, held by the CPU tests to the quotient's test.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from coin_tpu_torch.ops import boxes as box_ops
@@ -50,6 +53,57 @@ def nms_sorted_plain(sboxes: torch.Tensor, counts: torch.Tensor,
                 removed |= over[r]
         keep[i, :count] = ~removed
     return keep.to(sboxes.device)
+
+
+@functools.lru_cache(maxsize=None)
+def threshold_split(iou_threshold: float) -> Tuple[float, float, float,
+                                                   bool]:
+    """(thr, h, umin, fast) of K3's division-free IoU test: the f32
+    threshold; h, half the gap to the next float, so that thr + h is the
+    rounding boundary above thr; the least union for which h * union is a
+    normal float; and whether the test applies (0 < thr <= 1, h normal);
+    else every pair takes the division."""
+    thr = float(np.float32(iou_threshold))
+    h = (float(np.nextafter(np.float32(thr), np.float32(np.inf))) - thr) / 2
+    fast = 2.0 ** -102 <= thr <= 1.0
+    umin = max(2.0 ** -100, 2.0 ** -126 / h) if fast else 0.0
+    return thr, h, umin, fast
+
+
+def iou_decides(inter: torch.Tensor, union: torch.Tensor,
+                iou_threshold: float):
+    """K3's IoU test without the division (csrc/nms.cu, the mask kernel)
+    on f32 ``inter`` and ``union``: (where it decides, its verdict of
+    ``inter / union > thr`` there). It compares r = inter - thr * union,
+    rounded once to f32 as the kernel's FMA rounds it, with h * union,
+    exact in f32 for a union in [umin, 2**100]: r above it means that the
+    quotient rounds above thr, r below it that it rounds to thr or below;
+    r never equals it there (their difference is a nonzero multiple of h
+    * union's ulp). It decides nothing for unions outside that range, nor
+    for thresholds outside (0, 1]: the kernel divides for those."""
+    thr, h, umin, fast = threshold_split(iou_threshold)
+    # thr * union is exact in f64; the f64 difference rounds on to f32 at
+    # most where it is far from h * union, which no rounding crosses
+    r = (inter.double() - thr * union.double()).float()
+    hu = union.float() * h
+    decided = (union >= umin) & (union <= 2.0 ** 100)
+    if not fast:
+        decided = torch.zeros_like(decided)
+    return decided, r > hu
+
+
+def iou_exceeds(inter: torch.Tensor, union: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """The suppression test of K3 in PyTorch, used by no path:
+    ``inter / union > thr`` where union > 0, else ``0 > thr``, the quotient
+    used only where :func:`iou_decides` does not decide."""
+    thr = float(np.float32(iou_threshold))
+    inter, union = inter.float(), union.float()
+    positive = union > 0
+    decided, verdict = iou_decides(inter, union, iou_threshold)
+    quotient = torch.where(positive, inter / union,
+                           torch.zeros_like(inter)) > thr
+    return torch.where(positive & decided, verdict, quotient)
 
 
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,

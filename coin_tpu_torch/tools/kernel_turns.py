@@ -1,9 +1,11 @@
-"""Time K2's quantisation work over one res5 forward and backward and K1b,
-the RoIAlign backward, in two checkouts of the port, in turns on one card
-(the other checkout, this one, this one, the other), so that a redesigned
-kernel is compared with the one it replaces in one run.
+"""Time K2's quantisation work over one res5 forward and backward, K1b,
+the RoIAlign backward, K1, the RoIAlign forward, and K3, greedy NMS, in two
+checkouts of the port, in turns on one card (the other checkout, this one,
+this one, the other), so that a redesigned kernel is compared with the one
+it replaces in one run.
 
     python -m coin_tpu_torch.tools.kernel_turns --other DIR [--turns 4]
+        [--rois FILE]
 
 Each turn is a process started in one checkout, with that checkout's
 ``coin_tpu_torch`` first on the path, that runs this file's ``measure`` and
@@ -19,8 +21,17 @@ everything between the bf16 tensors and the s8 operands of the forward,
 dgrad and wgrad GEMMs; device time from CUDA-graph replays, summed over
 res5's ten convs, with the kernels and memsets of one pass counted by the
 profiler. K1b: chip_smoke.py's shapes (3 x 576 random RoIs of 2-600 px, 20
-of them shifted off the image, 14 x 14 x 1024 bf16), median of CUDA events
-around 20 calls. The card's name and power limit are in each line.
+of them shifted off the image, 14 x 14 x 1024 bf16). K1 on res4 of 38 x 76
+x 1024 bf16: eval RoIs drawn as chip_smoke.py draws them (4 x 1000 random
+RoIs of 2-600 px, 20 shifted off the image) and, with ``--rois FILE``, the
+RoIs of the trainer path's first cached step (3 x 576) and of the
+teacher's first collection batch (4 x 512) as ``chip_smoke.py
+--save-rois FILE`` saves them. K3 on sorted random boxes of 4-300 px on
+the 608 x 1216 canvas: eval's RPN (4 x 6000, IoU 0.7), the trainer's (3 x
+6000), the teacher's (4 x 3000) and the box head's 4 x 1024 (0.5), each
+with its two launches' device times from the profiler. K1, K1b and K3:
+the median of CUDA events around 20 calls. The card's name and power
+limit are in each line.
 """
 
 from __future__ import annotations
@@ -83,6 +94,89 @@ def device_ops(torch, fn) -> int:
                if e.device_type == DeviceType.CUDA)
 
 
+def events_ms(torch, fn, iters: int = 20) -> float:
+    """Median of CUDA events around each of ``iters`` calls of ``fn``."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_device_ms(torch, fn, name: str, iters: int = 20):
+    """Device ms per call of ``fn`` of the kernels whose names hold
+    ``name``, from the profiler over ``iters`` back-to-back calls; None
+    where the trace holds none of them (the profiler drops a kernel's
+    records now and then)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / 1e3 / iters if us else None
+
+
+def random_rois(torch, gen, b, n, lo, hi):
+    """(b, n, 4) RoIs on the 608 x 1216 canvas with sides uniform in
+    [lo, hi] px, as chip_smoke.random_boxes draws them."""
+    xy = torch.rand((b, n, 2), generator=gen) * torch.tensor([1216., 608.])
+    wh = lo + torch.rand((b, n, 2), generator=gen) * (hi - lo)
+    return torch.cat([xy, xy + wh], -1)
+
+
+def measure_k1_k3(torch, dev, rois_file):
+    """K1 at the eval RoIs, the trainer's and the teacher's; K3 at the RPN
+    and box-head shapes (see the module's docstring)."""
+    from coin_tpu_torch.kernels.nms import nms_sorted_cuda
+    from coin_tpu_torch.kernels.roi_align import roi_align_cuda
+    cpu = torch.Generator().manual_seed(SEED + 1)
+    feats = torch.randn((4, 38, 76, 1024), generator=cpu).to(dev,
+                                                            torch.bfloat16)
+    eval_rois = random_rois(torch, cpu, 4, 1000, 2.0, 600.0)
+    eval_rois[:, :20] -= 40.0
+    rois = {"eval": eval_rois, **(torch.load(rois_file) if rois_file
+                                  else {})}
+    out = {}
+    for label, r in rois.items():
+        r = r.to(dev, torch.float32)
+        f = feats[:r.shape[0]]
+        out[f"k1_{label}_ms"] = events_ms(
+            torch, lambda: roi_align_cuda(f, r, 1.0 / 16.0, 14, 2))
+    for label, b, n, thr in (("4x6000", 4, 6000, 0.7), ("3x6000", 3, 6000,
+                                                          0.7),
+                             ("4x3000", 4, 3000, 0.7),
+                             ("4x1024", 4, 1024, 0.5)):
+        boxes = random_rois(torch, cpu, b, n, 4.0, 300.0) + 1.0
+        order = torch.sort(torch.rand((b, n), generator=cpu), dim=-1,
+                           descending=True).indices
+        sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).to(
+            dev)
+        counts = torch.full((b,), n, dtype=torch.int32, device=dev)
+
+        def call():
+            return nms_sorted_cuda(sb, counts, thr, False)
+        out[f"k3_{label}_ms"] = events_ms(torch, call)
+        out[f"k3_{label}_mask_ms"] = kernel_device_ms(torch, call,
+                                                      "nms_mask_kernel")
+        out[f"k3_{label}_sweep_ms"] = kernel_device_ms(torch, call,
+                                                       "nms_sweep_kernel")
+    return out
+
+
 def quant_step(kq, x, w, g, k):
     """One conv's quantisation work of mode 1, with either quantiser."""
     if hasattr(kq, "quantize_weight_pair_cuda"):
@@ -101,7 +195,7 @@ def quant_step(kq, x, w, g, k):
     return step
 
 
-def measure() -> dict:
+def measure(rois_file=None) -> dict:
     import torch
     from coin_tpu_torch.kernels import qconv as kq
     from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
@@ -144,22 +238,14 @@ def measure() -> dict:
     grad = torch.randn((3, 576, 14, 14, 1024), generator=gen, device=dev,
                        dtype=bf16)
     args = ((3, 38, 76, 1024), bf16, 1.0 / 16.0, 14, 2)
-    for _ in range(3):
-        roi_align_backward_cuda(grad, rois, *args)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(20):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        roi_align_backward_cuda(grad, rois, *args)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    k1b_ms = events_ms(torch, lambda: roi_align_backward_cuda(grad, rois,
+                                                              *args))
+    del grad
+    torch.cuda.empty_cache()
     return dict(tree=os.getcwd(), card=smi, quant_step_ms=total,
                 quant_step_device_ops=ops, quant_cases=cases,
-                quant_res5_input_ms=input_ms,
-                k1b_ms=statistics.median(times))
+                quant_res5_input_ms=input_ms, k1b_ms=k1b_ms,
+                **measure_k1_k3(torch, dev, rois_file))
 
 
 def main() -> None:
@@ -168,9 +254,11 @@ def main() -> None:
     ap.add_argument("--turns", type=int, default=4)
     ap.add_argument("--measure", action="store_true",
                     help="measure the checkout in the working directory")
+    ap.add_argument("--rois", help="K1's trainer and teacher RoIs, as "
+                    "chip_smoke.py --save-rois writes them")
     a = ap.parse_args()
     if a.measure:
-        print(json.dumps(measure()))
+        print(json.dumps(measure(a.rois)))
         return
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -180,14 +268,18 @@ def main() -> None:
     runs = []
     for tree in order:
         env = dict(os.environ, PYTHONPATH=tree)
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--measure"], cwd=tree, env=env, check=True,
-                             capture_output=True, text=True)
+        cmd = [sys.executable, os.path.abspath(__file__), "--measure"]
+        if a.rois:
+            cmd += ["--rois", os.path.abspath(a.rois)]
+        out = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise SystemExit(f"kernel_turns: the turn in {tree} failed:\n"
+                             f"{out.stderr[-4000:]}")
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    keys = ("quant_step_ms", "quant_step_device_ops", "quant_res5_input_ms",
-            "k1b_ms")
+    keys = [k for k in runs[0] if k.endswith("_ms") or k.endswith("_ops")]
     print(json.dumps({side: {k: [r[k] for r in runs if r["tree"] == tree]
                              for k in keys}
                       for side, tree in (("other", other), ("this", here))}))

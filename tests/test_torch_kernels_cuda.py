@@ -192,6 +192,80 @@ def test_roi_align_backward_footprints_on_card(cuda_device, dtype):
         assert float((got - want).abs().max()) <= tol, (h, w, c, res)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_roi_align_footprints_on_card(cuda_device, dtype):
+    """K1's walk at the RoIs that bound it, against the plain version: RoIs
+    below one feature pixel, larger than the map, off the image and partly
+    off it, at 1-4 samples, resolutions 7 and 14, and channel counts off
+    the 16-byte vectors (the scalar path) and off a block's channels; 1e-5
+    in f32, one bf16 ulp of the larger of the two plus 1e-5 in bf16 (both
+    sum in f32 in another order and round once)."""
+    rng = np.random.RandomState(12)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    for (b, h, w, c), res, sampling in (((2, 38, 76, 64), 14, 2),
+                                        ((1, 9, 13, 36), 7, 1),
+                                        ((2, 11, 7, 6), 7, 3),
+                                        ((1, 20, 30, 200), 7, 4),
+                                        ((2, 38, 19, 1024), 14, 2)):
+        n = 24
+        xy = rng.uniform(-200, 16 * max(h, w) + 100, (b, n, 2))
+        wh = rng.uniform(0.5, 16 * max(h, w) * 1.5, (b, n, 2))
+        wh[:, :6] = rng.uniform(0.2, 12, (b, 6, 2))         # below a pixel
+        xy[:, 6:9] = rng.uniform(-400, -300, (b, 3, 2))      # off the image
+        xy[:, 9:12] = -64.0                                  # larger than
+        wh[:, 9:12] = 16.0 * np.array([w, h]) + 128.0        # the map
+        rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                                .astype(np.float32)).to(cuda_device)
+        feats = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)
+                                 ).to(cuda_device, dt)
+        got = troi.roi_align_batched(feats, rois, 1 / 16, res,
+                                     sampling).float()
+        want = troi.roi_align_plain(feats, rois, 1 / 16, res,
+                                    sampling).float()
+        tol = 1e-5
+        if dt == torch.bfloat16:
+            tol = torch.ldexp(torch.ones_like(want), torch.frexp(
+                torch.maximum(got.abs(), want.abs())).exponent - 8) + 1e-5
+        assert bool(((got - want).abs() <= tol).all()), (h, w, c, res)
+
+
+def _nms_edge_cases(rng):
+    """Sorted boxes and counts that K3's tiles must get right: a
+    suppression chain across 64-row tiles, counts off the tiles, an image
+    with no valid box and one with one, and boxes whose IoU with the first
+    lies within a few ulps of the threshold."""
+    n = 300
+    x = 3.0 * np.arange(n, dtype=np.float32)
+    chain = np.stack([x, np.zeros(n, np.float32), x + 10.0,
+                      np.full(n, 10.0, np.float32)], -1) + 1.0
+    yield chain[None], np.array([n], np.int32), 0.5
+    boxes = np.stack([random_boxes(rng, 700, 300.0, 10.0) + 1.0
+                      for _ in range(4)])
+    yield boxes, np.array([131, 0, 1, 699], np.int32), 0.7
+    # IoU of box 0 (width 10) with box i (width w_i) is 10 / w_i
+    w = np.float32(10.0 / 0.7) * (1 + np.linspace(-2e-7, 2e-7, 63))
+    widths = np.concatenate([[10.0], w.astype(np.float32)])
+    near = np.stack([np.ones(64), np.ones(64), 1.0 + widths,
+                     np.full(64, 11.0)], -1).astype(np.float32)
+    yield near[None], np.array([64], np.int32), 0.7
+
+
+@pytest.mark.cuda
+def test_nms_edge_cases_on_card(cuda_device):
+    """K3 on the sorted boxes of ``_nms_edge_cases`` keeps what the plain
+    version keeps, half-open and inclusive widths."""
+    from coin_tpu_torch.kernels.nms import nms_sorted_cuda
+    rng = np.random.RandomState(13)
+    for boxes, counts, thr in _nms_edge_cases(rng):
+        sb = torch.from_numpy(boxes).to(cuda_device)
+        cnt = torch.from_numpy(counts).to(cuda_device)
+        for plus1 in (False, True):
+            got = nms_sorted_cuda(sb, cnt, thr, plus1)
+            want = tnms.nms_sorted_plain(sb.cpu(), cnt.cpu(), thr, plus1)
+            assert torch.equal(got.cpu(), want), (boxes.shape, plus1)
+
+
 def _s8(rng, shape, dev, lo=-127, hi=128):
     return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int8)).to(dev)
 

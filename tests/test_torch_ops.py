@@ -1,12 +1,13 @@
 """Parity of coin_tpu_torch's ops with the JAX package's on the CPU: box
-algebra, greedy NMS (K3's plain version), RoIAlign (K1's) and input
-normalisation (K4n's), plus the import guard and the kernel-or-raise
-contract of the CUDA launchers. The kernels themselves are held to these
-plain versions on the card by tests/test_torch_kernels_cuda.py.
+algebra, greedy NMS (K3's plain version, and its division-free IoU test
+against the quotient's), RoIAlign (K1's) and input normalisation (K4n's),
+plus the import guard and the kernel-or-raise contract of the CUDA
+launchers. The kernels themselves are held to these plain versions on the
+card by tests/test_torch_kernels_cuda.py.
 
 Tolerances: box ops, RoIAlign and normalisation agree to rtol = atol =
 1e-5 in f32 (the same arithmetic, summed in another order); NMS keep
-masks are equal.
+masks and the IoU test's verdicts are equal.
 """
 
 import os
@@ -64,12 +65,35 @@ def test_box_ops_match_jax(rng, fn):
 
 # ------------------------------------------------------------------- NMS
 def _nms_case(rng, case):
-    n = {"large": 600}.get(case, 80)
+    """(boxes, scores, valid, classes, plus1) of one image, or of a batch
+    of two images where the case is about one image beside another."""
+    if case in ("empty_in_batch", "one_in_batch"):
+        # an image with no valid box, or with one, beside a random image
+        cases = [_nms_case(rng, "random") for _ in range(2)]
+        boxes, scores, valid = (np.stack([c[i] for c in cases])
+                                for i in range(3))
+        valid[1] = False
+        if case == "one_in_batch":
+            valid[1, 17] = True
+        return boxes, scores, valid, None, False
+    if case == "chain":
+        # box k overlaps box k + 1 above the threshold (IoU 7/13) and box
+        # k + 2 below it (4/16), in score order across 64-row tiles: box k
+        # removes box k + 1, which, removed, must not remove box k + 2
+        n = 200
+        x = 3.0 * np.arange(n, dtype=np.float32)
+        boxes = np.stack([x, np.zeros(n, np.float32), x + 10.0,
+                          np.full(n, 10.0, np.float32)], -1)
+        scores = np.linspace(1.0, 0.1, n).astype(np.float32)
+        return boxes, scores, np.ones(n, bool), None, False
+    n = {"large": 600, "ragged": 131}.get(case, 80)
     boxes = random_boxes(rng, n, size=60.0, min_wh=10.0)
     scores = rng.uniform(0, 1, n).astype(np.float32)
     valid = np.ones(n, bool)
     classes = None
     plus1 = case == "plus1"
+    if case == "ragged":
+        valid[[5, 77]] = False           # 129 valid rows: past two tiles
     if case == "ties":
         scores = np.round(scores * 4) / 4          # many equal scores
         boxes[10:20] = boxes[0]                    # identical boxes
@@ -85,14 +109,19 @@ def _nms_case(rng, case):
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "invalid", "degenerate",
-                                  "classes", "plus1", "large"])
+                                  "classes", "plus1", "large", "chain",
+                                  "ragged", "empty_in_batch", "one_in_batch"])
 def test_nms_keep_mask_matches_jax(rng, case):
     boxes, scores, valid, classes, plus1 = _nms_case(rng, case)
     thr = 0.5
-    want = np.asarray(jnms.nms_keep_mask(
-        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), thr,
+    # JAX's nms_keep_mask takes one image
+    want = np.stack([np.asarray(jnms.nms_keep_mask(
+        jnp.asarray(b), jnp.asarray(s), jnp.asarray(v), thr,
         classes=None if classes is None else jnp.asarray(classes),
-        plus1=plus1))
+        plus1=plus1)) for b, s, v in zip(boxes.reshape(-1, *boxes.shape[-2:]),
+                                          scores.reshape(-1, scores.shape[-1]),
+                                          valid.reshape(-1, valid.shape[-1]))
+    ]).reshape(valid.shape)
     got = tnms.nms_keep_mask(
         torch.from_numpy(boxes), torch.from_numpy(scores),
         torch.from_numpy(valid), thr,
@@ -119,6 +148,51 @@ def test_nms_keep_mask_batched_equals_per_image(rng):
             jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
             jnp.asarray(valid[i]), 0.6, classes=jnp.asarray(classes[i])))
         np.testing.assert_array_equal(got[i], want)
+
+
+def _near_threshold_pairs(rng, thr):
+    """(inter, union) f32 pairs whose quotient lies around ``thr``: random
+    pairs, pairs within two ulps of the rounding boundary above thr, unions
+    of 0 and below, and unions outside the range where the test decides
+    without the division."""
+    n = 100000
+    inter = rng.uniform(0, 100, n).astype(np.float32)
+    union = (inter + rng.uniform(0, 100, n)).astype(np.float32)
+    u = rng.uniform(1.0, 1e6, 4000).astype(np.float32)
+    h = tnms.threshold_split(thr)[1]
+    mid = (np.float64(np.float32(thr)) + h) * u.astype(np.float64)
+    near = mid.astype(np.float32)
+    steps = [near]
+    for _ in range(2):
+        steps = ([np.nextafter(steps[0], np.float32(0))] + steps
+                 + [np.nextafter(steps[-1], np.float32(np.inf))])
+    inter = np.concatenate([inter] + steps + [
+        np.float32([0.0, 3.0, 2.0, 1e-36, 7e-36, 7e30, 0.7e31])])
+    union = np.concatenate([union] + [u] * len(steps) + [
+        np.float32([0.0, 0.0, -4.0, 1e-35, 1e-35, 1e31, 1e31])])
+    return torch.from_numpy(inter), torch.from_numpy(union)
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.6, 0.7])
+def test_nms_division_free_iou_test_equals_the_quotient(rng, thr):
+    """K3's IoU test without the division (``iou_decides``, the kernel's
+    ``suppresses`` in PyTorch) against ``inter / union > thr`` rounded as
+    the plain version rounds it: identical over 10**5 random pairs, pairs
+    on the rounding boundary of the threshold and unions outside the range
+    where it decides, which take the division; it decides every pair with
+    a union in that range."""
+    inter, union = _near_threshold_pairs(rng, thr)
+    want = torch.where(union > 0, inter / union,
+                       torch.zeros_like(inter)) > np.float32(thr)
+    assert torch.equal(tnms.iou_exceeds(inter, union, thr), want)
+    decided, verdict = tnms.iou_decides(inter, union, thr)
+    in_range = (union >= tnms.threshold_split(thr)[2]) & (union <= 2.0 ** 100)
+    assert torch.equal(decided, in_range)
+    assert torch.equal(verdict[decided & (union > 0)],
+                       want[decided & (union > 0)])
+    boundary = slice(100000, len(inter) - 7)
+    assert 0 < int(want[boundary].sum()) < len(inter) - 100007
+    assert not bool(decided[-4:].any())
 
 
 # -------------------------------------------------------------- RoIAlign
@@ -148,6 +222,38 @@ def test_roi_align_batched_matches_jax(rng):
                                  torch.from_numpy(rois), 1.0 / 16.0, 7,
                                  2).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("case", ["below_one_pixel", "larger_than_map",
+                                  "off_the_image"])
+def test_roi_align_footprints_match_jax(rng, case):
+    """K1's plain version against JAX's roi_align_batched in f32 at the
+    RoIs that bound the kernel's per-RoI walk: RoIs narrower than one
+    feature pixel (every cell's samples on the same two or three taps),
+    RoIs larger than the map (the samples past its edges weigh 0 or clamp)
+    and RoIs wholly off the image (every sample weighs 0), each mixed with
+    ordinary RoIs, at 1, 2 and 3 samples; the forward's twin of
+    test_torch_train_ops.py::test_roi_align_backward_footprints_match_jax_vjp."""
+    h, w = 11, 17
+    rois = np.stack([random_boxes(rng, 6, size=16.0 * w, max_wh=120.0)
+                     for _ in range(2)])
+    if case == "below_one_pixel":
+        rois[:, :4, 2:] = rois[:, :4, :2] + rng.uniform(0.3, 14.0, (2, 4, 2))
+    elif case == "larger_than_map":
+        rois[:, 0] = [-50.0, -40.0, 16.0 * w + 60, 16.0 * h + 30]
+        rois[:, 1] = [-300.0, 20.0, 16.0 * w + 400, 16.0 * h + 250]
+    else:
+        rois[:, 0] = [-400.0, -300.0, -100.0, -60.0]
+        rois[:, 1] = [16.0 * w + 40, 16.0 * h + 40, 16.0 * w + 200,
+                      16.0 * h + 90]
+    feats = rng.randn(2, h, w, 8).astype(np.float32)
+    for sampling in (1, 2, 3):
+        want = np.asarray(jroi.roi_align_batched(
+            jnp.asarray(feats), jnp.asarray(rois), 1 / 16, 7, sampling))
+        got = troi.roi_align_batched(torch.from_numpy(feats),
+                                     torch.from_numpy(rois), 1 / 16, 7,
+                                     sampling).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
 
 
 # ------------------------------------------------------------- normalise

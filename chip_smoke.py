@@ -25,9 +25,12 @@
    quantiser also writes K2 wgrad's layout at every res5 shape (byte for
    byte) and quantises both weights of each res5 conv in one launch, and
    the sum of its launches over one res5 forward and backward is timed
-   from CUDA-graph replays. K1 and K1b are also timed on the RoIs of the
-   trainer path's first cached step (phase 8), and K1 on the teacher's 4 x
-   512 proposals of its first collection batch, recorded as it runs. K3
+   from CUDA-graph replays. K1, K1b and K5b are also timed on the RoIs of
+   the trainer path's first cached step (phase 8), and K1 on the teacher's
+   4 x 512 proposals of its first collection batch, recorded as it runs.
+   K4 runs with both views (every gate on; mixed gates), with the strong
+   view alone (the cached flavours' call) and on an odd canvas, its device
+   time from CUDA-graph replays apart from the host's launch. K3
    runs at eval's 4 x 6000 RPN boxes, the trainer's 3 x 6000, the
    teacher's 4 x 3000 and the box head's 4 x 1024, with the split between
    its two launches (the mask and the sweep) and the time of the sorts and
@@ -540,6 +543,51 @@ def k1b_on_trainer_rois(torch, dev, rec):
                 trainer_rois=list(rois.shape))
 
 
+def k5b_on_trainer_rois(torch, dev, rec):
+    """K5b on the RoIs of the trainer path's first cached step (recorded by
+    ``record_first_call`` for K1b) with a random gradient of that step's
+    shape: within 1e-5 of the largest |d feature| of the plain version in
+    f32 and 2**-7 in bf16, timed in the step's dtype beside K1b."""
+    from coin_tpu_torch.kernels.roi_align import (
+        roi_align_backward_cuda, roi_align_int8_backward_cuda)
+    from coin_tpu_torch.ops.roi_align import roi_align_int8_backward_plain
+    check(bool(rec), "the trainer path ran no RoIAlign backward")
+    rois = rec["rois"]
+    shape, _, *args = rec["args"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    g = torch.randn(rec["grad_shape"], generator=gen, device=dev).to(
+        rec["grad_dtype"])
+    errs = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        got = roi_align_int8_backward_cuda(g, rois, shape, dt, *args).float()
+        want = roi_align_int8_backward_plain(g, rois, shape, dt,
+                                             *args).float()
+        errs[str(dt)] = (got - want).abs().max().item() \
+            / want.abs().max().item()
+        check(errs[str(dt)] <= tol, f"roi_align_int8_bwd on the trainer's "
+              f"RoIs {dt}: {errs[str(dt)]} of the largest entry > {tol}")
+        del got, want
+    dt = rec["grad_dtype"]
+    ms = time_ms(torch, lambda: roi_align_int8_backward_cuda(
+        g, rois, shape, dt, *args))
+    k1b_ms = time_ms(torch, lambda: roi_align_backward_cuda(
+        g, rois, shape, dt, *args))
+    plain_ms = time_ms(torch, lambda: roi_align_int8_backward_plain(
+        g, rois, shape, dt, *args), iters=2, warmup=1)
+    n = g.numel()
+    b_ms, _ = bound(n * g.element_size() + rois.numel() * 4
+                    + g.element_size() * math.prod(shape), n * 4 * 2 * 2)
+    print(f"[K5b roi_align_int8_bwd, the trainer's RoIs] grad "
+          f"{tuple(g.shape)} {dt}, rois {tuple(rois.shape)} -> "
+          f"{tuple(shape)}: error / largest entry {json.dumps(errs)} (tol "
+          f"1e-5 f32, 2**-7 bf16); {ms:.4f} ms, K1b {k1b_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms (bytes)")
+    return dict(trainer_ms=ms, trainer_k1b_ms=k1b_ms,
+                trainer_plain_ms=plain_ms, trainer_bound_ms=b_ms,
+                trainer_max_abs_err=max(errs.values()),
+                trainer_rois=list(rois.shape))
+
+
 def phase_roi_align_int8(torch, dev, gen):
     """K5 at the student's shapes (3 images of res4 38 x 76 x 1024 bf16,
     512 + 64 RoIs each: 1728 crops), the teacher's (4 images, 512
@@ -728,46 +776,82 @@ def _augment_draws(torch, gen, gates):
     return torch.cat([on, lo + u * (hi - lo)], 1)
 
 
+def host_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median host time of one call of ``fn`` (its launches enqueued, the
+    card not waited for), each call after a synchronize."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_augment(torch, dev, gen):
+    """K4 at the training path's batch of 3 on the 608 x 1216 canvas: both
+    views with every gate on and with mixed gates (the live step's call),
+    the strong view alone (the cached flavours' call), and an odd canvas
+    (H and W off the 16 x 64 tiles, rows off 16 bytes) with mixed gates;
+    each within 1e-5 of the plain version. Device time from CUDA-graph
+    replays, apart from the host's time to launch one call and from CUDA
+    events around each call."""
     from coin_tpu_torch.data.augment import (CLIP_MEAN, CLIP_STD,
                                              augment_params,
                                              preprocess_plain)
     from coin_tpu_torch.kernels.augment import augment_cuda
-    # training path: the batch of 3 on the 608x1216 canvas
-    cells = torch.randint(0, 256, (3, 38, 76, 3), generator=gen,
-                          dtype=torch.uint8)
-    noise = torch.randint(0, 32, (3, 608, 1216, 3), generator=gen,
-                          dtype=torch.uint8)
-    images = (cells.repeat_interleave(16, 1).repeat_interleave(16, 2) // 2
-              + noise).to(dev)
-    cases = {"all_on": [[1, 1, 1, 1]] * 3,
-             "mixed": [[1, 0, 1, 0], [0, 1, 0, 1], [1, 1, 0, 1]]}
+
+    def blocky(hw):
+        cells = torch.randint(0, 256, (3, hw[0] // 16 + 1, hw[1] // 16 + 1,
+                                       3), generator=gen, dtype=torch.uint8)
+        noise = torch.randint(0, 32, (3,) + hw + (3,), generator=gen,
+                              dtype=torch.uint8)
+        big = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+        return (big[:, :hw[0], :hw[1]] // 2 + noise).to(dev)
+    train = blocky((608, 1216))
+    mixed = [[1, 0, 1, 0], [0, 1, 0, 1], [1, 1, 0, 1]]
+    cases = (("all_on", train, [[1, 1, 1, 1]] * 3, True),
+             ("mixed", train, mixed, True),
+             ("strong_only", train, mixed, False),
+             ("odd", blocky((605, 1211)), mixed, True))
     out = {}
-    for label, gates in cases.items():
+    for label, images, gates, weak in cases:
         params = augment_params(_augment_draws(torch, gen, gates).to(dev))
-        got = augment_cuda(images, params, CLIP_MEAN, CLIP_STD)
-        want = preprocess_plain(images, params)
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        call = lambda: augment_cuda(images, params, CLIP_MEAN, CLIP_STD,
+                                    weak)
+        got = call()
+        want = preprocess_plain(images, params, weak)
+        check(got[1] is None if not weak else got[1] is not None,
+              f"augment {label}: the weak view is {got[1]}")
+        err = max((a - b).abs().max().item() for a, b in zip(got, want)
+                  if a is not None)
         check(err <= 1e-5, f"augment {label}: max abs err {err} > 1e-5")
-        ms = time_ms(torch, lambda: augment_cuda(images, params, CLIP_MEAN,
-                                                 CLIP_STD))
-        plain_ms = time_ms(torch, lambda: preprocess_plain(images, params),
+        ms = graph_ms(torch, call)
+        call_ms = time_ms(torch, call)
+        launch_ms = host_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: preprocess_plain(images, params,
+                                                           weak),
                            iters=5, warmup=1)
         n = images.numel()
         on = torch.tensor(gates).sum(0).tolist()
         # operations the function needs per channel value with these
         # gates: jitter ~20, gray 5, the two 9-tap passes 36, solarize and
-        # the two normalisations 6 (the kernel's recomputation of the
-        # jitter for every tap row is its own cost, not the function's)
-        per = [20 * gates[i][0] + 5 * gates[i][1] + 36 * gates[i][2] + 6
-               for i in range(len(gates))]
+        # the normalisations 3 per view
+        per = [20 * gates[i][0] + 5 * gates[i][1] + 36 * gates[i][2]
+               + 3 * (2 if weak else 1) for i in range(len(gates))]
         flops = n / len(gates) * sum(per)
-        b_ms, b_by = bound(n + 2 * 4 * n, flops)
-        print(f"[K4 augment {label}] {tuple(images.shape)} u8 -> 2 x f32, "
-              f"gates on per (jitter, gray, blur, solarize) {on}: max abs "
-              f"err {err:.3g} (tol 1e-5); {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        b_ms, b_by = bound(n + (2 if weak else 1) * 4 * n, flops)
+        print(f"[K4 augment {label}] {tuple(images.shape)} u8 -> "
+              f"{'2 x' if weak else 'strong'} f32, gates on per (jitter, "
+              f"gray, blur, solarize) {on}: max abs err {err:.3g} (tol "
+              f"1e-5); device {ms:.4f} ms (graph replays), events around "
+              f"each call {call_ms:.4f} ms, host launch {launch_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
         out[label] = dict(case=label, max_abs_err=err, ms=ms,
+                          call_ms=call_ms, host_ms=launch_ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     a = out["all_on"]
     return dict(name="augment", route="cuda",
@@ -3531,6 +3615,8 @@ def main() -> int:
     with torch.inference_mode():
         next(k for k in kernels if k["name"] == "roi_align_bwd").update(
             k1b_on_trainer_rois(torch, dev, rec))
+        next(k for k in kernels if k["name"] == "roi_align_int8_bwd").update(
+            k5b_on_trainer_rois(torch, dev, rec))
         k1 = next(k for k in kernels if k["name"] == "roi_align")
         k1.update(k1_on_recorded_rois(torch, dev, rec_fwd, "trainer",
                                       SEED + 14))

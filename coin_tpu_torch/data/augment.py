@@ -101,14 +101,16 @@ def _shifted_sum(x: torch.Tensor, taps: torch.Tensor, dim: int):
     return out
 
 
-def preprocess_plain(images_u8: torch.Tensor, params: torch.Tensor):
+def preprocess_plain(images_u8: torch.Tensor, params: torch.Tensor,
+                     weak: bool = True):
     """Plain version of K4: uint8 (B, H, W, 3), params (B, 20) →
-    (strong, weak), each CLIP-normalised float32 (B, H, W, 3)."""
+    (strong, weak), each CLIP-normalised float32 (B, H, W, 3); weak is
+    None when ``weak`` is false."""
     dev = images_u8.device
     mean_c = torch.tensor(CLIP_MEAN, device=dev)
     std_c = torch.tensor(CLIP_STD, device=dev)
     img = _div(images_u8.float(), 255.0)
-    weak = _div(img - mean_c, std_c)
+    weak_view = _div(img - mean_c, std_c) if weak else None
     col = lambda i: params[:, i].reshape(-1, 1, 1, 1)
     on = lambda i: params[:, i].reshape(-1, 1, 1, 1) != 0
 
@@ -127,15 +129,18 @@ def preprocess_plain(images_u8: torch.Tensor, params: torch.Tensor):
     blurred = _shifted_sum(_shifted_sum(x, taps, 1), taps, 2)
     x = torch.where(on(2), blurred, x)
     x = torch.where(on(3) & (x >= 0.5), 1.0 - x, x)
-    return _div(x - mean_c, std_c), weak
+    return _div(x - mean_c, std_c), weak_view
 
 
-def preprocess_batch(images_u8: torch.Tensor, draws: torch.Tensor):
+def preprocess_batch(images_u8: torch.Tensor, draws: torch.Tensor,
+                     weak: bool = True):
     """uint8 (B, H, W, 3) and draws (B, 9) → (strong, weak) views, each
-    CLIP-normalised float32 (B, H, W, 3). The horizontal flip happens on
-    the host, in the loader, as in the JAX package."""
+    CLIP-normalised float32 (B, H, W, 3). With ``weak`` false the weak view
+    is not computed and comes back as None, as the compiled JAX step never
+    computes the view that its cached flavours drop. The horizontal flip
+    happens on the host, in the loader, as in the JAX package."""
     params = augment_params(draws.to(images_u8.device))
     if images_u8.is_cuda:
         from coin_tpu_torch.kernels.augment import augment_cuda
-        return augment_cuda(images_u8, params, CLIP_MEAN, CLIP_STD)
-    return preprocess_plain(images_u8, params)
+        return augment_cuda(images_u8, params, CLIP_MEAN, CLIP_STD, weak)
+    return preprocess_plain(images_u8, params, weak)

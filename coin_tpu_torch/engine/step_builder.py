@@ -233,7 +233,7 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
                           draws: Optional[StepDraws] = None):
         draws = draws or draws_for(state, images_u8, online_rcnn,
                                    offline.capacity)
-        strong, _ = preprocess_batch(images_u8, draws.augment)
+        strong, _ = preprocess_batch(images_u8, draws.augment, weak=False)
         mark("augment")
         return step_body(state, strong, image_hw, online_rcnn, online_rpn,
                          offline, False, draws)
@@ -243,7 +243,7 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
                               draws: Optional[StepDraws] = None):
         draws = draws or draws_for(state, images_u8, online_rcnn,
                                    offline.capacity)
-        strong, _ = preprocess_batch(images_u8, draws.augment)
+        strong, _ = preprocess_batch(images_u8, draws.augment, weak=False)
         mark("augment")
         step_two = ema(state)
         mark("teacher")

@@ -34,11 +34,33 @@ def _fn():
 
 def _bwd_fn():
     fn = library("roi_align_bwd").coin_roi_align_bwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _int8_fn():
+    fn = library("roi_align_int8").coin_roi_align_int8_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _int8_bwd_fn():
+    fn = library("roi_align_int8_bwd").coin_roi_align_int8_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -156,16 +178,11 @@ def roi_align_int8_cuda(features: torch.Tensor, rois: torch.Tensor,
     amax = torch.zeros((b, c), dtype=torch.int32, device=dev)
     q = torch.empty((b, h, w, c), dtype=torch.int8, device=dev)
     sf = torch.empty((b, c), dtype=torch.float32, device=dev)
-    fn = library("roi_align_int8").coin_roi_align_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(),
-             amax.data_ptr(), q.data_ptr(), sf.data_ptr(), b, h, w, c, b * n,
-             n, float(spatial_scale), resolution, sampling_ratio,
-             _DTYPES[features.dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = _int8_fn()(features.data_ptr(), rois.data_ptr(), out.data_ptr(),
+                     amax.data_ptr(), q.data_ptr(), sf.data_ptr(), b, h, w,
+                     c, b * n, n, float(spatial_scale), resolution,
+                     sampling_ratio, _DTYPES[features.dtype],
+                     torch.cuda.current_stream(dev).cuda_stream)
     check(err, "roi_align_int8")
     roi_align_int8_cuda.launches += 1
     return out
@@ -200,15 +217,10 @@ def roi_align_int8_backward_cuda(grad: torch.Tensor, rois: torch.Tensor,
                         device=grad.device)
     if b * n == 0:
         return dfeat.to(features_dtype)
-    fn = library("roi_align_int8_bwd").coin_roi_align_int8_bwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(grad.data_ptr(), rois.data_ptr(), dfeat.data_ptr(), h, w, c,
-             b * n, n, float(spatial_scale), resolution, sampling_ratio,
-             _DTYPES[features_dtype],
-             torch.cuda.current_stream(grad.device).cuda_stream)
+    err = _int8_bwd_fn()(grad.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
+                         h, w, c, b * n, n, float(spatial_scale), resolution,
+                         sampling_ratio, _DTYPES[features_dtype],
+                         torch.cuda.current_stream(grad.device).cuda_stream)
     check(err, "roi_align_int8_bwd")
     roi_align_int8_backward_cuda.launches += 1
     return dfeat.to(features_dtype)

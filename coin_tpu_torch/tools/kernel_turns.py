@@ -1,5 +1,6 @@
 """Time K2's quantisation work over one res5 forward and backward, K1b,
-the RoIAlign backward, K1, the RoIAlign forward, and K3, greedy NMS, in two
+the RoIAlign backward, K1, the RoIAlign forward, K3, greedy NMS, K4, the
+strong and weak views, and K5b, the int8 RoIAlign backward, in two
 checkouts of the port, in turns on one card (the other checkout, this one,
 this one, the other), so that a redesigned kernel is compared with the one
 it replaces in one run.
@@ -29,14 +30,20 @@ teacher's first collection batch (4 x 512) as ``chip_smoke.py
 --save-rois FILE`` saves them. K3 on sorted random boxes of 4-300 px on
 the 608 x 1216 canvas: eval's RPN (4 x 6000, IoU 0.7), the trainer's (3 x
 6000), the teacher's (4 x 3000) and the box head's 4 x 1024 (0.5), each
-with its two launches' device times from the profiler. K1, K1b and K3:
-the median of CUDA events around 20 calls. The card's name and power
-limit are in each line.
+with its two launches' device times from the profiler. K4 through each
+checkout's own ``augment_cuda`` on chip_smoke.py's batch (3 x 608 x 1216
+u8): both views with every gate on and with mixed gates, and the strong
+view alone where the checkout's launcher takes ``weak``; device time from
+CUDA-graph replays beside events around each call. K5b at K1b's random
+RoIs and, with ``--rois``, the trainer's. K1, K1b, K3 and K5b: the median
+of CUDA events around 20 calls. The card's name and power limit are in
+each line.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -177,6 +184,54 @@ def measure_k1_k3(torch, dev, rois_file):
     return out
 
 
+def measure_k4(torch, dev):
+    """K4 on a blocky batch of 3 on the 608 x 1216 canvas through the
+    checkout's own launcher (see the module's docstring)."""
+    from coin_tpu_torch.data.augment import (CLIP_MEAN, CLIP_STD,
+                                             augment_params)
+    from coin_tpu_torch.kernels.augment import augment_cuda
+    cpu = torch.Generator().manual_seed(SEED + 2)
+    cells = torch.randint(0, 256, (3, 38, 76, 3), generator=cpu,
+                          dtype=torch.uint8)
+    noise = torch.randint(0, 32, (3, 608, 1216, 3), generator=cpu,
+                          dtype=torch.uint8)
+    images = (cells.repeat_interleave(16, 1).repeat_interleave(16, 2) // 2
+              + noise).to(dev)
+    rest = 0.6 + torch.rand((3, 5), generator=cpu) \
+        * torch.tensor([0.8, 0.8, 0.8, 0.0, 1.4])
+    rest[:, 3] = 0.05
+    out = {}
+    cases = {"all_on": ([[1, 1, 1, 1]] * 3, True),
+             "mixed": ([[1, 0, 1, 0], [0, 1, 0, 1], [1, 1, 0, 1]], True)}
+    if "weak" in inspect.signature(augment_cuda).parameters:
+        cases["strong_only"] = (cases["mixed"][0], False)
+    for label, (gates, weak) in cases.items():
+        on = torch.where(torch.tensor(gates) != 0, 0.0, 0.99)
+        params = augment_params(torch.cat([on, rest], 1).to(dev))
+        kw = {} if weak else {"weak": False}
+
+        def call():
+            return augment_cuda(images, params, CLIP_MEAN, CLIP_STD, **kw)
+        out[f"k4_{label}_ms"] = graph_ms(torch, call)
+        out[f"k4_{label}_events_ms"] = events_ms(torch, call)
+    return out
+
+
+def measure_k5b(torch, dev, rois, grad, rois_file):
+    """K5b at K1b's random RoIs and the trainer's (see the module's
+    docstring)."""
+    from coin_tpu_torch.kernels.roi_align import roi_align_int8_backward_cuda
+    args = ((3, 38, 76, 1024), torch.bfloat16, 1.0 / 16.0, 14, 2)
+    out = {"k5b_ms": events_ms(torch, lambda: roi_align_int8_backward_cuda(
+        grad, rois, *args))}
+    if rois_file:
+        r = torch.load(rois_file)["trainer"].to(dev, torch.float32)
+        g = grad[:, :r.shape[1]]           # the trainer's 3 x 576 RoIs
+        out["k5b_trainer_ms"] = events_ms(
+            torch, lambda: roi_align_int8_backward_cuda(g, r, *args))
+    return out
+
+
 def quant_step(kq, x, w, g, k):
     """One conv's quantisation work of mode 1, with either quantiser."""
     if hasattr(kq, "quantize_weight_pair_cuda"):
@@ -240,11 +295,13 @@ def measure(rois_file=None) -> dict:
     args = ((3, 38, 76, 1024), bf16, 1.0 / 16.0, 14, 2)
     k1b_ms = events_ms(torch, lambda: roi_align_backward_cuda(grad, rois,
                                                               *args))
+    k5b = measure_k5b(torch, dev, rois, grad, rois_file)
     del grad
     torch.cuda.empty_cache()
     return dict(tree=os.getcwd(), card=smi, quant_step_ms=total,
                 quant_step_device_ops=ops, quant_cases=cases,
-                quant_res5_input_ms=input_ms, k1b_ms=k1b_ms,
+                quant_res5_input_ms=input_ms, k1b_ms=k1b_ms, **k5b,
+                **measure_k4(torch, dev),
                 **measure_k1_k3(torch, dev, rois_file))
 
 
@@ -254,8 +311,9 @@ def main() -> None:
     ap.add_argument("--turns", type=int, default=4)
     ap.add_argument("--measure", action="store_true",
                     help="measure the checkout in the working directory")
-    ap.add_argument("--rois", help="K1's trainer and teacher RoIs, as "
-                    "chip_smoke.py --save-rois writes them")
+    ap.add_argument("--rois", help="K1's trainer and teacher RoIs (K5b "
+                    "takes the trainer's), as chip_smoke.py --save-rois "
+                    "writes them")
     a = ap.parse_args()
     if a.measure:
         print(json.dumps(measure(a.rois)))
@@ -279,8 +337,11 @@ def main() -> None:
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    keys = [k for k in runs[0] if k.endswith("_ms") or k.endswith("_ops")]
-    print(json.dumps({side: {k: [r[k] for r in runs if r["tree"] == tree]
+    # every key of either checkout (one may time a case the other lacks)
+    keys = [k for k in dict.fromkeys(k for r in runs for k in r)
+            if k.endswith("_ms") or k.endswith("_ops")]
+    print(json.dumps({side: {k: [r[k] for r in runs
+                                 if r["tree"] == tree and k in r]
                              for k in keys}
                       for side, tree in (("other", other), ("this", here))}))
 

@@ -21,6 +21,7 @@ import torch
 
 from coin_tpu.data import augment as jaug
 from coin_tpu_torch.data import augment as taug
+from coin_tpu_torch.engine import step_builder as tsb
 from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -103,3 +104,56 @@ def test_draw_augment_ranges():
     assert bool(((d >= lo) & (d < hi)).all())
     on = (d[:, :4] < torch.tensor(taug.GATE_P)).float().mean(0)
     np.testing.assert_allclose(on.numpy(), taug.GATE_P, atol=0.03)
+
+
+def test_strong_only_matches_both_views_and_jax(rng):
+    """``weak=False`` gives the default call's strong view bit for bit and
+    JAX's strong view, and no weak view."""
+    images = _images(rng, b=4)
+    key = jax.random.key(11)
+    want_s, _ = jaug.preprocess_batch(jnp.asarray(images), key)
+    draws = torch.from_numpy(jax_augment_draws(key, 4))
+    both_s, _ = taug.preprocess_batch(torch.from_numpy(images), draws)
+    only_s, weak = taug.preprocess_batch(torch.from_numpy(images), draws,
+                                         weak=False)
+    assert weak is None and torch.equal(only_s, both_s)
+    np.testing.assert_allclose(only_s.numpy(), np.asarray(want_s), **TOL)
+
+
+def test_cached_steps_skip_the_weak_view(monkeypatch):
+    """The live step asks ``preprocess_batch`` for both views; the cached
+    flavours, which drop the weak view as the JAX steps do, for the strong
+    view alone."""
+    asked = []
+
+    class Stop(Exception):
+        pass
+
+    def recorder(images_u8, draws, weak=True):
+        asked.append(weak)
+        raise Stop
+
+    monkeypatch.setattr(tsb, "preprocess_batch", recorder)
+    steps = tsb.build_adaptation_steps(torch.zeros((2, 4), dtype=torch.long),
+                                       None, None, tsb.StepHyper(burn_up=1))
+    draws = tsb.StepDraws(augment=torch.zeros((1, 9)), rpn=None, roi=None)
+    images = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    for step, offline in zip(steps, ((), (None,), (None,))):
+        with pytest.raises(Stop):
+            step(None, images, None, None, None, *offline, draws=draws)
+    assert asked == [True, False, False]
+
+
+def test_augment_launcher_raises_on_cpu_tensors():
+    """K4's launcher refuses CPU tensors before it builds or launches
+    anything: only ``preprocess_batch`` takes the plain version, and only
+    for a CPU tensor."""
+    from coin_tpu_torch.kernels import build
+    from coin_tpu_torch.kernels.augment import augment_cuda
+    loaded = dict(build._libs)
+    images = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    params = taug.augment_params(torch.zeros((1, 9)))
+    for weak in (True, False):
+        with pytest.raises(ValueError, match="CUDA"):
+            augment_cuda(images, params, taug.CLIP_MEAN, taug.CLIP_STD, weak)
+    assert build._libs == loaded

@@ -230,6 +230,74 @@ def test_roi_align_footprints_on_card(cuda_device, dtype):
         assert bool(((got - want).abs() <= tol).all()), (h, w, c, res)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one", "three", "odd"])
+def test_augment_views_on_card(cuda_device, case):
+    """K4 against its plain version (1e-5: the canvas mean sums in another
+    order) for B = 1 and B = 3 at the training canvas and an odd canvas
+    (H and W off the 16 x 64 tiles and W * 3 off 16 bytes), over every
+    combination of the four gates; the strong-only call writes the strong
+    view of the two-view call bit for bit and no weak view."""
+    from coin_tpu_torch.kernels.augment import augment_cuda
+    rng = np.random.RandomState(21)
+    b, h, w = {"one": (1, 608, 1216), "three": (3, 608, 1216),
+               "odd": (3, 37, 53)}[case]
+    images = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3))
+                              .astype(np.uint8)).to(cuda_device)
+    gates = [[(i >> k) & 1 for k in range(4)] for i in range(16)]
+    for i in range(0, 16, b):
+        draws = _augment_draws(rng, (gates * 2)[i:i + b])
+        params = taug.augment_params(draws.to(cuda_device))
+        strong, weak = augment_cuda(images, params, taug.CLIP_MEAN,
+                                    taug.CLIP_STD)
+        want_s, want_w = taug.preprocess_plain(images, params)
+        torch.testing.assert_close(strong, want_s, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(weak, want_w, rtol=1e-5, atol=1e-5)
+        only, none = taug.preprocess_batch(images, draws, weak=False)
+        assert none is None and torch.equal(only, strong)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_roi_align_int8_backward_footprints_on_card(cuda_device, dtype):
+    """K5b's per-RoI footprints against the plain version, 1e-5 of the
+    largest |d features| in f32 and 2**-7 in bf16 (chip_smoke.py's
+    tolerances): RoIs below one feature pixel, larger than the map (more
+    footprint rows than one band), off the image, partly off it, and one
+    that reaches columns but no row; 1-4 samples, resolutions 7, 14 and 20
+    (the 8-channel chunks above 16), 1024 channels and 20 (the scalar
+    path)."""
+    from coin_tpu_torch.kernels.roi_align import roi_align_int8_backward_cuda
+    rng = np.random.RandomState(22)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    for (b, h, w, c), res, sampling in (((2, 38, 76, 1024), 14, 2),
+                                        ((2, 38, 19, 20), 14, 2),
+                                        ((1, 9, 13, 36), 7, 1),
+                                        ((2, 11, 7, 6), 14, 3),
+                                        ((1, 20, 30, 40), 7, 4),
+                                        ((1, 40, 12, 64), 20, 1)):
+        n = 24
+        xy = rng.uniform(-200, 16 * max(h, w) + 100, (b, n, 2))
+        wh = rng.uniform(0.5, 16 * max(h, w) * 1.5, (b, n, 2))
+        wh[:, :6] = rng.uniform(0.2, 12, (b, 6, 2))         # below a pixel
+        xy[:, 6:9] = rng.uniform(-400, -300, (b, 3, 2))      # off the image
+        xy[:, 9:12] = -64.0                                  # larger than
+        wh[:, 9:12] = 16.0 * np.array([w, h]) + 128.0        # the map
+        xy[:, 12] = [-30.0, 16.0 * h + 40.0]                 # no row
+        wh[:, 12] = [40.0, 20.0]
+        rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                                .astype(np.float32)).to(cuda_device)
+        g = torch.from_numpy(rng.randn(b, n, res, res, c).astype(np.float32)
+                             ).to(cuda_device, dt)
+        got = roi_align_int8_backward_cuda(g, rois, (b, h, w, c), dt,
+                                           1 / 16, res, sampling).float()
+        want = troi.roi_align_int8_backward_plain(
+            g, rois, (b, h, w, c), dt, 1 / 16, res, sampling).float()
+        tol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (h, w, c, res, err)
+
+
 def _nms_edge_cases(rng):
     """Sorted boxes and counts that K3's tiles must get right: a
     suppression chain across 64-row tiles, counts off the tiles, an image

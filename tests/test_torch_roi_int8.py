@@ -168,3 +168,18 @@ def test_quant_roi_pool_boxes_matches_jax(rng):
                                 torch.from_numpy(rois)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert tmodel.clone(quant_convs=True).quant_roi and not shared.quant_roi
+
+
+def test_k5b_launcher_raises_on_cpu_tensors():
+    """K5b's launcher refuses CPU tensors before it builds or launches
+    anything: only the dispatch (``roi_align_int8_backward``) takes the
+    plain version, and only for a CPU tensor."""
+    from coin_tpu_torch.kernels import build
+    from coin_tpu_torch.kernels.roi_align import roi_align_int8_backward_cuda
+    loaded = dict(build._libs)
+    g = torch.zeros((1, 2, 7, 7, 8))
+    rois = torch.tensor([[[0.0, 0.0, 32.0, 32.0], [8.0, 8.0, 40.0, 24.0]]])
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_int8_backward_cuda(g, rois, (1, 4, 4, 8), torch.float32,
+                                     SCALE, 7, 2)
+    assert build._libs == loaded

@@ -25,8 +25,8 @@
    quantiser also writes K2 wgrad's layout at every res5 shape (byte for
    byte) and quantises both weights of each res5 conv in one launch, and
    the sum of its launches over one res5 forward and backward is timed
-   from CUDA-graph replays. K1, K1b and K5b are also timed on the RoIs of
-   the trainer path's first cached step (phase 8), and K1 on the teacher's
+   from CUDA-graph replays. K1, K1b, K5 and K5b are also timed on the RoIs
+   of the trainer path's first cached step (phase 8), and K1 on the teacher's
    4 x 512 proposals of its first collection batch, recorded as it runs.
    K4 runs with both views (every gate on; mixed gates), with the strong
    view alone (the cached flavours' call) and on an odd canvas, its device
@@ -136,6 +136,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12         # dense bf16 tensor-core operations
 INT8_OPS = 1979e12          # dense int8 tensor-core operations
+TF32_FLOPS = 494.7e12       # dense TF32 tensor-core operations
 
 
 class PhaseError(RuntimeError):
@@ -585,6 +586,48 @@ def k5b_on_trainer_rois(torch, dev, rec):
     return dict(trainer_ms=ms, trainer_k1b_ms=k1b_ms,
                 trainer_plain_ms=plain_ms, trainer_bound_ms=b_ms,
                 trainer_max_abs_err=max(errs.values()),
+                trainer_rois=list(rois.shape))
+
+
+def k5_on_trainer_rois(torch, dev, rec):
+    """K5 on the RoIs of the trainer path's first cached step (K1's call
+    recorded by ``record_first_call``) with random features of that call's
+    shape: bit for bit against the plain version in the call's dtype and in
+    f32 on the first image, timed beside K1."""
+    from coin_tpu_torch.kernels.roi_align import (roi_align_cuda,
+                                                  roi_align_int8_cuda)
+    from coin_tpu_torch.ops.roi_align import roi_align_int8_plain
+    check(bool(rec), "the trainer path ran no RoIAlign of the trainer")
+    rois = rec["rois"]
+    args = rec["args"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    feats = torch.randn(rec["grad_shape"], generator=gen, device=dev).to(
+        rec["grad_dtype"])
+    got = roi_align_int8_cuda(feats, rois, *args)
+    diff = int((got != roi_align_int8_plain(feats, rois, *args)).sum())
+    check(diff == 0, f"roi_align_int8 on the trainer's RoIs: {diff} values "
+          "differ")
+    f32 = feats[:1].float()
+    check(torch.equal(roi_align_int8_cuda(f32, rois[:1], *args),
+                      roi_align_int8_plain(f32, rois[:1], *args)),
+          "roi_align_int8 on the trainer's RoIs f32: values differ")
+    ms = time_ms(torch, lambda: roi_align_int8_cuda(feats, rois, *args))
+    k1_ms = time_ms(torch, lambda: roi_align_cuda(feats, rois, *args))
+    plain_ms = time_ms(torch, lambda: roi_align_int8_plain(
+        feats, rois, *args), iters=2, warmup=1)
+    es = feats.element_size()
+    b_ms, _ = bound(feats.numel() * es + rois.numel() * 4
+                    + got.numel() * es, got.numel() * 4 * 4 * 2 * 2,
+                    INT8_OPS)
+    side = (rois[..., 2:] - rois[..., :2]).float()
+    print(f"[K5 roi_align_int8, the trainer's RoIs] feats "
+          f"{tuple(feats.shape)} {feats.dtype}, rois {tuple(rois.shape)} "
+          f"(median side {side.median().item():.1f} px) -> "
+          f"{tuple(got.shape)}: bit for bit ({feats.dtype} and f32); "
+          f"{ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms (bytes)")
+    return dict(trainer_ms=ms, trainer_k1_ms=k1_ms,
+                trainer_plain_ms=plain_ms, trainer_bound_ms=b_ms,
                 trainer_rois=list(rois.shape))
 
 
@@ -2839,10 +2882,17 @@ def phase_deform_conv(torch, dev, gen):
     up to 3 pixels that put taps outside the map and a non-unit mask.
     Library: PyTorch has no modulated deformable conv (torchvision is
     absent), so none; as context only, cuDNN's dense f32 3x3 conv of the
-    same shape (not the same function). Bound: the operations,
-    2 x 9 x 256 x 256 per output position, on the f32 CUDA cores."""
+    same shape (not the same function). Bound: the operations that run,
+    three TF32 passes (3xTF32) of 2 x 9 x 256 x 256 per output position at
+    the dense TF32 peak, or the bytes if more; beside it the f32 bound on
+    the CUDA cores (``f32_bound_ms``, the basis of rows before the
+    tensor-core design) and the gather's reads. ``ms`` is the main path's
+    call, with the weights' TF32 split made once (as models/glip.py keeps
+    it); ``split_call_ms`` is a call that splits them itself, and
+    ``split_ms`` the split alone (events)."""
     from coin_tpu_torch.device import parity_numerics
-    from coin_tpu_torch.kernels.deform_conv import deform_conv_cuda
+    from coin_tpu_torch.kernels.deform_conv import (deform_conv_cuda,
+                                                    split_weights_cuda)
     from coin_tpu_torch.models import glip
     F = torch.nn.functional
     parity_numerics()
@@ -2850,6 +2900,10 @@ def phase_deform_conv(torch, dev, gen):
     kernel = (torch.randn((3, 3, c, c), generator=gen) / 48).to(dev)
     bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
     dense_w = kernel.permute(3, 2, 0, 1).contiguous()
+    split = split_weights_cuda(kernel)
+    # the split as Conv3x3Norm makes it, from its OIHW parameter
+    split_ms = time_ms(torch, lambda: split_weights_cuda(
+        dense_w.permute(2, 3, 1, 0)))
     cases, worst = [], 0.0
     for label, (h, w), stride, per_block in _deform_calls():
         ho, wo = -(-h // stride), -(-w // stride)
@@ -2858,16 +2912,22 @@ def phase_deform_conv(torch, dev, gen):
                    - 3).to(dev)
         mask = torch.sigmoid(torch.randn((4, ho, wo, 9),
                                          generator=gen)).to(dev)
-        got = deform_conv_cuda(x, offsets, mask, kernel, bias, stride)
+        got = deform_conv_cuda(x, offsets, mask, kernel, bias, stride, split)
         want = glip.deform_conv3x3_plain(x, offsets, mask, kernel, bias,
                                          stride)
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         check(err <= 1e-5 * scale, f"deform_conv {label}: max abs err {err} "
               f"> 1e-5 x max |out| {scale}")
+        check(torch.equal(got, deform_conv_cuda(x, offsets, mask, kernel,
+                                                bias, stride)),
+              f"deform_conv {label}: the call that splits its weights "
+              "differs from the one given the split")
         worst = max(worst, err)
         ms = time_ms(torch, lambda: deform_conv_cuda(x, offsets, mask, kernel,
-                                                     bias, stride))
+                                                     bias, stride, split))
+        split_call_ms = time_ms(torch, lambda: deform_conv_cuda(
+            x, offsets, mask, kernel, bias, stride))
         plain_ms = time_ms(torch, lambda: glip.deform_conv3x3_plain(
             x, offsets, mask, kernel, bias, stride), iters=3, warmup=1)
         xn = x.permute(0, 3, 1, 2)
@@ -2876,35 +2936,48 @@ def phase_deform_conv(torch, dev, gen):
         positions = 4 * ho * wo
         nbytes = 4 * (x.numel() + offsets.numel() + mask.numel()
                       + kernel.numel() + c + positions * c)
-        b_ms, b_by = bound(nbytes, 2 * 9 * c * c * positions)
+        flops = 2 * 9 * c * c * positions
+        # the arithmetic that runs: three TF32 passes on the tensor cores
+        b_ms, b_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+        f32_ms = bound(nbytes, flops)[0]
+        # the gather's reads, 4 corners of every sample (through L1)
+        gather_mb = 4 * 9 * c * 4 * positions / 1e6
         cases.append(dict(case=label, per_block=per_block, x=[4, h, w, c],
                           out=[4, ho, wo, c], max_abs_err=err,
                           max_abs_out=scale, ms=ms, plain_ms=plain_ms,
                           library_ms=None, dense_conv_ms=dense_ms,
-                          bound_ms=b_ms, bound_by=b_by))
+                          bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
+                          split_call_ms=split_call_ms, gather_mb=gather_mb))
         print(f"[K8 deform_conv] {label}: {positions} positions "
               f"(x{per_block} per block): max abs err {err:.3g} of max |out| "
-              f"{scale:.3g} (tol 1e-5 x max |out|); {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); cuDNN dense "
-              f"f32 3x3 conv of the same shape (not the same function) "
-              f"{dense_ms:.4f} ms")
+              f"{scale:.3g} (tol 1e-5 x max |out|); {ms:.4f} ms ("
+              f"{split_call_ms:.4f} splitting its weights), plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, 3xTF32), f32 "
+              f"bound {f32_ms:.4f} ms, gather reads {gather_mb:.1f} MB; "
+              f"cuDNN dense f32 3x3 conv of the same shape (not the same "
+              f"function) {dense_ms:.4f} ms")
         del x, offsets, mask, got, want, xn
     torch.cuda.empty_cache()
     blocks = GLIP["blocks"]
     tot = {k: blocks * sum(cs[k] * cs["per_block"] for cs in cases)
-           for k in ("ms", "plain_ms", "bound_ms", "dense_conv_ms")}
+           for k in ("ms", "plain_ms", "bound_ms", "dense_conv_ms",
+                     "f32_bound_ms", "split_call_ms", "gather_mb")}
     by = max(cases, key=lambda cs: cs["bound_ms"] * cs["per_block"])[
         "bound_by"]
     launches = sum(cs["per_block"] for cs in cases) * blocks
     print(f"[K8 deform_conv] one GLIP-L forward ({launches} launches): "
-          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
-          f"{tot['bound_ms']:.3f} ms ({by}); library: none (dense cuDNN f32 "
+          f"{tot['ms']:.3f} ms ({tot['split_call_ms']:.3f} with each call "
+          f"splitting its weights; the split alone {split_ms:.4f} ms), plain "
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms ({by}, "
+          f"3xTF32), f32 bound {tot['f32_bound_ms']:.3f} ms, gather reads "
+          f"{tot['gather_mb']:.0f} MB; library: none (dense cuDNN f32 "
           f"3x3 convs of the same shapes, as context: "
           f"{tot['dense_conv_ms']:.3f} ms)")
     return dict(name="deform_conv", route="cuda",
                 source="coin_tpu_torch/csrc/deform_conv.cu",
                 replaces="coin_tpu/models/glip.py:51", max_abs_err=worst,
-                library_ms=None, bound_by=by, cases=cases, **tot)
+                library_ms=None, bound_by=by, split_ms=split_ms, cases=cases,
+                **tot)
 
 
 def glip_checkpoint(torch):
@@ -3029,6 +3102,7 @@ def phase_glip_collect_path(torch, dev, sd, counters):
     from coin_tpu_torch.engine import collect as collect_mod
     from coin_tpu_torch.engine.cloud_factory import build_cloud_detector
     from coin_tpu_torch.engine.results_store import ResultStore
+    from coin_tpu_torch.kernels.deform_conv import split_weights_cuda
     from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
                                                       IMAGENET_STD)
     n_images = 8
@@ -3082,6 +3156,7 @@ def phase_glip_collect_path(torch, dev, sd, counters):
                   rcnn_thresh=ctc.RCNN_THRESH,
                   rpn_thresh=(ctc.RPN_THRESH if ctc.RPN_SEPARATE_COLLECT
                               else ctc.RCNN_THRESH), device=dev)
+        split_weights_cuda.launches = 0
         collect_mod.collect_cloud(det, loader, 8, **kw)        # warm-up
         for fn in counters:
             fn.launches = 0
@@ -3190,6 +3265,10 @@ def phase_glip_collect_path(torch, dev, sd, counters):
         check(launches["deform_conv_cuda"] == 13 * GLIP["blocks"] * 2,
               f"K8 launches {launches['deform_conv_cuda']}: expected 104 per "
               "forward, 2 batches")
+        check(split_weights_cuda.launches == 3 * GLIP["blocks"],
+              f"K8's weight split launched {split_weights_cuda.launches} "
+              f"times over 4 forwards: expected once per DyConv branch, "
+              f"{3 * GLIP['blocks']}")
         return launches, dict(ms_per_image=run_s * 1e3 / n_images,
                               batch_ms=batch_ms, stage_ms=stage_ms,
                               peak_gib=mem)
@@ -3622,6 +3701,8 @@ def main() -> int:
                                       SEED + 14))
         k1.update(k1_on_recorded_rois(torch, dev, rec_teacher, "teacher",
                                       SEED + 15))
+        next(k for k in kernels if k["name"] == "roi_align_int8").update(
+            k5_on_trainer_rois(torch, dev, rec_fwd))
     del rec, rec_fwd, rec_teacher
     torch.cuda.empty_cache()
     roi_launches, _ = phase_int8_roi_trainer_path(torch, dev, num_classes,

@@ -158,10 +158,14 @@ def roi_align_int8_cuda(features: torch.Tensor, rois: torch.Tensor,
                         spatial_scale: float, resolution: int,
                         sampling_ratio: int) -> torch.Tensor:
     """K5: features (B, H, W, C) f32/bf16 NHWC on a CUDA device, rois
-    (B, N, 4) f32 → (B, N, R, R, C) in the features' dtype, equal bit for
-    bit to ``roi_align_int8_plain``."""
+    (B, N, 4) f32, resolution × sampling ratio ≤ 32 (as K1) → (B, N, R, R,
+    C) in the features' dtype, equal bit for bit to
+    ``roi_align_int8_plain``."""
     _check_rois("roi_align_int8_cuda", features, rois, resolution,
                 sampling_ratio)
+    if resolution * sampling_ratio > 32:
+        raise ValueError(f"roi_align_int8_cuda: resolution {resolution} * "
+                         f"sampling ratio {sampling_ratio} > 32")
     if (features.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4
             or rois.shape[0] != features.shape[0]):
         raise ValueError(f"roi_align_int8_cuda: shapes "

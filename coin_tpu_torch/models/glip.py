@@ -95,11 +95,14 @@ def deform_conv3x3_plain(x: torch.Tensor, offsets: torch.Tensor,
 def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor,
                    mask: torch.Tensor, kernel: torch.Tensor,
                    bias: Optional[torch.Tensor],
-                   stride: int = 1) -> torch.Tensor:
-    """K8 on a CUDA tensor, its plain version on a CPU one."""
+                   stride: int = 1, split=None) -> torch.Tensor:
+    """K8 on a CUDA tensor, its plain version on a CPU one. ``split``:
+    the kernel's TF32 parts for K8, made once by the caller (see
+    :class:`Conv3x3Norm`), or None."""
     if x.is_cuda:
         from coin_tpu_torch.kernels.deform_conv import deform_conv_cuda
-        return deform_conv_cuda(x, offsets, mask, kernel, bias, stride)
+        return deform_conv_cuda(x, offsets, mask, kernel, bias, stride,
+                                split)
     return deform_conv3x3_plain(x, offsets, mask, kernel, bias, stride)
 
 
@@ -125,7 +128,9 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 class Conv3x3Norm(nn.Module):
     """One DyConv branch: K8 with its bias, then GroupNorm(16), in f32.
-    ``weight`` is OIHW, as the checkpoint stores it."""
+    ``weight`` is OIHW, as the checkpoint stores it. On the card the
+    weight's TF32 split is made at the first call and kept until the
+    weight moves or is written."""
 
     def __init__(self, cin: int = HIDDEN, channels: int = HIDDEN):
         super().__init__()
@@ -133,10 +138,22 @@ class Conv3x3Norm(nn.Module):
         nn.init.kaiming_normal_(self.weight)
         self.bias = nn.Parameter(torch.zeros(channels))
         self.gn = GroupNorm32(16, channels)
+        self._split = (None, None)      # (key, (hi, lo)) of K8's split
+
+    def _weight_split(self, kernel):
+        w = self.weight       # an inference tensor keeps no version
+        key = (w.data_ptr(), w.device,
+               None if w.is_inference() else w._version)
+        if self._split[0] != key:
+            from coin_tpu_torch.kernels.deform_conv import split_weights_cuda
+            self._split = (key, split_weights_cuda(kernel.detach()))
+        return self._split[1]
 
     def forward(self, x, offsets, mask, stride: int = 1):
-        y = deform_conv3x3(x.float(), offsets, mask,
-                           self.weight.permute(2, 3, 1, 0), self.bias, stride)
+        kernel = self.weight.permute(2, 3, 1, 0)
+        split = self._weight_split(kernel) if x.is_cuda else None
+        y = deform_conv3x3(x.float(), offsets, mask, kernel, self.bias,
+                           stride, split)
         return self.gn(y)
 
 

@@ -77,7 +77,9 @@ GROUPS = (
                       "quant_weight",
                       "window_attention_kernel", "ms_deform_kernel",
                       "fusion_nms_kernel", "deform_conv_kernel",
-                      "deform_conv_reduce", "roi_align_int8_kernel",
+                      "deform_conv_reduce", "split_weights_kernel",
+                      "roi_align_int8_kernel", "roi_int8_absmax_kernel",
+                      "roi_int8_quant_kernel",
                       "roi_align_int8_bwd_kernel", "self_cluster_kernel",
                       "resize_weights", "resize_rows", "resize_cols",
                       "normalize_flip_kernel")),

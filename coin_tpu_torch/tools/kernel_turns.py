@@ -1,12 +1,12 @@
 """Time K2's quantisation work over one res5 forward and backward, K1b,
 the RoIAlign backward, K1, the RoIAlign forward, K3, greedy NMS, K4, the
-strong and weak views, and K5b, the int8 RoIAlign backward, in two
-checkouts of the port, in turns on one card (the other checkout, this one,
-this one, the other), so that a redesigned kernel is compared with the one
-it replaces in one run.
+strong and weak views, K5, the int8 RoIAlign, K5b, its backward, and K8,
+the modulated deformable 3x3 conv, in two checkouts of the port, in turns
+on one card (the other checkout, this one, this one, the other), so that a
+redesigned kernel is compared with the one it replaces in one run.
 
     python -m coin_tpu_torch.tools.kernel_turns --other DIR [--turns 4]
-        [--rois FILE]
+        [--rois FILE] [--only quant k1b k5b k4 k1_k3 k5 k8]
 
 Each turn is a process started in one checkout, with that checkout's
 ``coin_tpu_torch`` first on the path, that runs this file's ``measure`` and
@@ -36,8 +36,12 @@ u8): both views with every gate on and with mixed gates, and the strong
 view alone where the checkout's launcher takes ``weak``; device time from
 CUDA-graph replays beside events around each call. K5b at K1b's random
 RoIs and, with ``--rois``, the trainer's. K1, K1b, K3 and K5b: the median
-of CUDA events around 20 calls. The card's name and power limit are in
-each line.
+of CUDA events around 20 calls. K5 at chip_smoke.py's random RoIs (3 x
+576, 4 x 512, transposed) and, with ``--rois``, the trainer's and the
+teacher's, and the student case's three launches apart from the profiler;
+K8 at GLIP-L's P3 call and over one GLIP-L forward (104 calls
+of 9 shapes); both device time from CUDA-graph replays. ``--only`` times
+some of these groups. The card's name and power limit are in each line.
 """
 
 from __future__ import annotations
@@ -232,6 +236,82 @@ def measure_k5b(torch, dev, rois, grad, rois_file):
     return out
 
 
+def measure_k5(torch, dev, rois_file):
+    """K5 on res4 of 38 x 76 x 1024 bf16: chip_smoke.py's random RoIs (3 x
+    576, 4 x 512, and 3 x 576 on the transposed map) and, with ``--rois``,
+    the trainer's and the teacher's; device time from CUDA-graph replays."""
+    from coin_tpu_torch.kernels.roi_align import roi_align_int8_cuda
+    cpu = torch.Generator().manual_seed(SEED + 3)
+    out = {}
+    feats = {hw: torch.randn((4,) + hw + (1024,), generator=cpu).to(
+        dev, torch.bfloat16) for hw in ((38, 76), (76, 38))}
+    cases = {}
+    for label, b, n, hw in (("student", 3, 576, (38, 76)),
+                            ("teacher", 4, 512, (38, 76)),
+                            ("transposed", 3, 576, (76, 38))):
+        xy = torch.rand((b, n, 2), generator=cpu) \
+            * torch.tensor([16.0 * hw[1], 16.0 * hw[0]])
+        wh = 2.0 + torch.rand((b, n, 2), generator=cpu) * 598.0
+        rois = torch.cat([xy, xy + wh], -1)
+        rois[:, :20] -= 40.0
+        cases[label] = (feats[hw][:b], rois.to(dev))
+    for label, r in (torch.load(rois_file) if rois_file else {}).items():
+        r = r.to(dev, torch.float32)
+        cases[f"{label}_rois"] = (feats[(38, 76)][:r.shape[0]], r)
+    for label, (f, r) in cases.items():
+        out[f"k5_{label}_ms"] = graph_ms(
+            torch, lambda: roi_align_int8_cuda(f, r, 1.0 / 16.0, 14, 2))
+    # the student case's launches apart (either checkout's kernel names
+    # hold these fragments): the abs-max, the s8 map, the RoI kernel
+    f, r = cases["student"]
+    for part, name in (("absmax", "absmax"), ("quant", "quant"),
+                       ("roi", "roi_align_int8_kernel")):
+        out[f"k5_student_{part}_ms"] = kernel_device_ms(
+            torch, lambda: roi_align_int8_cuda(f, r, 1.0 / 16.0, 14, 2),
+            name)
+    return out
+
+
+def measure_k8(torch, dev):
+    """K8 at GLIP-L's P3 call (4 x 76 x 152 x 256, stride 1) and over one
+    GLIP-L forward (each of chip_smoke._deform_calls' shapes as often as a
+    forward of 8 blocks calls it, in one graph); device time from CUDA-graph
+    replays. Where the checkout's K8 takes its weights' TF32 split, the
+    split is made once, as the GLIP module keeps it, and the forward is
+    also timed with every call splitting its own (``k8_forward_split_ms``)."""
+    from chip_smoke import GLIP, _deform_calls
+    import coin_tpu_torch.kernels.deform_conv as kd
+    cpu = torch.Generator().manual_seed(SEED + 4)
+    c = 256
+    kernel = (torch.randn((3, 3, c, c), generator=cpu) / 48).to(dev)
+    bias = (torch.randn(c, generator=cpu) * 0.1).to(dev)
+    split = (kd.split_weights_cuda(kernel),) if hasattr(
+        kd, "split_weights_cuda") else ()
+    calls = []
+    for label, (h, w), stride, per_block in _deform_calls():
+        ho, wo = -(-h // stride), -(-w // stride)
+        x = torch.randn((4, h, w, c), generator=cpu).to(dev)
+        offsets = (torch.rand((4, ho, wo, 18), generator=cpu) * 6 - 3).to(dev)
+        mask = torch.sigmoid(torch.randn((4, ho, wo, 9), generator=cpu)).to(
+            dev)
+        calls.append((label, per_block, (x, offsets, mask, kernel, bias,
+                                         stride)))
+    p3 = calls[0][2]
+    out = {"k8_p3_ms": graph_ms(torch, lambda: kd.deform_conv_cuda(
+        *p3, *split))}
+
+    def forward(extra=split):
+        for _, per_block, a in calls:
+            for _ in range(per_block):
+                kd.deform_conv_cuda(*a, *extra)
+    out["k8_forward_ms"] = GLIP["blocks"] * graph_ms(torch, forward,
+                                                     iters=2, reps=5)
+    if split:
+        out["k8_forward_split_ms"] = GLIP["blocks"] * graph_ms(
+            torch, lambda: forward(()), iters=2, reps=5)
+    return out
+
+
 def quant_step(kq, x, w, g, k):
     """One conv's quantisation work of mode 1, with either quantiser."""
     if hasattr(kq, "quantize_weight_pair_cuda"):
@@ -250,20 +330,41 @@ def quant_step(kq, x, w, g, k):
     return step
 
 
-def measure(rois_file=None) -> dict:
+GROUPS = ("quant", "k1b", "k5b", "k4", "k1_k3", "k5", "k8")
+
+
+def measure(rois_file=None, only=GROUPS) -> dict:
     import torch
-    from coin_tpu_torch.kernels import qconv as kq
-    from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA card")
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    out = dict(tree=os.getcwd(), card=smi)
+    if {"quant", "k1b", "k5b"} & set(only):
+        out.update(measure_quant_k1b_k5b(torch, dev, rois_file, only))
+    if "k4" in only:
+        out.update(measure_k4(torch, dev))
+    if "k1_k3" in only:
+        out.update(measure_k1_k3(torch, dev, rois_file))
+    if "k5" in only:
+        out.update(measure_k5(torch, dev, rois_file))
+    if "k8" in only:
+        out.update(measure_k8(torch, dev))
+    return out
+
+
+def measure_quant_k1b_k5b(torch, dev, rois_file, only) -> dict:
+    """K2's quantisation work over one res5 forward and backward, K1b and
+    K5b (see the module's docstring)."""
+    from coin_tpu_torch.kernels import qconv as kq
+    from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
+    out = {}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
     cases, total, ops = [], 0.0, 0
-    for h, ci, co, k, convs in RES5_SHAPES:
+    for h, ci, co, k, convs in RES5_SHAPES if "quant" in only else ():
         x = torch.randn((RES5_N, h, h, ci), generator=gen, device=dev,
                         dtype=bf16).relu_()
         g = (torch.randn((RES5_N, h, h, co), generator=gen, device=dev)
@@ -279,10 +380,13 @@ def measure(rois_file=None) -> dict:
         ops += n_ops * convs
         del x, g, w, step
         torch.cuda.empty_cache()
-    x = torch.randn((RES5_N, 14, 14, 1024), generator=gen, device=dev,
-                    dtype=bf16)
-    input_ms = graph_ms(torch, lambda: kq.quantize_cuda(x, False))
-    del x
+    if "quant" in only:
+        x = torch.randn((RES5_N, 14, 14, 1024), generator=gen, device=dev,
+                        dtype=bf16)
+        out.update(quant_step_ms=total, quant_step_device_ops=ops,
+                   quant_cases=cases, quant_res5_input_ms=graph_ms(
+                       torch, lambda: kq.quantize_cuda(x, False)))
+        del x
     # K1b at chip_smoke.phase_roi_align_bwd's shapes
     cpu = torch.Generator().manual_seed(SEED)
     xy = torch.rand((3, 576, 2), generator=cpu) * torch.tensor([1216., 608.])
@@ -293,16 +397,14 @@ def measure(rois_file=None) -> dict:
     grad = torch.randn((3, 576, 14, 14, 1024), generator=gen, device=dev,
                        dtype=bf16)
     args = ((3, 38, 76, 1024), bf16, 1.0 / 16.0, 14, 2)
-    k1b_ms = events_ms(torch, lambda: roi_align_backward_cuda(grad, rois,
-                                                              *args))
-    k5b = measure_k5b(torch, dev, rois, grad, rois_file)
+    if "k1b" in only:
+        out["k1b_ms"] = events_ms(torch, lambda: roi_align_backward_cuda(
+            grad, rois, *args))
+    if "k5b" in only:
+        out.update(measure_k5b(torch, dev, rois, grad, rois_file))
     del grad
     torch.cuda.empty_cache()
-    return dict(tree=os.getcwd(), card=smi, quant_step_ms=total,
-                quant_step_device_ops=ops, quant_cases=cases,
-                quant_res5_input_ms=input_ms, k1b_ms=k1b_ms, **k5b,
-                **measure_k4(torch, dev),
-                **measure_k1_k3(torch, dev, rois_file))
+    return out
 
 
 def main() -> None:
@@ -314,9 +416,11 @@ def main() -> None:
     ap.add_argument("--rois", help="K1's trainer and teacher RoIs (K5b "
                     "takes the trainer's), as chip_smoke.py --save-rois "
                     "writes them")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="the kernels to time (default: all)")
     a = ap.parse_args()
     if a.measure:
-        print(json.dumps(measure(a.rois)))
+        print(json.dumps(measure(a.rois, a.only)))
         return
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -326,7 +430,8 @@ def main() -> None:
     runs = []
     for tree in order:
         env = dict(os.environ, PYTHONPATH=tree)
-        cmd = [sys.executable, os.path.abspath(__file__), "--measure"]
+        cmd = [sys.executable, os.path.abspath(__file__), "--measure",
+               "--only", *a.only]
         if a.rois:
             cmd += ["--rois", os.path.abspath(a.rois)]
         out = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import clustered_boxes
+from chip_smoke import _deform_calls, clustered_boxes
 from coin_tpu_torch.data import augment as taug
 from coin_tpu_torch.ops import dedup as tdedup
 from coin_tpu_torch.ops import nms as tnms
@@ -625,6 +625,148 @@ def test_deform_conv_matches_plain_version_on_card(cuda_device, stride):
     assert err <= 1e-5 * float(want.abs().max()), err
     none = tglip.deform_conv3x3(x, offsets, mask, kernel, None, stride)
     torch.testing.assert_close(none + bias, got, rtol=1e-6, atol=1e-6)
+
+
+def _deform_inputs(rng, dev, b, h, w, stride, c=256):
+    ho, wo = -(-h // stride), -(-w // stride)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(rng.randn(b, h, w, c)), t(rng.uniform(-3, 3, (b, ho, wo, 18))),
+            t(1 / (1 + np.exp(-rng.randn(b, ho, wo, 9)))),
+            t(rng.randn(3, 3, c, c) / 48), t(rng.randn(c) * 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", _deform_calls(), ids=lambda c: c[0])
+def test_deform_conv_at_glip_call_shapes_on_card(cuda_device, call):
+    """K8 at each of GLIP-L's distinct call shapes in one VLDyHead block
+    (batch 4 on the 608 x 1216 canvas: stride 1 on P3-P7, stride 2 from the
+    finer level; every call but P3's splits its sum, kernels/deform_conv
+    ``splits_for``),
+    within 1e-5 of max |out| of the plain version with TF32 off."""
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.models import glip as tglip
+    parity_numerics()
+    _, (h, w), stride, _ = call
+    x, offsets, mask, kernel, bias = _deform_inputs(
+        np.random.RandomState(h * w + stride), cuda_device, 4, h, w, stride)
+    got = tglip.deform_conv3x3(x, offsets, mask, kernel, bias, stride)
+    want = tglip.deform_conv3x3_plain(x, offsets, mask, kernel, bias, stride)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["taps_outside", "zero_mask", "cout_128"])
+def test_deform_conv_edge_cases_on_card(cuda_device, case):
+    """K8 where every tap falls outside the map (offsets of 40-60 px: the
+    output is the bias), with a zero mask (the bias again), and at Cout =
+    128 (the 128-column tile), against the plain version within 1e-5 of max
+    |out|."""
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.models import glip as tglip
+    parity_numerics()
+    rng = np.random.RandomState(7)
+    x, offsets, mask, kernel, bias = _deform_inputs(rng, cuda_device, 2, 19,
+                                                    38, 1)
+    if case == "taps_outside":
+        offsets = (torch.sign(offsets) * (40 + 20 * offsets.abs() / 3))
+    elif case == "zero_mask":
+        mask = torch.zeros_like(mask)
+    else:
+        kernel, bias = kernel[..., :128].contiguous(), bias[:128]
+    got = tglip.deform_conv3x3(x, offsets, mask, kernel, bias, 1)
+    want = tglip.deform_conv3x3_plain(x, offsets, mask, kernel, bias, 1)
+    if case != "cout_128":
+        assert torch.equal(want, bias.expand_as(want))
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_deform_conv_weight_split_on_card(cuda_device):
+    """K8's weight split on the card equals its plain version bit for
+    bit."""
+    from coin_tpu_torch.kernels.deform_conv import (split_weights_cuda,
+                                                    split_weights_plain)
+    w = torch.from_numpy((np.random.RandomState(8).randn(3, 3, 64, 256)
+                          / 48).astype(np.float32))
+    got = split_weights_cuda(w.to(cuda_device))
+    for g, want in zip(got, split_weights_plain(w)):
+        assert torch.equal(g.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_glip_branch_splits_its_weights_once_on_card(cuda_device):
+    """A DyConv branch (models/glip.Conv3x3Norm) splits its K8 weights at
+    its first call on the card and keeps the split for the next, and
+    splits again once the weight is written; K8 within 1e-5 of max |out| of
+    the plain version, the branch's output that of K8 through its norm."""
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.kernels.deform_conv import split_weights_cuda
+    from coin_tpu_torch.models import glip as tglip
+    parity_numerics()
+    x, offsets, mask, _, _ = _deform_inputs(np.random.RandomState(9),
+                                            cuda_device, 2, 19, 38, 1)
+    branch = tglip.Conv3x3Norm().to(cuda_device)
+
+    def check():
+        got = tglip.deform_conv3x3(x, offsets, mask,
+                                   branch.weight.permute(2, 3, 1, 0),
+                                   branch.bias, 1,
+                                   branch._weight_split(
+                                       branch.weight.permute(2, 3, 1, 0)))
+        want = tglip.deform_conv3x3_plain(
+            x, offsets, mask, branch.weight.permute(2, 3, 1, 0),
+            branch.bias, 1)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+        assert torch.equal(branch(x, offsets, mask), branch.gn(got))
+    start = split_weights_cuda.launches
+    with torch.no_grad():
+        check()
+        check()
+        assert split_weights_cuda.launches == start + 1
+        branch.weight.mul_(-0.5)
+        check()
+        assert split_weights_cuda.launches == start + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_int8_footprints_on_card(cuda_device, dtype):
+    """K5 bit for bit against the plain version in both contraction orders:
+    RoIs partly outside the map, under one grid line wide, covering the
+    whole map and larger, off the image; 136 channels (off the 128-channel
+    slice), 12 and 20 (one channel a thread), 1024; resolutions 7, 14, 16
+    and 32, 1-4 samples."""
+    from coin_tpu_torch.kernels.roi_align import roi_align_int8_cuda
+    rng = np.random.RandomState(23)
+    for (b, h, w, c), res, sampling in (((2, 19, 38, 136), 14, 2),
+                                        ((2, 38, 19, 136), 14, 2),
+                                        ((2, 38, 76, 1024), 14, 2),
+                                        ((1, 9, 13, 12), 7, 4),
+                                        ((2, 11, 7, 20), 14, 2),
+                                        ((1, 20, 30, 40), 7, 3),
+                                        ((1, 40, 12, 64), 16, 2),
+                                        ((1, 12, 40, 24), 32, 1)):
+        n = 24
+        xy = rng.uniform(-100, 16 * max(h, w), (b, n, 2))
+        wh = rng.uniform(0.5, 16 * max(h, w), (b, n, 2))
+        wh[:, :6] = rng.uniform(0.2, 15, (b, 6, 2))          # < 1 line
+        xy[:, 6:9] = rng.uniform(-400, -300, (b, 3, 2))      # off the image
+        xy[:, 9:11] = -64.0                                  # larger than
+        wh[:, 9:11] = 16.0 * np.array([w, h]) + 128.0        # the map
+        xy[:, 11] = 0.0                                      # the whole map
+        wh[:, 11] = 16.0 * np.array([w, h])
+        xy[:, 12:15] = -20.0                                 # partly outside
+        rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                                .astype(np.float32)).to(cuda_device)
+        feats = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)
+                                 ).to(cuda_device, dtype)
+        got = roi_align_int8_cuda(feats, rois, 1 / 16, res, sampling)
+        want = troi.roi_align_int8_plain(feats, rois, 1 / 16, res, sampling)
+        assert torch.equal(got, want), (h, w, c, res, sampling)
 
 
 @pytest.mark.cuda

@@ -183,3 +183,53 @@ def test_k5b_launcher_raises_on_cpu_tensors():
         roi_align_int8_backward_cuda(g, rois, (1, 4, 4, 8), torch.float32,
                                      SCALE, 7, 2)
     assert build._libs == loaded
+
+
+def test_k5_integer_requantisation_equals_the_float_division():
+    """K5 requantises the first contraction's s32 sum t in integers,
+    sign(t) ((2 |t| + 127) div 254) clipped to 127
+    (csrc/roi_align_int8.cu ``requant``), where the JAX source and the
+    plain version compute clip(rint(f32(t) / 127), +-127): equal for every
+    |t| < 2**20, which holds the reachable |t| <= 129 x 127."""
+    t = np.arange(-(2 ** 20) + 1, 2 ** 20, dtype=np.int64)
+    want = np.clip(np.rint(t.astype(np.float32) / np.float32(127.0)),
+                   -127, 127).astype(np.int64)
+    got = np.sign(t) * np.minimum((2 * np.abs(t) + 127) // 254, 127)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        troi._requant(torch.from_numpy(t).double()).long().numpy(), want)
+    assert 129 * 127 < 2 ** 20
+
+
+def test_k8_weight_split_matches_numpy_mirror(rng):
+    """K8's weights split into TF32 parts (kernels/deform_conv
+    ``split_weights_plain``, the plain version of the kernel's split):
+    (3, 3, Cin, Cout) → (9, Cout, Cin), hi rounded to nearest with ties away
+    from zero onto 10 mantissa bits (its low 13 bits 0), lo = w − hi rounded
+    alike, against a numpy mirror of ``cvt.rna.tf32.f32``; hi + lo gives w
+    back within 2**-22 |w|. Ties and a value that rounds up into the next
+    binade are among the weights."""
+    from coin_tpu_torch.kernels.deform_conv import split_weights_plain
+    w = (rng.randn(3, 3, 32, 128) / 48).astype(np.float32)
+    bits = w.view(np.uint32)
+    bits[0, 0, 0, :4] = [0x3F801000, 0xBF803000, 0x3F800FFF, 0x3FFFF000]
+
+    def rna(a):
+        b = a.view(np.uint32).astype(np.uint64)
+        return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+    wt = w.reshape(9, 32, 128).transpose(0, 2, 1)
+    hi_want = rna(np.ascontiguousarray(wt))
+    lo_want = rna(wt - hi_want)
+    hi, lo = split_weights_plain(torch.from_numpy(w))
+    assert hi.shape == lo.shape == (9, 128, 32)
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32),
+                                  hi_want.view(np.uint32))
+    np.testing.assert_array_equal(lo.numpy().view(np.uint32),
+                                  lo_want.view(np.uint32))
+    assert not (hi.numpy().view(np.uint32) & 0x1FFF).any()
+    assert hi[0, 0, 0] == np.float32(1.0 + 2.0 ** -10)     # a tie, away
+    assert hi[0, 3, 0] == np.float32(2.0)                   # next binade
+    err = np.abs(wt.astype(np.float64) - hi.double().numpy()
+                 - lo.double().numpy())
+    assert (err <= 2.0 ** -22 * np.abs(wt)).all()

@@ -59,8 +59,12 @@ too (5.8e-3): the suite does not hold such a host. The op whose order
 moves is oneDNN's convolution: with ``torch.backends.mkldnn`` off, the
 port's f32 step is the same to the bit with and without the cap (its CKG
 then reads 2.7e-3 and 2.8e-3), while JAX's moves by at most 1.1e-6. The
-CKG checks name the host's instruction sets in their failure message
-(``_host_note``).
+bf16 reading under the cap comes from the reference: with oneDNN off, the
+port's bf16 step is the same to the bit with and without the cap, while
+JAX's bf16 step moves its CKG momentum by up to 1.02 of its largest entry
+(a oneDNN call inside XLA's CPU runtime, which ``--xla_cpu_use_onednn``
+does not turn off; tests/isa_probe.py). The CKG checks name the host's
+instruction sets in their failure message (``_host_note``).
 
 ``test_bf16_step_within_jax_own_bf16_gap`` holds the port to JAX's
 bf16 step as the JAX package runs it, compiled with XLA's defaults: the

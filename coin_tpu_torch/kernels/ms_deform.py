@@ -8,6 +8,7 @@ the plain PyTorch version and ``MSDeformAttention`` are in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,6 +17,7 @@ from coin_tpu_torch.kernels.build import check, library
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@functools.cache
 def _fn():
     fn = library("ms_deform").coin_ms_deform
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
@@ -62,6 +64,8 @@ def ms_deform_cuda(values: torch.Tensor, shapes: torch.Tensor,
     shapes, starts = shapes.contiguous(), starts.contiguous()
     if values.data_ptr() % 16:
         raise ValueError("ms_deform_cuda: values not 16-byte aligned")
+    if locations.data_ptr() % 8:          # read as float2
+        locations = locations.clone()
     out = torch.empty((b, q, h, d), dtype=values.dtype, device=dev)
     if b * q == 0:
         return out

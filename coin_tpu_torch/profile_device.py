@@ -76,6 +76,7 @@ GROUPS = (
                       "quant_tensor_kernel", "quant_sample_kernel",
                       "quant_weight",
                       "window_attention_kernel", "ms_deform_kernel",
+                      "ms_deform_gdino_kernel",
                       "fusion_nms_kernel", "deform_conv_kernel",
                       "deform_conv_reduce", "split_weights_kernel",
                       "roi_align_int8_kernel", "roi_int8_absmax_kernel",

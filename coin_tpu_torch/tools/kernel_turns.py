@@ -1,12 +1,13 @@
 """Time K2's quantisation work over one res5 forward and backward, K1b,
 the RoIAlign backward, K1, the RoIAlign forward, K3, greedy NMS, K4, the
-strong and weak views, K5, the int8 RoIAlign, K5b, its backward, and K8,
-the modulated deformable 3x3 conv, in two checkouts of the port, in turns
-on one card (the other checkout, this one, this one, the other), so that a
+strong and weak views, K5, the int8 RoIAlign, K5b, its backward, K8, the
+modulated deformable 3x3 conv, K7, the multi-scale deformable sampling,
+and K6, the fusion NMS, in two checkouts of the port, in turns on one
+card (the other checkout, this one, this one, the other), so that a
 redesigned kernel is compared with the one it replaces in one run.
 
     python -m coin_tpu_torch.tools.kernel_turns --other DIR [--turns 4]
-        [--rois FILE] [--only quant k1b k5b k4 k1_k3 k5 k8]
+        [--rois FILE] [--only quant k1b k5b k4 k1_k3 k5 k8 k7 k6]
 
 Each turn is a process started in one checkout, with that checkout's
 ``coin_tpu_torch`` first on the path, that runs this file's ``measure`` and
@@ -40,8 +41,13 @@ of CUDA events around 20 calls. K5 at chip_smoke.py's random RoIs (3 x
 576, 4 x 512, transposed) and, with ``--rois``, the trainer's and the
 teacher's, and the student case's three launches apart from the profiler;
 K8 at GLIP-L's P3 call and over one GLIP-L forward (104 calls
-of 9 shapes); both device time from CUDA-graph replays. ``--only`` times
-some of these groups. The card's name and power limit are in each line.
+of 9 shapes); both device time from CUDA-graph replays. K7 at GDINO's
+encoder and decoder shapes in bf16, with random points and with points
+around each query's reference (``measure_k7``), and K6 at 4 x 256 x 9
+(three method pairs) and 4 x 1024 x 9 (``measure_k6``), by graph replays
+and by events, with the host's time to launch each call (``_host_ms``).
+``--only`` times some of these groups. The card's name and power limit
+are in each line.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 RES5_N = 1728
 # (H, in channels, out channels, k, convs): chip_smoke.RES5_SHAPES
@@ -119,6 +126,21 @@ def events_ms(torch, fn, iters: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, iters: int = 20) -> float:
+    """Median host time of one call of ``fn`` (its launch), the card idle
+    before each."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -312,6 +334,95 @@ def measure_k8(torch, dev):
     return out
 
 
+def _local_points(torch, gen, refs, shapes, spread):
+    """(4, Q, 8, 4, 4, 2) locations around each query's reference point
+    (Q, 2), offsets N(0, spread) pixels of each level: the encoder's and
+    decoder's points fall near their queries' references, so neighbouring
+    queries share taps."""
+    q = refs.shape[0]
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
+    off = torch.randn((4, q, 8, len(shapes), 4, 2), generator=gen) * spread
+    return refs[None, :, None, None, None, :] + off / wh[None, None, None,
+                                                         :, None, :]
+
+
+def measure_k7(torch, dev):
+    """K7 on GDINO's levels, bf16 values (4 x 15 352 x 8 x 32): the
+    encoder (4 x 15 352 queries) and the decoder (4 x 900), each with
+    chip_smoke.py's uniform random points and with points around each
+    query's reference (the encoder's queries are the levels' pixels; the
+    decoder's 900 references are random), and the encoder with every
+    point at its level's centre (``fixed``: its taps hit in L1, so the
+    kernel's own instructions set its time); one GDINO forward is 6 of
+    each (the local points). Device time from CUDA-graph replays and
+    events around each call, and the host's launch."""
+    from chip_smoke import GDINO_LEVELS
+    from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
+    from coin_tpu_torch.models import deformable as dfm
+    cpu = torch.Generator().manual_seed(SEED + 5)
+    shapes = [list(sh) for sh in GDINO_LEVELS]
+    starts = [0]
+    for hh, ww in shapes[:-1]:
+        starts.append(starts[-1] + hh * ww)
+    total = starts[-1] + shapes[-1][0] * shapes[-1][1]
+    shapes_t, starts_t, _ = dfm._level_tensors(shapes, starts, dev)
+    values = torch.randn((4, total, 8, 32), generator=cpu).to(
+        dev, torch.bfloat16)
+    pixels = torch.cat([torch.stack(torch.meshgrid(
+        (torch.arange(ww) + 0.5) / ww, (torch.arange(hh) + 0.5) / hh,
+        indexing="xy"), -1).reshape(-1, 2) for hh, ww in shapes])
+    cases = {
+        "encoder_random": torch.rand((4, total, 8, 4, 4, 2), generator=cpu)
+        * 1.2 - 0.1,
+        "encoder_local": _local_points(torch, cpu, pixels, shapes, 2.0),
+        "encoder_fixed": torch.full((4, total, 8, 4, 4, 2), 0.5),
+        "decoder_random": torch.rand((4, 900, 8, 4, 4, 2), generator=cpu)
+        * 1.2 - 0.1,
+        "decoder_local": _local_points(torch, cpu, torch.rand(
+            (900, 2), generator=cpu), shapes, 4.0),
+    }
+    out = {}
+    for label, loc in cases.items():
+        loc = loc.to(dev)
+        w = torch.softmax(torch.randn(loc.shape[:3] + (16,), generator=cpu),
+                          -1).reshape(loc.shape[:-1]).to(dev)
+
+        def call():
+            return ms_deform_cuda(values, shapes_t, starts_t, loc, w)
+        out[f"k7_{label}_ms"] = graph_ms(torch, call)
+        out[f"k7_{label}_events_ms"] = events_ms(torch, call)
+        out[f"k7_{label}_host_ms"] = host_ms(torch, call)
+    out["k7_forward_ms"] = 6 * (out["k7_encoder_local_ms"]
+                                + out["k7_decoder_local_ms"])
+    return out
+
+
+def measure_k6(torch, dev):
+    """K6 on chip_smoke.py's collection rows (4 x 256 x 9: the method
+    pairs of its phase_fusion_nms) and on 4 x 1024 x 9 ('max' / 's-avg');
+    device time from CUDA-graph replays and events around each call."""
+    from chip_smoke import _fusion_inputs
+    from coin_tpu_torch.kernels.fusion_nms import fusion_nms_cuda
+    from coin_tpu_torch.ops import nms as nms_ops
+    cpu = torch.Generator().manual_seed(SEED + 6)
+    out = {}
+    for n, pairs in ((256, (("max", "s-avg"), ("probEn", "avg"),
+                            ("avg", "max"))),
+                     (1024, (("max", "s-avg"),))):
+        rows = [t.to(dev) for t in _fusion_inputs(torch, cpu, 4, n, 9)]
+        for sm, bm in pairs:
+            si = nms_ops.SCORE_METHODS.index(sm)
+            bi = nms_ops.BOX_METHODS.index(bm)
+
+            def call():
+                return fusion_nms_cuda(*rows, 0.6, si, bi)
+            label = f"k6_{n}_{sm}_{bm}".replace("-", "")
+            out[f"{label}_ms"] = graph_ms(torch, call)
+            out[f"{label}_events_ms"] = events_ms(torch, call)
+            out[f"{label}_host_ms"] = host_ms(torch, call)
+    return out
+
+
 def quant_step(kq, x, w, g, k):
     """One conv's quantisation work of mode 1, with either quantiser."""
     if hasattr(kq, "quantize_weight_pair_cuda"):
@@ -330,7 +441,7 @@ def quant_step(kq, x, w, g, k):
     return step
 
 
-GROUPS = ("quant", "k1b", "k5b", "k4", "k1_k3", "k5", "k8")
+GROUPS = ("quant", "k1b", "k5b", "k4", "k1_k3", "k5", "k8", "k7", "k6")
 
 
 def measure(rois_file=None, only=GROUPS) -> dict:
@@ -352,6 +463,10 @@ def measure(rois_file=None, only=GROUPS) -> dict:
         out.update(measure_k5(torch, dev, rois_file))
     if "k8" in only:
         out.update(measure_k8(torch, dev))
+    if "k7" in only:
+        out.update(measure_k7(torch, dev))
+    if "k6" in only:
+        out.update(measure_k6(torch, dev))
     return out
 
 

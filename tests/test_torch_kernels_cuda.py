@@ -600,6 +600,123 @@ def test_collection_kernel_matches_plain_version_on_card(cuda_device, which):
                 assert 0 < int(want.valid.sum()) < int(valid.sum())
 
 
+def _ms_deform_inputs(rng, dev, shapes, q, heads, d, points, b=2):
+    """Values, level starts, locations and weights; the first queries'
+    points sit on the level's edges, on its outermost pixel centres, half
+    a pixel and far outside it."""
+    starts = np.cumsum([0] + [h * w for h, w in shapes[:-1]]).tolist()
+    total = sum(h * w for h, w in shapes)
+    values = rng.randn(b, total, heads, d).astype(np.float32)
+    loc = rng.uniform(-0.2, 1.2, (b, q, heads, len(shapes), points, 2))
+    for lvl, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            edge = np.array([0.0, 1.0, 0.5 / size, 1.0 - 0.5 / size,
+                             -0.5 / size, 1.0 + 0.5 / size, -3.0, 4.0])
+            flat = loc[:, :, :, lvl, :, axis].reshape(b, -1)
+            k = min(flat.shape[1], 4 * len(edge))
+            flat[:, :k] = np.resize(edge, k)
+            loc[:, :, :, lvl, :, axis] = flat.reshape(b, q, heads, points)
+    attw = rng.uniform(0.0, 1.0, (b, q, heads, len(shapes), points))
+    attw /= attw.sum((-2, -1), keepdims=True)
+    return (torch.from_numpy(values).to(dev), starts,
+            torch.from_numpy(loc.astype(np.float32)).to(dev),
+            torch.from_numpy(attw.astype(np.float32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gdino_levels", "generic", "wide",
+                                  "ragged_channels"])
+def test_ms_deform_cases_on_card(cuda_device, case):
+    """K7 against its plain version: GDINO's levels at 301 queries with
+    the compile-time shape (blocks of 64 (query, head) rows straddle the
+    two images, and the last is part empty); on the run-time path the CPU
+    tests' levels with D = 8 and P = 3, D = 264 (33 threads a row, 7 rows
+    a block, 25 threads idle) and D = 24 (3 threads a row). f32 to 1e-5
+    of max(1, max |out|); bf16 within one bf16 rounding of the plain
+    version run in f32 on the same bf16 values."""
+    from chip_smoke import GDINO_LEVELS
+    from coin_tpu_torch.kernels.ms_deform import ms_deform_cuda
+    from coin_tpu_torch.models import deformable as tdef
+    shapes, q, heads, d, points = {
+        "gdino_levels": ([list(s) for s in GDINO_LEVELS], 301, 8, 32, 4),
+        "generic": ([[6, 8], [3, 4], [2, 2], [1, 1]], 13, 2, 8, 3),
+        "wide": ([[9, 7], [5, 4]], 21, 3, 264, 2),
+        "ragged_channels": ([[11, 13], [6, 7], [3, 4]], 37, 5, 24, 5),
+    }[case]
+    rng = np.random.RandomState(17)
+    values, starts, loc, attw = _ms_deform_inputs(rng, cuda_device, shapes, q,
+                                                  heads, d, points)
+    shapes_t, starts_t, _ = tdef._level_tensors(shapes, starts, cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        v = values.to(dtype)
+        want = tdef.ms_deform_sample_plain(v.float(), shapes, starts, loc,
+                                           attw)
+        scale = max(float(want.abs().max()), 1.0)
+        got = ms_deform_cuda(v, shapes_t, starts_t, loc, attw).float()
+        if dtype == torch.float32:
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * scale, (case, err)
+        else:
+            ulp = torch.ldexp(torch.ones_like(want), torch.frexp(
+                want.abs()).exponent - 8)
+            over = (got - want).abs() > ulp + 1e-5 * scale
+            assert not bool(over.any()), (case, int(over.sum()))
+
+
+def _fusion_edge_cases(rng):
+    """(label, boxes, probs, classes, valid) batches of one or more images
+    that K6's phases must get right."""
+    def rows(n, c1=9, b=1):
+        boxes, probs, classes, valid = _fusion_case(rng, n=n, c1=c1, b=b)
+        return boxes, probs, classes, valid
+    boxes, probs, classes, valid = rows(64)
+    yield "one_row", boxes[:, :1], probs[:, :1], classes[:, :1], \
+        np.ones((1, 1), bool)
+    yield "no_valid_row", boxes, probs, np.full_like(classes, -1), \
+        np.zeros_like(valid)
+    # every row the same box and class: one cluster holds every row
+    same = np.repeat(boxes[:, :1], 64, 1)
+    cls = np.zeros_like(classes)
+    yield "one_cluster", same, probs, cls, np.ones_like(valid)
+    # exact score ties everywhere: 8 distinct rows, each 8 times
+    tied_p = np.tile(probs[:, :8], (1, 8, 1))
+    tied_b = np.tile(boxes[:, :8], (1, 8, 1))
+    tied_c = tied_p[..., :-1].argmax(-1).astype(np.int32)
+    yield "ties", tied_b, tied_p, tied_c, np.ones_like(valid)
+    yield "ragged_77", *rows(77, b=3)
+    yield "n1024", *rows(1024, b=2)
+    yield "n1024_c18", *rows(1024, c1=18, b=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("score_method", ["probEn", "avg", "max"])
+@pytest.mark.parametrize("box_method", ["s-avg", "avg", "max"])
+def test_fusion_nms_edge_cases_on_card(cuda_device, score_method,
+                                       box_method):
+    """K6 on ``_fusion_edge_cases`` against its plain version: the same
+    valid rows and classes, boxes, scores and probs within 1e-5 (sums and
+    logs in another order); n = 1024 with 18 probs a row is the most that
+    fits in shared memory."""
+    from coin_tpu_torch.structures import Detections
+    rng = np.random.RandomState(19)
+    for label, *arrays in _fusion_edge_cases(rng):
+        boxes, probs, classes, valid = (torch.from_numpy(np.ascontiguousarray(
+            a)).to(cuda_device) for a in arrays)
+        det = Detections(boxes=boxes, scores=probs.amax(-1), classes=classes,
+                         valid=valid, probs=probs)
+        got = tnms.fusion_nms(det, 0.6, score_method, box_method)
+        want = tnms.fusion_nms(det.map(lambda t: t.cpu()), 0.6, score_method,
+                               box_method)
+        assert torch.equal(got.valid.cpu(), want.valid), label
+        assert torch.equal(got.classes.cpu(), want.classes), label
+        for f in ("boxes", "scores", "probs"):
+            torch.testing.assert_close(getattr(got, f).cpu(),
+                                       getattr(want, f), rtol=1e-5,
+                                       atol=1e-5, msg=f"{label} {f}")
+        if label == "one_cluster":
+            assert int(want.valid.sum()) == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stride", [1, 2])
 def test_deform_conv_matches_plain_version_on_card(cuda_device, stride):

@@ -18,10 +18,13 @@
    collection batch: K9 at every Swin-B stage, K7 at the encoder's and the
    decoder's shape, K6 on 4 x 256 rows; the int8 RoIAlign K5 at the
    student's 3 x 576 RoIs, the teacher's 4 x 512 and transposed, and its
-   backward K5b; K11 on 4 x 512 boxes with real clusters), with its median
-   time, the plain version's, a library call's where PyTorch has one, and
-   the card's bound. The int8 kernels (quantisation, K2 forward, dgrad and
-   wgrad at each res5 shape, K2s, K5) and K11 must agree bit for bit; the
+   backward K5b; K11 on 4 x 512 boxes with real clusters and on a reversed
+   chain of 1024; K4n on the eval batch with CLIP's and ImageNet's
+   constants), with its median time, the plain version's, a library
+   call's where PyTorch has one, and the card's bound (K4n, K10 and K11:
+   device time from the profiler beside events around each call). The
+   int8 kernels (quantisation, K2 forward, dgrad and wgrad at each res5
+   shape, K2s, K5), K4n and K11 must agree bit for bit; the
    quantiser also writes K2 wgrad's layout at every res5 shape (byte for
    byte) and quantises both weights of each res5 conv in one launch, and
    the sum of its launches over one res5 forward and backward is timed
@@ -172,19 +175,15 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernels=(), iters: int = 20, warmup: int = 3):
-    """Device time of one call of ``fn`` from the profiler's trace of
-    ``iters`` back-to-back calls, free of the host's launch time: (ms per
-    call of the kernels whose names hold one of ``kernels``, or of every
-    kernel and copy when it is empty; their launches per call)."""
+def _profiled(torch, fn, kernels, calls):
+    """(us, count) of the device events that the profiler records over
+    ``calls`` back-to-back calls of ``fn``, of the kernels whose names hold
+    one of ``kernels``, or of every kernel and copy when it is empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     us = n = 0
@@ -193,8 +192,35 @@ def device_ms(torch, fn, kernels=(), iters: int = 20, warmup: int = 3):
                 and (not kernels or any(k in e.key for k in kernels)):
             us += e.self_device_time_total
             n += e.count
+    return us, n
+
+
+def device_ms(torch, fn, kernels=(), iters: int = 20, warmup: int = 3):
+    """Device time of one call of ``fn`` from the profiler's trace of
+    ``iters`` back-to-back calls, free of the host's launch time: (ms per
+    call of the kernels whose names hold one of ``kernels``, or of every
+    kernel and copy when it is empty; their launches per call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    us, n = _profiled(torch, fn, kernels, iters)
     check(us > 0, f"the profiler recorded no device time of {kernels}")
     return us / 1e3 / iters, n / iters
+
+
+def kernels_per_call(torch, fn, kernels=(), calls: int = 20,
+                     tries: int = 2) -> int:
+    """The kernels (and copies) that one call of ``fn`` launches, of those
+    whose names hold one of ``kernels`` (all when empty): the most that
+    the profiler recorded in ``tries`` traces of ``calls`` calls each, per
+    call, rounded up. The profiler loses records at the end of a trace
+    now and then (K10a's 3 kernels read 2.9 a call over 20 calls, and 1
+    in a trace of one call) and never adds one: a lost record does not
+    fail the count, and an extra launch a call still shows."""
+    fn()
+    torch.cuda.synchronize()
+    most = max(_profiled(torch, fn, kernels, calls)[1] for _ in range(tries))
+    return math.ceil(most / calls)
 
 
 def graph_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
@@ -384,26 +410,41 @@ def phase_nms(torch, dev, gen):
 
 
 def phase_normalize(torch, dev, gen):
-    from coin_tpu_torch.data.augment import CLIP_MEAN, CLIP_STD, normalize_plain
+    """K4n bit for bit against its plain version at the eval batch (4 x 608
+    x 1216 u8) with CLIP's constants and ImageNet's (the GDINO and GLIP
+    passes'). Device time from the profiler (``device_ms``) beside CUDA
+    events around each wrapper call; the wrapper launches one kernel."""
+    from coin_tpu_torch.data.augment import (CLIP_MEAN, CLIP_STD,
+                                             normalize_plain)
     from coin_tpu_torch.kernels.normalize import normalize_cuda
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
     images = torch.randint(0, 256, (4, 608, 1216, 3), generator=gen,
                            dtype=torch.uint8).to(dev)
-    got = normalize_cuda(images, CLIP_MEAN, CLIP_STD)
-    want = normalize_plain(images)
-    err = (got - want).abs().max().item()
-    check(err <= 1e-5, f"normalize: max abs err {err} > 1e-5")
-    ms = time_ms(torch, lambda: normalize_cuda(images, CLIP_MEAN, CLIP_STD))
-    plain_ms = time_ms(torch, lambda: normalize_plain(images))
+    err = 0.0
+    for mean, std in ((CLIP_MEAN, CLIP_STD), (IMAGENET_MEAN, IMAGENET_STD)):
+        got = normalize_cuda(images, mean, std)
+        want = normalize_plain(images, mean, std)
+        err = max(err, (got - want).abs().max().item())
+        check(torch.equal(got, want),
+              f"normalize: not bit for bit (max abs err {err})")
+    call = lambda: normalize_cuda(images, CLIP_MEAN, CLIP_STD)
+    ms, _ = device_ms(torch, call)
+    per_call = kernels_per_call(torch, call)
+    check(per_call == 1, f"normalize: {per_call} kernels per call (1)")
+    call_ms = time_ms(torch, call)
+    plain_ms, _ = device_ms(torch, lambda: normalize_plain(images))
     n = images.numel()
     b_ms, b_by = bound(n + 4 * n, 3 * n)
-    print(f"[K4n normalize] {tuple(images.shape)} u8 -> f32: max abs err "
-          f"{err:.3g} (tol 1e-5); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+    print(f"[K4n normalize] {tuple(images.shape)} u8 -> f32, CLIP and "
+          f"ImageNet constants: bit for bit; device {ms:.4f} ms (profiler; "
+          f"events around each wrapper call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="normalize", route="cuda",
                 source="coin_tpu_torch/csrc/normalize.cu",
                 replaces="coin_tpu/data/augment.py:123", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, call_ms=call_ms)
 
 
 def phase_roi_align_bwd(torch, dev, gen):
@@ -766,10 +807,25 @@ def clustered_boxes(rng, n, thr=0.9):
             np.asarray(valid, bool)[perm])
 
 
+def chain_boxes(n, thr=0.9):
+    """(boxes (n, 4) f32, valid (n,) bool): one chain of n boxes along x,
+    neighbours at IoU (w - d) / (w + d) above thr and the ends far apart,
+    in reversed order: row 0 sits at the chain's far end, so row n - 1
+    reaches its representative in n - 1 hops."""
+    import numpy as np
+    w = 50.0
+    d = w * (1 - thr) / (1 + thr) * 0.8
+    rows = [[k * d, 10.0, k * d + w, 40.0] for k in range(n)][::-1]
+    return np.asarray(rows, np.float32), np.ones(n, bool)
+
+
 def phase_self_cluster(torch, dev):
     """K11 at the teacher's shapes (4 images x 512 proposals, IoU 0.9) on
     boxes with real clusters (duplicates, chains, invalid rows between
-    members, zero-area boxes): keep and rep equal the plain closure's."""
+    members, zero-area boxes), and on a reversed chain of 1024 boxes (the
+    lowest index 1023 hops away): keep and rep equal the plain closure's.
+    Device time from the profiler (``device_ms``) beside CUDA events around
+    each wrapper call; the wrapper launches one kernel."""
     import numpy as np
     from coin_tpu_torch.kernels.dedup import self_cluster_cuda
     from coin_tpu_torch.ops.boxes import pairwise_iou
@@ -790,8 +846,17 @@ def phase_self_cluster(torch, dev):
     chained = joined & (torch.gather(iou, 2, rep[..., None])[..., 0] < 0.9)
     check(int(joined.sum()) > 0 and int(chained.sum()) > 0,
           "self_cluster: the inputs hold no clusters or no chains")
-    ms = time_ms(torch, lambda: self_cluster_cuda(boxes, valid, 0.9))
-    plain_ms = time_ms(torch, lambda: self_cluster_index_plain(
+    cb, cv = (torch.from_numpy(a[None]).to(dev) for a in chain_boxes(1024))
+    ckeep, crep = self_cluster_cuda(cb, cv, 0.9)
+    check(torch.equal(crep, torch.zeros_like(crep))
+          and torch.equal(ckeep, self_cluster_index_plain(cb, cv, 0.9)[0]),
+          "self_cluster: the reversed chain of 1024 boxes is not one cluster")
+    call = lambda: self_cluster_cuda(boxes, valid, 0.9)
+    ms, _ = device_ms(torch, call)
+    per_call = kernels_per_call(torch, call)
+    check(per_call == 1, f"self_cluster: {per_call} kernels per call (1)")
+    call_ms = time_ms(torch, call)
+    plain_ms, _ = device_ms(torch, lambda: self_cluster_index_plain(
         boxes, valid, 0.9), iters=5, warmup=1)
     # the IoU of every pair (about 15 f32 operations) is the least work;
     # inputs boxes + valid, outputs keep + rep
@@ -800,13 +865,15 @@ def phase_self_cluster(torch, dev):
     print(f"[K11 self_cluster] 4 x 512 boxes, IoU 0.9: keep and rep "
           f"identical ({int(keep.sum())} clusters of {int(valid.sum())} "
           f"valid boxes; {int(chained.sum())} members joined only through "
-          f"a chain); {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by})")
+          f"a chain; a reversed chain of 1024 one cluster); device "
+          f"{ms:.4f} ms (profiler; events around each wrapper call "
+          f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+          f"({b_by})")
     return dict(name="self_cluster", route="cuda",
                 source="coin_tpu_torch/csrc/dedup.cu",
                 replaces="coin_tpu/ops/dedup.py:38", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, call_ms=call_ms)
 
 
 def _augment_draws(torch, gen, gates):
@@ -3330,7 +3397,8 @@ def phase_resize(torch, dev, gen):
                   "resize_bilinear: the f32 tie did not round to 30 rows")
     img = images["foggy"]
     call = lambda: resize_bilinear_cuda(img, FOGGY_SCALE, (608, 1216))
-    ms, per_call = device_ms(torch, call, RESIZE_KERNELS)
+    ms, _ = device_ms(torch, call, RESIZE_KERNELS)
+    per_call = kernels_per_call(torch, call, RESIZE_KERNELS)
     check(per_call == 3, f"resize_bilinear: {per_call} kernels per call (3)")
     call_ms = time_ms(torch, call)
     plain_ms, _ = device_ms(torch, lambda: resize_bilinear_plain(
@@ -3384,7 +3452,8 @@ def phase_normalize_flip(torch, dev, gen):
                           normalize_flip_plain(images, fl, MEAN, STD)),
               f"normalize_flip: flags {f}")
     call = lambda: normalize_flip_cuda(images, flags, MEAN, STD)
-    ms, per_call = device_ms(torch, call)
+    ms, _ = device_ms(torch, call)
+    per_call = kernels_per_call(torch, call)
     check(per_call == 1, f"normalize_flip: {per_call} kernels per call (1)")
     call_ms = time_ms(torch, call)
     plain_ms, _ = device_ms(torch, lambda: normalize_flip_plain(

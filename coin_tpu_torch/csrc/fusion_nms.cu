@@ -39,8 +39,7 @@
 //  2. the "+1 IoU > threshold" bits of every sorted pair (i, j > i), a
 //     warp per row and 32 columns a ballot, into a triangle of bit words
 //     in shared memory (66 KB at n = 1024, in the space the fused rows
-//     take later); the IoU is the plain version's division, skipped where
-//     the intersection is 0 (the quotient is then 0 whatever the union);
+//     take later), by K3's division-free IoU test (csrc/iou_test.cuh);
 //  3. the sweep, one warp, bit operations only, 32 sorted rows at a
 //     time: lane w holds the alive word w; in the tile, 32 steps in row
 //     order, each with its row's diagonal word from a shuffle issued
@@ -62,6 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "iou_test.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -69,21 +70,6 @@ constexpr int kMaxRows = 1024;          // 32 alive words, one a lane
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 227 * 1024;
-
-// The +1 intersection of two boxes.
-__device__ __forceinline__ float intersection(const float4 a,
-                                              const float4 b) {
-  const float w = fmaxf(
-      __fadd_rn(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), 1.0f), 0.0f);
-  const float h = fmaxf(
-      __fadd_rn(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), 1.0f), 0.0f);
-  return __fmul_rn(w, h);
-}
-
-__device__ __forceinline__ float area(const float4 a) {
-  return __fmul_rn(__fadd_rn(__fsub_rn(a.z, a.x), 1.0f),
-                   __fadd_rn(__fsub_rn(a.w, a.y), 1.0f));
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
@@ -303,7 +289,7 @@ fusion_nms_kernel(const float* __restrict__ boxes,
     const float4 bx = sbox[i];
     ssort[r] = make_float4(__fadd_rn(bx.x, shift), __fadd_rn(bx.y, shift),
                            __fadd_rn(bx.z, shift), __fadd_rn(bx.w, shift));
-    sarea[r] = area(ssort[r]);
+    sarea[r] = iou_test::area(ssort[r], 1.0f);
   }
   __syncthreads();
 
@@ -311,9 +297,10 @@ fusion_nms_kernel(const float* __restrict__ boxes,
   // K3's way (csrc/nms.cu): a warp per (row tile, column word) on or
   // above the diagonal, a lane per row, its 32 tests unrolled and
   // branch-free against column boxes that every lane reads at once; the
-  // pairs the division-free test cannot decide divide after the loop
+  // pairs the division-free test (iou_test.cuh) cannot decide divide
+  // after the loop
   const int W = (nv + 31) / 32;
-  const float umax = fast ? 0x1p100f : -1.0f;   // else no union is in range
+  const iou_test::Split split = iou_test::make_split(thr, h, umin, fast);
   for (int unit = warp; unit < W * (W + 1) / 2; unit += kWarps) {
     int t = 0, wi = unit;
     while (wi >= W - t) {
@@ -323,16 +310,15 @@ fusion_nms_kernel(const float* __restrict__ boxes,
     wi += t;
     const int r = 32 * t + lane, c0 = 32 * wi;
     const float4 a = ssort[min(r, nv - 1)];
-    const float aa = area(a);
+    const float aa = iou_test::area(a, 1.0f);
     unsigned bits = 0u, slow = 0u;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = min(c0 + j, nv - 1);
-      const float inter = intersection(a, ssort[c]);
-      const float uni = __fsub_rn(__fadd_rn(aa, sarea[c]), inter);
-      const bool in = uni >= umin && uni <= umax;
-      bits |= (unsigned)(in && __fmaf_rn(-thr, uni, inter) >
-                                   __fmul_rn(h, uni)) << j;
+      const float inter = iou_test::intersection<true>(a, ssort[c]);
+      const float uni = iou_test::union_of(aa, sarea[c], inter);
+      const bool in = iou_test::decides(uni, split);
+      bits |= (unsigned)(in && iou_test::exceeds(inter, uni, split)) << j;
       slow |= (unsigned)(!in && uni > 0.0f) << j;
     }
     // the columns c with r < c < nv
@@ -344,9 +330,11 @@ fusion_nms_kernel(const float* __restrict__ boxes,
     if (0.0f > thr) bits |= live & ~slow;   // union <= 0 counts as IoU 0
     for (; slow != 0u; slow &= slow - 1u) {
       const int c = c0 + __ffs(slow) - 1;
-      const float inter = intersection(a, ssort[c]);
-      const float uni = __fsub_rn(__fadd_rn(aa, sarea[c]), inter);
-      if (__fdiv_rn(inter, uni) > thr) bits |= 1u << (c - c0);
+      const float inter = iou_test::intersection<true>(a, ssort[c]);
+      const float uni = iou_test::union_of(aa, sarea[c], inter);
+      if (iou_test::exceeds_by_division(inter, uni, thr)) {
+        bits |= 1u << (c - c0);
+      }
     }
     if (r < nv) mask[mask_row(r, W) + wi - t] = bits;
   }

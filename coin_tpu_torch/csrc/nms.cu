@@ -45,14 +45,13 @@
 // barrier, not its loads. A thread-block cluster per image would spread
 // the atomics, not the chain.
 //
-// IoU (coin_tpu/ops/boxes.py:28-48): half-open or inclusive (+1) widths,
-// iou = union > 0 ? inter / union : 0, suppression iff iou > threshold.
-// Every product and sum is an explicitly rounded intrinsic, so the compiler
-// contracts nothing into an FMA and inter and union equal those of the
-// plain PyTorch version to the bit.
+// IoU and its test without the division: csrc/iou_test.cuh, shared with
+// K11 (csrc/dedup.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "iou_test.cuh"
 
 namespace {
 
@@ -64,27 +63,11 @@ constexpr int kColGroups = kSweepThreads / kTile;
 constexpr int kPrefetch = 12;   // words of the next tile a sweep thread holds
 constexpr int kSparse = 8;      // suppressing rows a tile steps through alone
 
-__device__ __forceinline__ float area(const float4 b, float off) {
-  return __fmul_rn(__fadd_rn(__fsub_rn(b.z, b.x), off),
-                   __fadd_rn(__fsub_rn(b.w, b.y), off));
-}
-
-// The overlap of two boxes along one axis: half-open or inclusive (+1)
-// widths, never below 0.
-template <bool kPlus1>
-__device__ __forceinline__ float side(float lo0, float hi0, float lo1,
-                                      float hi1) {
-  float d = __fsub_rn(fminf(hi0, hi1), fmaxf(lo0, lo1));
-  if (kPlus1) d = __fadd_rn(d, 1.0f);
-  return fmaxf(d, 0.0f);
-}
-
 template <bool kPlus1>
 __global__ void __launch_bounds__(kMaskThreads)
 nms_mask_kernel(const float4* __restrict__ boxes,
                 const int* __restrict__ counts, uint64_t* __restrict__ mask,
-                int n, int col_tiles, int groups, float thr, float h,
-                float umin, int fast) {
+                int n, int col_tiles, int groups, iou_test::Split s) {
   __shared__ float4 cb[kGroup][kTile];
   __shared__ float ca[kGroup][kTile];
   const float off = kPlus1 ? 1.0f : 0.0f;
@@ -104,51 +87,35 @@ nms_mask_kernel(const float4* __restrict__ boxes,
   if (col0 + i < count) {
     const float4 c = bb[col0 + i];
     cb[q][i] = c;
-    ca[q][i] = area(c, off);
+    ca[q][i] = iou_test::area(c, off);
   }
   __syncthreads();
   if (ct < rt || col0 >= count || row0 + i >= count) return;
   const float4 a = bb[row0 + i];
-  const float aa = area(a, off);
+  const float aa = iou_test::area(a, off);
   const int cols = min(kTile, count - col0);
-  // The test: fl(inter / union) > thr where union > 0, else 0 > thr, bit
-  // for bit the plain version's. The quotient's rounding is monotone, so it
-  // exceeds thr exactly when inter / union exceeds m = thr + h, the
-  // midpoint between thr and the next float (ops/nms.threshold_split). With
-  // r = fma(-thr, union, inter), rounded once, r > h * union implies
-  // inter - thr * union > h * union, and r < h * union the converse, since
-  // h * union is exact (h a power of two, union in [umin, 2^100]) and
-  // rounding is monotone. r never equals h * union there: their difference
-  // is a nonzero multiple of h * union's ulp (m needs 25 significant bits,
-  // so m * union is no f32). Unions outside that range, and thresholds
-  // outside (0, 1] (fast = 0), take the division after the loop.
-  const float umax = fast ? 0x1p100f : -1.0f;   // no union is in range
+  // the division-free test (iou_test.cuh); the pairs it does not decide
+  // take the division after the loop
   uint64_t bits = 0, slow = 0;
 #pragma unroll
   for (int j = 0; j < kTile; ++j) {
-    const float4 bx = cb[q][j];
-    const float inter = __fmul_rn(side<kPlus1>(a.x, a.z, bx.x, bx.z),
-                                  side<kPlus1>(a.y, a.w, bx.y, bx.w));
-    const float uni = __fsub_rn(__fadd_rn(aa, ca[q][j]), inter);
-    const float r = __fmaf_rn(-thr, uni, inter);
-    const float hu = __fmul_rn(h, uni);
-    const bool in = uni >= umin && uni <= umax;   // implies union > 0
-    if (in && r > hu) bits |= 1ull << j;
+    const float inter = iou_test::intersection<kPlus1>(a, cb[q][j]);
+    const float uni = iou_test::union_of(aa, ca[q][j], inter);
+    const bool in = iou_test::decides(uni, s);
+    if (in && iou_test::exceeds(inter, uni, s)) bits |= 1ull << j;
     if (!in && uni > 0.0f) slow |= 1ull << j;
   }
   uint64_t live = cols == kTile ? ~0ull : (1ull << cols) - 1;
   if (ct == rt) live &= i == kTile - 1 ? 0ull : ~0ull << (i + 1);
   bits &= live;
   slow &= live;
-  if (0.0f > thr) bits |= live & ~slow;   // union <= 0 counts as IoU 0
+  if (0.0f > s.thr) bits |= live & ~slow;   // union <= 0 counts as IoU 0
   while (slow) {
     const int j = __ffsll((long long)slow) - 1;
     slow &= slow - 1;
-    const float4 bx = cb[q][j];
-    const float inter = __fmul_rn(side<kPlus1>(a.x, a.z, bx.x, bx.z),
-                                  side<kPlus1>(a.y, a.w, bx.y, bx.w));
-    const float uni = __fsub_rn(__fadd_rn(aa, ca[q][j]), inter);
-    if (__fdiv_rn(inter, uni) > thr) bits |= 1ull << j;
+    const float inter = iou_test::intersection<kPlus1>(a, cb[q][j]);
+    const float uni = iou_test::union_of(aa, ca[q][j], inter);
+    if (iou_test::exceeds_by_division(inter, uni, s.thr)) bits |= 1ull << j;
   }
   mask[(((size_t)b * col_tiles + rt) * col_tiles + ct) * kTile + i] = bits;
 }
@@ -302,7 +269,7 @@ extern "C" int coin_nms(const void* boxes, const void* counts, void* mask,
   auto mask_kernel = plus1 ? nms_mask_kernel<true> : nms_mask_kernel<false>;
   mask_kernel<<<grid, kMaskThreads, 0, s>>>(
       (const float4*)boxes, (const int*)counts, (uint64_t*)mask, n,
-      col_tiles, groups, thr, h, umin, fast);
+      col_tiles, groups, iou_test::make_split(thr, h, umin, fast));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (mid_event) {

@@ -9,7 +9,8 @@ clustering) and ``online_boxes_merging`` (coin/utils/util.py:434-507).
 the JAX closure: the adjacency IoU >= thr between valid boxes with the
 diagonal set, ⌈log2 n⌉ boolean squarings, and each box's representative is
 the lowest index it reaches. The kernel finds the same lowest index by
-label propagation over an IoU bitmask. Every function takes one image's
+union-find over the IoU edges of the upper triangle (:func:`nms.iou_at_least`
+is its division-free test in PyTorch). Every function takes one image's
 rows (n, ...) or a batch of them (B, n, ...).
 """
 

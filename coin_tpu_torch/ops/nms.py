@@ -11,7 +11,8 @@ On a CUDA tensor the sorted-box suppression runs in kernel K3
 versions. Around K3 everything is PyTorch: the class offset, the +1 shift
 of valid rows, the stable descending score sort and the inverse
 permutation. :func:`iou_exceeds` is K3's division-free IoU test written in
-PyTorch, held by the CPU tests to the quotient's test.
+PyTorch, and :func:`iou_at_least` K11's (csrc/dedup.cu) ``>=`` form of it,
+both held by the CPU tests to the quotient's test.
 """
 
 from __future__ import annotations
@@ -70,6 +71,16 @@ def threshold_split(iou_threshold: float) -> Tuple[float, float, float,
     return thr, h, umin, fast
 
 
+@functools.lru_cache(maxsize=None)
+def threshold_split_at_least(iou_threshold: float) -> Tuple[float, float,
+                                                            float, bool]:
+    """:func:`threshold_split` for the test ``inter / union >= thr`` (K11):
+    the split of thr-, the f32 just below f32(thr), since a rounded
+    quotient is >= thr exactly when it is > thr-."""
+    below = np.nextafter(np.float32(iou_threshold), np.float32(-np.inf))
+    return threshold_split(float(below))
+
+
 def iou_decides(inter: torch.Tensor, union: torch.Tensor,
                 iou_threshold: float):
     """K3's IoU test without the division (csrc/nms.cu, the mask kernel)
@@ -104,6 +115,15 @@ def iou_exceeds(inter: torch.Tensor, union: torch.Tensor,
     quotient = torch.where(positive, inter / union,
                            torch.zeros_like(inter)) > thr
     return torch.where(positive & decided, verdict, quotient)
+
+
+def iou_at_least(inter: torch.Tensor, union: torch.Tensor,
+                 iou_threshold: float) -> torch.Tensor:
+    """K11's join test in PyTorch, used by no path: ``inter / union >= thr``
+    where union > 0, else ``0 >= thr``, decided as :func:`iou_exceeds`
+    decides ``> thr-`` (:func:`threshold_split_at_least`)."""
+    below = threshold_split_at_least(iou_threshold)[0]
+    return iou_exceeds(inter, union, below)
 
 
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,

@@ -2,12 +2,13 @@
 the RoIAlign backward, K1, the RoIAlign forward, K3, greedy NMS, K4, the
 strong and weak views, K5, the int8 RoIAlign, K5b, its backward, K8, the
 modulated deformable 3x3 conv, K7, the multi-scale deformable sampling,
-and K6, the fusion NMS, in two checkouts of the port, in turns on one
-card (the other checkout, this one, this one, the other), so that a
+K6, the fusion NMS, K11, the IoU self-clustering, and K4n, the u8 →
+normalised f32 pass, in two checkouts of the port, in turns on one card
+(the other checkout, this one, this one, the other), so that a
 redesigned kernel is compared with the one it replaces in one run.
 
     python -m coin_tpu_torch.tools.kernel_turns --other DIR [--turns 4]
-        [--rois FILE] [--only quant k1b k5b k4 k1_k3 k5 k8 k7 k6]
+        [--rois FILE] [--only quant k1b k5b k4 k1_k3 k5 k8 k7 k6 k11 k4n]
 
 Each turn is a process started in one checkout, with that checkout's
 ``coin_tpu_torch`` first on the path, that runs this file's ``measure`` and
@@ -44,8 +45,10 @@ K8 at GLIP-L's P3 call and over one GLIP-L forward (104 calls
 of 9 shapes); both device time from CUDA-graph replays. K7 at GDINO's
 encoder and decoder shapes in bf16, with random points and with points
 around each query's reference (``measure_k7``), and K6 at 4 x 256 x 9
-(three method pairs) and 4 x 1024 x 9 (``measure_k6``), by graph replays
-and by events, with the host's time to launch each call (``_host_ms``).
+(three method pairs) and 4 x 1024 x 9 (``measure_k6``), K11 at 4 x 512
+clustered boxes and a reversed chain of 1024 (``measure_k11``) and K4n at
+the eval batch and one image (``measure_k4n``), by graph replays and by
+events, with the host's time to launch each call (``_host_ms``).
 ``--only`` times some of these groups. The card's name and power limit
 are in each line.
 """
@@ -423,6 +426,58 @@ def measure_k6(torch, dev):
     return out
 
 
+def _chain(torch, dev, n, thr=0.9):
+    """One image of n boxes along x, neighbours at IoU above thr, in
+    reversed order: chip_smoke.chain_boxes, which an older checkout's
+    chip_smoke.py lacks."""
+    d = 50.0 * (1 - thr) / (1 + thr) * 0.8
+    x = d * torch.arange(n - 1, -1, -1, dtype=torch.float32)
+    boxes = torch.stack([x, torch.full_like(x, 10.0), x + 50.0,
+                         torch.full_like(x, 40.0)], -1)
+    return boxes[None].to(dev), torch.ones((1, n), dtype=torch.bool,
+                                           device=dev)
+
+
+def measure_k11(torch, dev):
+    """K11 on chip_smoke.py's 4 x 512 clustered boxes at IoU 0.9 and on a
+    reversed chain of 1024 boxes: graph replays, events and the host's
+    launch."""
+    import numpy as np
+    from chip_smoke import clustered_boxes
+    from coin_tpu_torch.kernels import dedup as kd
+    rng = np.random.RandomState(SEED)
+    pairs = [clustered_boxes(rng, 512) for _ in range(4)]
+    boxes = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    valid = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    out = {}
+    for label, (b, v) in (("k11", (boxes, valid)),
+                          ("k11_chain1024", _chain(torch, dev, 1024))):
+        def call():
+            return kd.self_cluster_cuda(b, v, 0.9)
+        out[f"{label}_ms"] = graph_ms(torch, call)
+        out[f"{label}_events_ms"] = events_ms(torch, call)
+        out[f"{label}_host_ms"] = host_ms(torch, call)
+    return out
+
+
+def measure_k4n(torch, dev):
+    """K4n on chip_smoke.py's eval batch (4 x 608 x 1216 u8) and on one
+    image, CLIP's constants: graph replays, events and the host's launch."""
+    from coin_tpu_torch.data.augment import CLIP_MEAN, CLIP_STD
+    from coin_tpu_torch.kernels import normalize as kn
+    gen = torch.Generator().manual_seed(SEED + 4)
+    out = {}
+    images = torch.randint(0, 256, (4, 608, 1216, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    for label, x in (("k4n", images), ("k4n_one", images[:1])):
+        def call():
+            return kn.normalize_cuda(x, CLIP_MEAN, CLIP_STD)
+        out[f"{label}_ms"] = graph_ms(torch, call)
+        out[f"{label}_events_ms"] = events_ms(torch, call)
+        out[f"{label}_host_ms"] = host_ms(torch, call)
+    return out
+
+
 def quant_step(kq, x, w, g, k):
     """One conv's quantisation work of mode 1, with either quantiser."""
     if hasattr(kq, "quantize_weight_pair_cuda"):
@@ -441,7 +496,8 @@ def quant_step(kq, x, w, g, k):
     return step
 
 
-GROUPS = ("quant", "k1b", "k5b", "k4", "k1_k3", "k5", "k8", "k7", "k6")
+GROUPS = ("quant", "k1b", "k5b", "k4", "k1_k3", "k5", "k8", "k7", "k6",
+          "k11", "k4n")
 
 
 def measure(rois_file=None, only=GROUPS) -> dict:
@@ -467,6 +523,10 @@ def measure(rois_file=None, only=GROUPS) -> dict:
         out.update(measure_k7(torch, dev))
     if "k6" in only:
         out.update(measure_k6(torch, dev))
+    if "k11" in only:
+        out.update(measure_k11(torch, dev))
+    if "k4n" in only:
+        out.update(measure_k4n(torch, dev))
     return out
 
 

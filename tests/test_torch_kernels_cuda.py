@@ -10,21 +10,22 @@ Tolerances of the collection kernels: in their test's docstring; the
 deformable 3x3 conv (K8) 1e-5 of the output's largest magnitude (the same
 samples, the per-tap products summed in another order).
 Tolerances: RoIAlign 1e-5 in f32 (the same arithmetic summed in another
-order), NMS keep masks equal, normalisation 1e-6; the RoIAlign backward
-(K1b) 1e-5 of the largest |d features| in f32 (its atomics add in no fixed
-order); the strong and weak views (K4) 1e-5 (the canvas mean sums in
-another order); the int8 convolutions (K2, K2s) and their quantisation bit
-for bit: the same s8 values and scales (a NaN input gives a NaN scale and
-s8 zeros on both), the same s32 sums (wrapping past 2**31), the same f32
-rescale. The int8 RoIAlign (K5) and the IoU self-clustering (K11) bit for
-bit (exact integer sums; the same IoU arithmetic and the same lowest
-reachable index); the int8 RoIAlign backward (K5b) 1e-5 of the largest
-|d features| in f32 and 2**-7 (two bf16 ulps) in bf16: its atomics add in
-no fixed order, and a t near a bf16 rounding boundary may round to the
-neighbouring value. The bilinear resize (K10a) 1e-5 relative and 1e-3
-absolute in 0-255 units (the dense plain version sums every term of a
-row in cuBLAS's order, the kernel its non-zero taps in ascending order);
-the normalise + flip (K10b) bit for bit.
+order), NMS keep masks equal, normalisation (K4n) bit for bit; the
+RoIAlign backward (K1b) 1e-5 of the largest |d features| in f32 (its
+atomics add in no fixed order); the strong and weak views (K4) 1e-5 (the
+canvas mean sums in another order); the int8 convolutions (K2, K2s) and
+their quantisation bit for bit: the same s8 values and scales (a NaN input
+gives a NaN scale and s8 zeros on both), the same s32 sums (wrapping past
+2**31), the same f32 rescale. The int8 RoIAlign (K5) and the IoU
+self-clustering (K11) bit for bit (exact integer sums; the same IoU
+arithmetic and the same lowest reachable index); the int8 RoIAlign
+backward (K5b) 1e-5 of the largest |d features| in f32 and 2**-7 (two bf16
+ulps) in bf16: its atomics add in no fixed order, and a t near a bf16
+rounding boundary may round to the neighbouring value. The bilinear resize
+(K10a) 1e-5 relative and 1e-3 absolute in 0-255 units (the dense plain
+version sums every term of a row in cuBLAS's order, the kernel its
+non-zero taps in ascending order); the normalise + flip (K10b) bit for
+bit.
 """
 
 import numpy as np
@@ -102,12 +103,34 @@ def test_kernel_matches_plain_version_on_card(cuda_device, which):
             assert torch.equal(got.cpu(), want)
             assert 0 < int(want.sum()) < int(valid.sum())
     else:
-        # 3366 bytes: not a multiple of 4, so the kernel's tail runs too
+        # 3366 bytes: not a multiple of 16, so the kernel's tail runs too
         images = torch.randint(0, 256, (2, 33, 17, 3), dtype=torch.uint8,
                                device=cuda_device)
-        torch.testing.assert_close(taug.normalize_batch(images),
-                                   taug.normalize_plain(images),
-                                   rtol=1e-6, atol=1e-6)
+        assert torch.equal(taug.normalize_batch(images),
+                           taug.normalize_plain(images))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 33, 17, 3), (1, 1, 5, 3),
+                                   (1, 608, 1216, 3), (4, 608, 1216, 3)],
+                         ids=["tail", "tail_only", "batch1", "gdino_canvas"])
+def test_normalize_bit_for_bit_on_card(cuda_device, shape):
+    """K4n equal to its plain version (torch.equal), with CLIP's and
+    ImageNet's constants, every byte value in each channel: numel not a
+    multiple of 16 (3366 bytes; 15, all tail), a batch of 1, and the GDINO
+    pass's 4 x 608 x 1216 canvas as chip_smoke.py feeds it."""
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen)
+    flat = images.view(-1, 3)
+    k = min(256, len(flat))
+    flat[:k] = torch.arange(k, dtype=torch.uint8)[:, None]
+    images = images.to(cuda_device)
+    for mean, std in ((taug.CLIP_MEAN, taug.CLIP_STD),
+                      (IMAGENET_MEAN, IMAGENET_STD)):
+        assert torch.equal(taug.normalize_batch(images, mean, std),
+                           taug.normalize_plain(images, mean, std))
 
 
 def _augment_draws(rng, gates):
@@ -914,21 +937,35 @@ def test_roi_align_int8_matches_plain_version_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("thr", [0.9, 0.5])
+@pytest.mark.parametrize("thr", [0.5, 0.9, 0.95, 1.0])
 def test_self_cluster_matches_plain_version_on_card(cuda_device, thr):
-    """K11's keep and rep equal the plain closure's on clustered boxes."""
-    from coin_tpu_torch.kernels.dedup import self_cluster_cuda
+    """K11's keep and rep equal the plain closure's: clustered boxes at
+    n = 1, 5, 33, 224, 320, 480, 512, 700 and 1024 in batches of 1 to 8
+    (clusters of 1, 2, 4, 8, 9 and 16 blocks an image); the reversed chain
+    of 128 and of 1024 boxes (the lowest index n - 1 hops away); a batch
+    whose rows are all invalid."""
+    from chip_smoke import chain_boxes
+    from coin_tpu_torch.kernels import dedup as kd
     rng = np.random.RandomState(11)
-    for n in (5, 512, 700):
-        pairs = [clustered_boxes(rng, n, thr) for _ in range(4)]
-        boxes = torch.from_numpy(np.stack([p[0] for p in pairs])).to(
-            cuda_device)
-        valid = torch.from_numpy(np.stack([p[1] for p in pairs])).to(
-            cuda_device)
-        keep, rep = self_cluster_cuda(boxes, valid, thr)
-        want_keep, want_rep = tdedup.self_cluster_index_plain(boxes, valid,
-                                                              thr)
-        assert torch.equal(keep, want_keep) and torch.equal(rep, want_rep)
+    cases = []
+    for n, b in ((1, 1), (5, 4), (33, 8), (224, 2), (320, 2), (480, 2),
+                 (512, 4), (512, 8), (700, 4), (1024, 1)):
+        pairs = [clustered_boxes(rng, n, thr) for _ in range(b)]
+        cases.append((np.stack([p[0] for p in pairs]),
+                      np.stack([p[1] for p in pairs])))
+    for n in (128, 1024):
+        boxes, valid = chain_boxes(n, min(thr, 0.95))
+        cases.append((boxes[None], valid[None]))
+    boxes = np.stack([clustered_boxes(rng, 512, thr)[0] for _ in range(2)])
+    cases.append((boxes, np.zeros((2, 512), bool)))
+    for boxes, valid in cases:
+        boxes = torch.from_numpy(boxes).to(cuda_device)
+        valid = torch.from_numpy(valid).to(cuda_device)
+        keep, rep = kd.self_cluster_cuda(boxes, valid, thr)
+        want_keep, want_rep = tdedup.self_cluster_index_plain(
+            boxes, valid, thr)
+        assert torch.equal(keep, want_keep), boxes.shape
+        assert torch.equal(rep, want_rep), boxes.shape
 
 
 @pytest.mark.cuda

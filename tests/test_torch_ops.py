@@ -6,14 +6,16 @@ launchers. The kernels themselves are held to these plain versions on the
 card by tests/test_torch_kernels_cuda.py.
 
 Tolerances: box ops, RoIAlign and normalisation agree to rtol = atol =
-1e-5 in f32 (the same arithmetic, summed in another order); NMS keep
-masks and the IoU test's verdicts are equal.
+1e-5 in f32 (the same arithmetic, summed in another order; normalisation
+also bit for bit with JAX run op by op); NMS keep masks and the IoU
+tests' verdicts are equal.
 """
 
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,6 +197,59 @@ def test_nms_division_free_iou_test_equals_the_quotient(rng, thr):
     assert not bool(decided[-4:].any())
 
 
+def _at_threshold_pairs(rng, thr):
+    """(inter, union) f32 pairs whose rounded quotient lands on f32(thr), on
+    the floats either side of it and a few ulps around them (inter from
+    each target times a random union, then two ulps either way), random
+    pairs, unions of 0 and below, and unions outside the range where the
+    test decides without the division (the last four)."""
+    t = np.float32(thr)
+    targets = [np.nextafter(t, np.float32(0)), t,
+               np.nextafter(t, np.float32(np.inf))]
+    u = rng.uniform(1.0, 1e6, 3000).astype(np.float32)
+    inter, union = [rng.uniform(0, 100, 20000).astype(np.float32)], []
+    union.append((inter[0] + rng.uniform(0, 100, 20000)).astype(np.float32))
+    for q in targets:
+        base = (np.float64(q) * u.astype(np.float64)).astype(np.float32)
+        for k in range(-2, 3):
+            x = base
+            for _ in range(abs(k)):
+                x = np.nextafter(x, np.float32(np.inf if k > 0 else 0))
+            inter.append(x)
+            union.append(u)
+    inter.append(np.float32([0.0, 3.0, 2.0, 1e-36, 7e-36, 7e30, 0.7e31]))
+    union.append(np.float32([0.0, 0.0, -4.0, 1e-35, 1e-35, 1e31, 1e31]))
+    return np.concatenate(inter), np.concatenate(union)
+
+
+@pytest.mark.parametrize("thr", [0.9, 0.95, 1.0])
+def test_iou_at_least_equals_the_quotient(rng, thr):
+    """K11's join test (``iou_at_least``: K3's division-free test at thr-,
+    the f32 just below thr) against numpy's correctly rounded f32 quotient
+    ``inter / union >= thr`` (0 >= thr where union <= 0): identical on
+    pairs whose quotient lands on thr and on either side of it, on random
+    pairs and on unions outside the range where the test decides; it
+    decides every pair with a union in that range."""
+    inter, union = _at_threshold_pairs(rng, thr)
+    q = np.divide(inter, union, out=np.zeros_like(inter), where=union > 0)
+    t = np.float32(thr)
+    want = q >= t
+    got = tnms.iou_at_least(torch.from_numpy(inter),
+                            torch.from_numpy(union), thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    below = tnms.threshold_split_at_least(thr)
+    assert below[0] == np.nextafter(t, np.float32(0)) and below[3]
+    decided, verdict = tnms.iou_decides(torch.from_numpy(inter),
+                                        torch.from_numpy(union), below[0])
+    decided, verdict = decided.numpy(), verdict.numpy()
+    assert np.array_equal(decided, (union >= below[2]) & (union <= 2.0 ** 100))
+    assert np.array_equal(verdict[decided], want[decided])
+    assert not decided[-4:].any()
+    for target in (np.nextafter(t, np.float32(0)), t,
+                   np.nextafter(t, np.float32(np.inf))):
+        assert (q == target).any(), target
+
+
 # -------------------------------------------------------------- RoIAlign
 @pytest.mark.parametrize("hw", [(13, 21), (21, 13)], ids=["w>=h", "w<h"])
 def test_roi_align_matches_jax(rng, hw):
@@ -265,6 +320,37 @@ def test_normalize_batch_matches_jax(rng):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("constants", ["clip", "imagenet"])
+def test_normalize_batch_every_value_matches_jax(constants):
+    """K4n's plain version (the kernel equals it bit for bit on the card)
+    over all 256 values of each channel, CLIP's constants and ImageNet's
+    (the GDINO and GLIP teachers'): equal to JAX's run op by op, whose
+    divisions are correctly rounded, and within TOL of JAX's compiled
+    function, which multiplies by reciprocals."""
+    from coin_tpu.models.gdino_detector import GDINODetector
+    from coin_tpu_torch.models.gdino_detector import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    images = np.repeat(np.arange(256, dtype=np.uint8)[None, :, None, None],
+                       3, -1)
+    if constants == "clip":
+        mean, std, jfn = taug.CLIP_MEAN, taug.CLIP_STD, jaug.normalize_batch
+    else:
+        mean, std = IMAGENET_MEAN, IMAGENET_STD
+        assert np.array_equal(np.float32(mean), GDINODetector.IMAGENET_MEAN)
+        assert np.array_equal(np.float32(std), GDINODetector.IMAGENET_STD)
+
+        def jfn(x):    # GDINODetector.detect's normalisation (:230-231)
+            img = x.astype(jnp.float32) / 255.0
+            return (img - GDINODetector.IMAGENET_MEAN) \
+                / GDINODetector.IMAGENET_STD
+    got = taug.normalize_batch(torch.from_numpy(images), mean, std).numpy()
+    with jax.disable_jit():
+        op_by_op = np.asarray(jfn(jnp.asarray(images)))
+    np.testing.assert_array_equal(got, op_by_op)
+    compiled = np.asarray(jax.jit(jfn)(jnp.asarray(images)))
+    np.testing.assert_allclose(got, compiled, **TOL)
+
+
 # ------------------------------------------- package and device contract
 def test_port_imports_nothing_of_jax_or_coin_tpu():
     """Every module of coin_tpu_torch (the K10 and CLIP modules named)
@@ -292,6 +378,51 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_counts_kernels_through_dropped_records(monkeypatch):
+    """chip_smoke.kernels_per_call reads the most launches a call that the
+    profiler recorded over its traces of 20 calls, rounded up: a trace
+    that loses records at its end (as the card's profiler does now and
+    then: 58 of K10a's 60 kernels in one run) does not fail a count, and
+    an extra launch a call still shows."""
+    from types import SimpleNamespace
+
+    import chip_smoke
+    from torch.autograd import DeviceType
+
+    def traces(counts):
+        counts = iter(counts)
+
+        class Profile:
+            def __init__(self, activities):
+                self.n = next(counts)
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def key_averages(self):
+                return [SimpleNamespace(device_type=DeviceType.CUDA,
+                                        self_device_time_total=1.0,
+                                        count=self.n, key="resize_rows"),
+                        SimpleNamespace(device_type=DeviceType.CUDA,
+                                        self_device_time_total=1.0,
+                                        count=20, key="memcpy")]
+        monkeypatch.setattr(torch.profiler, "profile", Profile)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    count = chip_smoke.kernels_per_call
+    traces([58, 57])
+    assert count(torch, lambda: None, ("resize",)) == 3
+    traces([60, 60])
+    assert count(torch, lambda: None, ("resize",)) == 3
+    traces([79, 78])
+    assert count(torch, lambda: None, ("resize",)) == 4
+    traces([58, 60])
+    assert count(torch, lambda: None) == 4
 
 
 def test_entry_point_without_device_raises_without_cuda(monkeypatch):

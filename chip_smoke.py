@@ -29,13 +29,16 @@
    byte) and quantises both weights of each res5 conv in one launch, and
    the sum of its launches over one res5 forward and backward is timed
    from CUDA-graph replays. K1, K1b, K5 and K5b are also timed on the RoIs
-   of the trainer path's first cached step (phase 8), and K1 on the teacher's
-   4 x 512 proposals of its first collection batch, recorded as it runs.
+   of the trainer path's first cached step (phase 8), K1 on the teacher's
+   4 x 512 proposals of its first collection batch, and K1 and K1b on the
+   6 x 512 RoIs of the pre-train path's first step (phase 16), recorded as
+   they run.
    K4 runs with both views (every gate on; mixed gates), with the strong
    view alone (the cached flavours' call) and on an odd canvas, its device
    time from CUDA-graph replays apart from the host's launch. K3
    runs at eval's 4 x 6000 RPN boxes, the trainer's 3 x 6000, the
-   teacher's 4 x 3000 and the box head's 4 x 1024, with the split between
+   teacher's 4 x 3000, the pre-train's 6 x 6000 and the box head's
+   4 x 1024, with the split between
    its two launches (the mask and the sweep) and the time of the sorts and
    gathers of nms_keep_mask around them.
 4. reference: the full-width detector in f32 on the card against the same
@@ -44,7 +47,9 @@
    full-width f32 model on the card against the CPU, same weights and
    draws, on a small canvas; then one train_step_cached with the int8 res5
    of foggy_fast.yaml, and one of the int8train_ps_roi configuration
-   (per-sample int8 res5, the int8 RoIAlign K5 and K5b).
+   (per-sample int8 res5, the int8 RoIAlign K5 and K5b); then one
+   pre-train step of CLIPDET_foggy.yaml's f32 model (both views, the
+   prototype update on), card vs CPU.
 6. eval path: evaluate_detector of the full-width CLIP-RN50
    OpenVocabularyRCNN (bf16 with int8 res5, random weights from a seed)
    over a synthetic 8-image Foggy-Cityscapes-classed VOC set read through
@@ -109,6 +114,17 @@
    in code), then rescore_with_clip over phase 10's 12-image store; the
    CLIP_collect.npz read back. K1 and K4n must launch. Prints ms per image
    and the rows before and after.
+16. pre-train path (stage 2) and the hand-off to stage 3, through the
+   port's CLI, coin_tpu_torch.tools.train_net.main, as a user runs them:
+   configs/coin/PRETRAINS/CLIPDET_foggy.yaml at full width (bf16, batch 3
+   trained as 6 images on 608 x 1216, 512 RoIs each) on phase 15's
+   CLIP_collect.npz and its 12 images, 8 steps with
+   PROTOTYPE_UPDATE_START 4, an eval of 4 images; then
+   configs/coin/GDINO/foggy_fast.yaml with MODEL.WEIGHTS at the
+   pre_train_CLIP_0000008 checkpoint for one step (a collection pass and
+   a cached step). K4, K3, K1, K1b and K4n must launch; the prototypes
+   move only from step 4; the stage-3 teacher equals the pre-trained
+   weights. Prints ms per step, images/s and peak memory.
 
 Phase 3 also holds K8 (the modulated deformable 3x3 conv of the GLIP
 teacher) at each of its call shapes in GLIP-L's collection batch against
@@ -390,9 +406,10 @@ def _nms_case(torch, dev, gen, label, n, thr, classes, hw, max_wh,
 
 def phase_nms(torch, dev, gen):
     """K3 at eval's RPN (4 x 6000 at IoU 0.7) and box head (4 x 1024,
-    class-aware, 0.5), then the trainer's RPN (3 x 6000) and the teacher's
-    (TEACHER_PRE_NMS_TOPK: 4 x 3000), these two drawn from their own
-    generator; the keep masks must equal the plain version's."""
+    class-aware, 0.5), then the trainer's RPN (3 x 6000), the teacher's
+    (TEACHER_PRE_NMS_TOPK: 4 x 3000) and the pre-train's (both views of
+    3 images: 6 x 6000), these three drawn from their own generator; the
+    keep masks must equal the plain version's."""
     rpn = _nms_case(torch, dev, gen, "rpn", 6000, 0.7, False, (608, 1216),
                     300.0)
     box = _nms_case(torch, dev, gen, "box_head", 1024, 0.5, True,
@@ -402,11 +419,13 @@ def phase_nms(torch, dev, gen):
                         (608, 1216), 300.0, batch=3)
     teacher = _nms_case(torch, dev, own, "teacher_rpn", 3000, 0.7, False,
                         (608, 1216), 300.0)
+    pretrain = _nms_case(torch, dev, own, "pretrain_rpn", 6000, 0.7, False,
+                         (608, 1216), 300.0, batch=6)
     return dict(name="nms", route="cuda", source="coin_tpu_torch/csrc/nms.cu",
                 replaces="coin_tpu/ops/nms.py:110", max_abs_err=0.0,
                 ms=rpn["ms"], plain_ms=rpn["plain_ms"],
                 bound_ms=rpn["bound_ms"], bound_by=rpn["bound_by"],
-                library_ms=None, cases=[rpn, box, trainer, teacher])
+                library_ms=None, cases=[rpn, box, trainer, teacher, pretrain])
 
 
 def phase_normalize(torch, dev, gen):
@@ -509,7 +528,7 @@ def k1_on_recorded_rois(torch, dev, rec, label, seed):
     timed in the call's dtype."""
     from coin_tpu_torch.kernels.roi_align import roi_align_cuda
     from coin_tpu_torch.ops.roi_align import roi_align_plain
-    check(bool(rec), f"the trainer path ran no RoIAlign of the {label}")
+    check(bool(rec), f"no RoIAlign of the {label} was recorded")
     rois = rec["rois"]
     args = rec["args"]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -546,14 +565,15 @@ def k1_on_recorded_rois(torch, dev, rec, label, seed):
             f"{label}_rois": list(rois.shape)}
 
 
-def k1b_on_trainer_rois(torch, dev, rec):
-    """K1b on the RoIs of the trainer path's first cached step (recorded by
+def k1b_on_recorded_rois(torch, dev, rec, label="trainer"):
+    """K1b on the RoIs of a training path's first step (the trainer's
+    first cached step, or the pre-train's first step; recorded by
     ``record_first_call``) with a random gradient of that step's shape:
     within 1e-5 of the largest |d feature| of the plain version in f32,
     timed in the step's dtype."""
     from coin_tpu_torch.kernels.roi_align import roi_align_backward_cuda
     from coin_tpu_torch.ops.roi_align import roi_align_backward_plain
-    check(bool(rec), "the trainer path ran no RoIAlign backward")
+    check(bool(rec), f"the {label} path ran no RoIAlign backward")
     rois = rec["rois"]
     shape, _, *args = rec["args"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -563,7 +583,7 @@ def k1b_on_trainer_rois(torch, dev, rec):
     got = roi_align_backward_cuda(g, rois, shape, torch.float32, *args)
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    check(err <= 1e-5 * scale, f"roi_align_bwd on the trainer's RoIs: max "
+    check(err <= 1e-5 * scale, f"roi_align_bwd on the {label}'s RoIs: max "
           f"abs err {err} > 1e-5 x {scale}")
     del got, want
     dt = rec["grad_dtype"]
@@ -575,14 +595,14 @@ def k1b_on_trainer_rois(torch, dev, rec):
     b_ms, b_by = bound(n * g.element_size() + rois.numel() * 4
                        + g.element_size() * math.prod(shape), n * 4 * 4 * 2)
     side = (rois[..., 2:] - rois[..., :2]).float()
-    print(f"[K1b roi_align_bwd, the trainer's RoIs] grad {tuple(g.shape)} "
+    print(f"[K1b roi_align_bwd, the {label}'s RoIs] grad {tuple(g.shape)} "
           f"{dt}, rois {tuple(rois.shape)} (median side "
           f"{side.median().item():.1f} px) -> {tuple(shape)}: max abs err "
           f"{err:.3g} (tol 1e-5 x {scale:.3g}, f32); {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(trainer_ms=ms, trainer_plain_ms=plain_ms,
-                trainer_bound_ms=b_ms, trainer_max_abs_err=err,
-                trainer_rois=list(rois.shape))
+    return {f"{label}_ms": ms, f"{label}_plain_ms": plain_ms,
+            f"{label}_bound_ms": b_ms, f"{label}_max_abs_err": err,
+            f"{label}_rois": list(rois.shape)}
 
 
 def k5b_on_trainer_rois(torch, dev, rec):
@@ -1691,6 +1711,28 @@ def _moved(module, before):
             if not bool((p.detach() == before[n]).all())]
 
 
+def time_stages(torch, build, run, steps: int = 4):
+    """Median ms of each stage of a training step, from CUDA events at the
+    marks that the step builder calls: ``build(on_stage)`` returns the
+    step, ``run(step)`` takes one; the first of ``steps`` warms up."""
+    marks = []
+
+    def on_stage(name):
+        marks.append((name, torch.cuda.Event(enable_timing=True)))
+        marks[-1][1].record()
+    step = build(on_stage)
+    stages = []
+    for _ in range(steps):
+        marks.clear()
+        on_stage("start")
+        run(step)
+        torch.cuda.synchronize()
+        stages.append({name: marks[i][1].elapsed_time(e)
+                       for i, (name, e) in enumerate(marks[1:])})
+    return {k: statistics.median(s[k] for s in stages[1:])
+            for k in stages[0]}
+
+
 def phase_train_path(torch, dev, num_classes, tokens, counters):
     """build_adaptation_steps at full width from foggy.yaml: N cached
     steps on the teacher's own predictions, then live and cached_two
@@ -2316,15 +2358,8 @@ def phase_trainer_path(torch, dev, num_classes, counters):
         # checkpoint: save, move the state by one step, restore, compare
         path = tr.checkpointer.save(state, 8)
         saved = state_tree(state)
-        marks = []
-
-        def on_stage(name):
-            marks.append((name, torch.cuda.Event(enable_timing=True)))
-            marks[-1][1].record()
         hyper = dataclasses.replace(sb.hyper_from_cfg(tr.cfg),
                                     loss_weights=tr.loss_weights)
-        _, timed_cached, _ = sb.build_adaptation_steps(
-            tr.tokens, tr.pcfg, tr.teacher_pcfg, hyper, on_stage=on_stage)
         batch = tr.train_loader._attach_store(tr.train_loader.pack_batch(
             [0, 5, 9], [False, True, False]))
         view = lambda v: online_view_to_detections(v, dev)
@@ -2332,16 +2367,10 @@ def phase_trainer_path(torch, dev, num_classes, counters):
                 torch.from_numpy(batch.image_hw).to(dev),
                 view(batch.online["RCNN"]), view(batch.online["RPN"]),
                 view(tr._pack_offline(batch)))
-        stages = []
-        for _ in range(4):
-            marks.clear()
-            on_stage("start")
-            state, _ = timed_cached(state, *args)
-            torch.cuda.synchronize()
-            stages.append({name: marks[i][1].elapsed_time(e)
-                           for i, (name, e) in enumerate(marks[1:])})
-        stage_ms = {k: statistics.median(s[k] for s in stages[1:])
-                    for k in stages[0]}
+        stage_ms = time_stages(
+            torch, lambda on_stage: sb.build_adaptation_steps(
+                tr.tokens, tr.pcfg, tr.teacher_pcfg, hyper,
+                on_stage=on_stage)[1], lambda step: step(state, *args))
         print(f"[trainer path] cached step by stage, ms (median of 3 after a "
               f"warm-up, CUDA events at build_adaptation_steps' stage "
               f"marks; student_forward includes matching): "
@@ -3544,15 +3573,18 @@ def phase_clip_reference(torch, dev, ckpt):
     check(all(v <= 1e-3 for v in errs.values()), f"CLIP reference: {errs}")
 
 
-def phase_clip_path(torch, dev, ckpt, bpe, cloud_store, counters):
+def phase_clip_path(torch, dev, ckpt, bpe, cloud_store, counters, root):
     """The CLIP re-scoring pass (stage 1b) as tools/collect runs it without
     --skip-clip: build_clip_scorer of foggy_fast.yaml with TPU.CLIP_WEIGHTS
     (a random checkpoint in OpenAI CLIP RN50's layout) and
     TPU.CLIP_BPE_VOCAB (a merges file of the prompts' words) set in code,
     then rescore_with_clip over the GDINO collection phase's store of the
     same 12 synthetic 1024 x 2048 images (batches of 4 on 608 x 1216, both
-    views, TPU.CAP_TEACHER boxes each); CLIP_collect.npz written and read
-    back as the pre-train stage reads it. K1 and K4n must launch."""
+    views, TPU.CAP_TEACHER boxes each); CLIP_collect.npz written to
+    ``root`` and read back as the pre-train stage reads it, beside
+    GDINO_collect.npz, the GDINO store, which stage 3 reads. K1 and K4n
+    must launch. The images and both stores stay in ``root`` for the
+    pre-train path; the caller deletes it."""
     import numpy as np
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.data.loader import TestLoader
@@ -3562,83 +3594,380 @@ def phase_clip_path(torch, dev, ckpt, bpe, cloud_store, counters):
     from coin_tpu_torch.engine import collect as collect_mod
     from coin_tpu_torch.engine.cloud_factory import build_clip_scorer
     from coin_tpu_torch.engine.results_store import ResultStore
-    root = os.path.join(REPO, "output", "chip_smoke_clip")
-    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_voc(os.path.join(root, "foggy"), num_images=12,
+                       class_names=CITYSCAPES_CLASSES,
+                       image_hw=(1024, 2048), seed=SEED, split="train")
+    register_pascal_voc("chip_smoke_clip", "foggy", "train",
+                        CITYSCAPES_CLASSES, ".jpg")
+    cfg = load_config(os.path.join(REPO,
+                                   "configs/coin/GDINO/foggy_fast.yaml"))
+    cfg.TPU.CLIP_WEIGHTS, cfg.TPU.CLIP_BPE_VOCAB = ckpt, bpe
+    t0 = time.perf_counter()
+    scorer = build_clip_scorer(cfg, CITYSCAPES_CLASSES, device=dev)
+    build_s = time.perf_counter() - t0
+    itc = cfg.INPUT.TEACHER_CLOUD
+    loader = TestLoader("chip_smoke_clip", root, batch_size=4,
+                        min_size=itc.MIN_SIZE_TEST,
+                        max_size=itc.get("MAX_SIZE_TEST", 1333))
+    ids = sorted(r["image_id"] for r in loader.records)
+    check(sorted(cloud_store.image_ids()) == ids,
+          "the GDINO store is not of the same images")
+    cap = cfg.TPU.CAP_TEACHER
+    collect_mod.rescore_with_clip(scorer, cloud_store, loader, cap,
+                                  device=dev)            # warm-up
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = collect_mod.rescore_with_clip(scorer, cloud_store, loader, cap,
+                                        device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    npz = os.path.join(root, "CLIP_collect.npz")
+    out.save(npz)
+    cloud_store.save(os.path.join(root, "GDINO_collect.npz"))
+    back = ResultStore.load(npz)
+    check(sorted(back.image_ids()) == ids, "CLIP store image ids")
+    before = after = 0
+    for i in ids:
+        for view in ("RCNN", "RPN"):
+            v = back.get_view(i, view)
+            n = len(v["scores"])
+            after += n
+            before += min(len(cloud_store.get_view(i, view)["scores"]),
+                          cap)
+            check(v["probs"].shape == (n, 9)
+                  and bool(np.isfinite(v["probs"]).all())
+                  and bool(np.isfinite(v["boxes"]).all())
+                  and bool((v["classes"] < 8).all())
+                  and bool((np.abs(v["probs"].sum(-1) - 1) < 1e-4).all())
+                  and bool((v["scores"] == v["probs"].max(-1)).all()),
+                  f"CLIP store view {view} of {i}")
+    check(after > 0, "re-scoring kept no box")
+    batch, _ = next(iter(loader))
+    u8 = torch.from_numpy(batch.images).to(dev)
+    boxes = torch.from_numpy(np.stack([cloud_store.pack_view(
+        batch.image_ids[i], "RCNN", cap, float(batch.scale[i]), False,
+        float(batch.image_hw[i][1]))["boxes"]
+        for i in range(len(batch.image_ids))])).to(dev)
+    with torch.inference_mode():
+        batch_ms = time_ms(torch, lambda: scorer(u8, boxes), iters=10,
+                           warmup=2)
+    print(f"[CLIP path] build_clip_scorer(foggy_fast.yaml) from a "
+          f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB RN50 checkpoint "
+          f"in {build_s:.1f} s; rescore_with_clip over 12 images (3 "
+          f"batches of 4 on 608 x 1216, both views, {cap} boxes each): "
+          f"{run_s:.3f} s, {run_s * 1e3 / 12:.2f} ms per image with "
+          f"host decode; device {batch_ms:.3f} ms per scorer call (4 "
+          f"images, one view); rows before {before}, after {after} "
+          f"(background-classified boxes dropped); kernel launches "
+          f"{json.dumps(launches)}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the CLIP path: {launches}")
+    return launches, dict(ms_per_image=run_s * 1e3 / 12,
+                          call_ms=batch_ms, rows=(before, after))
+
+
+# ------------------------------------------------------------- stage 2
+def phase_pretrain_reference(torch, dev, num_classes, tokens):
+    """One pre-train step (``pre_train.build_pretrain_step``) of the
+    full-width f32 model of CLIPDET_foggy.yaml on the card (K4, K3, K1,
+    K1b) against the CPU (plain versions): same weights, same injected
+    draws, the prototype update on; 2 x 128 x 256, so 4 trained images,
+    600 / 100 RPN boxes and 64 RoIs each, 16 cloud boxes per image."""
+    import dataclasses
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.engine import pipelines, pre_train, step_builder
+    from coin_tpu_torch.engine.common import synthetic_detections
+    parity_numerics()
+    cfg = load_config(os.path.join(
+        REPO, "configs/coin/PRETRAINS/CLIPDET_foggy.yaml"))
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    pcfg = dataclasses.replace(
+        pipelines.pipeline_config_from(cfg, num_classes),
+        pre_nms_topk_train=600, post_nms_topk_train=100, roi_batch_size=64)
+    gen = torch.Generator().manual_seed(SEED + 40)
+    cells = torch.randint(0, 256, (2, 8, 16, 3), generator=gen,
+                          dtype=torch.uint8)
+    images = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    hw = torch.tensor([[128.0, 256.0], [128.0, 200.0]])
+    rcnn, rpn = (synthetic_detections(gen, 2, 16, num_classes, (128, 200),
+                                      n) for n in ([9, 6], [12, 7]))
+    draws = step_builder.draw_step(gen, 2, 8 * 16 * 15,
+                                   pcfg.post_nms_topk_train + 16, views=2)
+    tok = {d: torch.as_tensor(tokens, device=d).long() for d in (dev, "cpu")}
+    states, losses = {}, {}
+    for d in (dev, "cpu"):
+        model = pipelines.build_detector(cfg, num_classes, d)
+        if d == dev:
+            model.random_init(SEED)
+        else:
+            model.load_state_dict(states[dev].model.state_dict())
+        states[d] = pre_train.init_pretrain_state(
+            cfg, model, SEED, proto0=torch.zeros(num_classes + 1, 1024))
+    # the same starting prototypes, off the text features (the L1
+    # text-align loss has its kink there)
+    with torch.no_grad():
+        text = states["cpu"].model.text_features(tok["cpu"]).float()
+    proto = text + 0.05 * torch.randn(text.shape, generator=gen)
+    for d in (dev, "cpu"):
+        states[d].prototypes = type(states[d].prototypes)(
+            *(proto.to(d) for _ in range(3)))
+    before = {n: p.detach().cpu().clone()
+              for n, p in states["cpu"].model.named_parameters()}
+    for d in (dev, "cpu"):
+        step = pre_train.build_pretrain_step(
+            tok[d], pcfg, cfg.CLOUD.PROTOTYPE_UPDATE_WEIGHT, False,
+            pipelines.loss_weights_from(cfg))
+        st, ls = step(states[d], images.to(d), hw.to(d), to_dev(rcnn, d),
+                      to_dev(rpn, d), True, draws=step_builder.StepDraws(
+                          *(t.to(d) for t in dataclasses.astuple(draws))))
+        losses[d] = {k: v.item() for k, v in ls.items()}
+    gpu, cpu = states[dev], states["cpu"]
+
+    def rel(a, b, base=None):
+        """||a - b|| / ||b||; an update (new - ``base``) less the f32
+        rounding of the parameters it moved."""
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        norm = torch.linalg.vector_norm
+        slack = 0.0 if base is None else \
+            2 * torch.finfo(torch.float32).eps * norm(base.double()).item()
+        return max(norm(a - b).item() - slack, 0.0) / max(norm(b).item(),
+                                                           1e-30)
+
+    gp = dict(gpu.model.named_parameters())
+    gm, cm = gpu.optimizer.momentum_buffers(), cpu.optimizer.momentum_buffers()
+    errs = {"losses": max(abs(losses[dev][k] - v) / max(abs(v), 1e-3)
+                          for k, v in losses["cpu"].items()),
+            "params": max(rel(gp[n] - before[n].to(dev), p - before[n],
+                              before[n])
+                          for n, p in cpu.model.named_parameters()
+                          if p.requires_grad),
+            "momentum": max(rel(gm[n], cm[n]) for n in cm),
+            "prototypes": rel(gpu.prototypes.proto, cpu.prototypes.proto)}
+    moved = (cpu.prototypes.proto - proto).abs().max().item()
+    print(f"[pretrain reference] one pre-train step of the full-width f32 "
+          f"model of CLIPDET_foggy.yaml, card vs CPU, 2 x 128 x 256 (4 "
+          f"trained images), prototype update on: largest relative errors "
+          f"(losses |card - CPU| / max(|CPU|, 1e-3); ||card - CPU|| / "
+          f"||CPU|| of the momentum, the parameter updates, the "
+          f"prototypes) {json.dumps(errs)} (tol 1e-3); prototypes moved by "
+          f"up to {moved:.3g}; losses "
+          f"{json.dumps({k: round(v, 6) for k, v in losses['cpu'].items()})}")
+    check(all(v <= 1e-3 for v in errs.values()),
+          f"pretrain reference: {errs}")
+    check(gpu.step == cpu.step == 1 and moved > 0
+          and losses["cpu"]["loss_cls"] > 0
+          and gpu.teacher is None and gpu.merge_model is None,
+          "pretrain reference: step not taken")
+    del states, gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def _cli(train_net, argv):
+    """``train_net.main(argv)``, with the root logger's handlers as they
+    were before it (the CLI's logging.basicConfig adds two)."""
+    import logging
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
     try:
-        make_synthetic_voc(os.path.join(root, "foggy"), num_images=12,
-                           class_names=CITYSCAPES_CLASSES,
-                           image_hw=(1024, 2048), seed=SEED, split="train")
-        register_pascal_voc("chip_smoke_clip", "foggy", "train",
-                            CITYSCAPES_CLASSES, ".jpg")
-        cfg = load_config(os.path.join(REPO,
-                                       "configs/coin/GDINO/foggy_fast.yaml"))
-        cfg.TPU.CLIP_WEIGHTS, cfg.TPU.CLIP_BPE_VOCAB = ckpt, bpe
-        t0 = time.perf_counter()
-        scorer = build_clip_scorer(cfg, CITYSCAPES_CLASSES, device=dev)
-        build_s = time.perf_counter() - t0
-        itc = cfg.INPUT.TEACHER_CLOUD
-        loader = TestLoader("chip_smoke_clip", root, batch_size=4,
-                            min_size=itc.MIN_SIZE_TEST,
-                            max_size=itc.get("MAX_SIZE_TEST", 1333))
-        ids = sorted(r["image_id"] for r in loader.records)
-        check(sorted(cloud_store.image_ids()) == ids,
-              "the GDINO store is not of the same images")
-        cap = cfg.TPU.CAP_TEACHER
-        collect_mod.rescore_with_clip(scorer, cloud_store, loader, cap,
-                                      device=dev)            # warm-up
+        return train_net.main(argv)
+    finally:
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+
+def phase_pretrain_path(torch, dev, root, counters, steps=8, start=4):
+    """Stages 2 and 3 of one recipe through the port's CLI
+    (``coin_tpu_torch.tools.train_net.main``), as a user runs them: stage 2
+    ``--config configs/coin/PRETRAINS/CLIPDET_foggy.yaml`` at full width
+    (CLIP-RN50, 12-layer 512-wide text tower, bf16 over f32 masters,
+    batch 3 trained as 6 images on 608 x 1216, 512 RoIs each) on the
+    CLIP_collect.npz and the 12 images of the CLIP path in ``root``, for
+    ``steps`` steps with PROTOTYPE_UPDATE_START ``start``, then an eval on
+    4 more images; stage 3 ``--config configs/coin/GDINO/foggy_fast.yaml
+    MODEL.WEIGHTS <stage 2's pre_train_CLIP_*>`` for one step (a
+    collection pass, then a cached step). Checks finite losses, trainable
+    parameters that move, prototypes that move only from ``start`` on,
+    the launches of K4, K3, K1 and K1b (and K4n at eval), the checkpoint
+    and the hand-off (the teacher equal to the pre-trained weights after
+    the step, the student moved). Returns the launches of stage 2 and its
+    measurements."""
+    from coin_tpu_torch.data.voc import CITYSCAPES_CLASSES, make_synthetic_voc
+    from coin_tpu_torch.engine import pre_train
+    from coin_tpu_torch.engine.checkpoint import Checkpointer
+    from coin_tpu_torch.engine.trainer import CoinTrainer
+    from coin_tpu_torch.tools import train_net
+    make_synthetic_voc(os.path.join(root, "foggy"), num_images=4,
+                       class_names=CITYSCAPES_CLASSES, image_hw=(1024, 2048),
+                       seed=SEED + 1, split="val")
+    custom = [dict(NAME=f"chip_smoke_pretrain_{split}", DIRNAME="foggy",
+                   SPLIT=split, CLASSES=list(CITYSCAPES_CLASSES), EXT=".jpg")
+              for split in ("train", "val")]
+    data = ["DATASETS.ROOT", root, "DATASETS.CUSTOM", repr(custom),
+            "DATASETS.TRAIN_UNLABEL", "['chip_smoke_pretrain_train']",
+            "DATASETS.TEST", "['chip_smoke_pretrain_val']"]
+    pre_out = os.path.join(root, "pretrain")
+    stage2 = ["--config", os.path.join(
+        REPO, "configs/coin/PRETRAINS/CLIPDET_foggy.yaml"), *data,
+        "CLOUD.COLLECT_FILE", os.path.join(root, "CLIP_collect.npz"),
+        "CLOUD.PROTOTYPE_UPDATE_START", str(start),
+        "SOLVER.MAX_ITER", str(steps), "TEST.EVAL_PERIOD", str(steps),
+        "SOLVER.CHECKPOINT_PERIOD", str(10 ** 9), "OUTPUT_DIR", pre_out]
+
+    # every step timed to a synchronize, its losses and prototypes kept
+    times, losses, proto_moved, first = [], [], [], {}
+    build = pre_train.build_pretrain_step
+
+    def timed_build(*args, **kw):
+        step = build(*args, **kw)
+
+        def run(state, *a, **k):
+            if not first:
+                first["params"] = _snapshot(state.model)
+                first["cfg"] = (state.model.compute_dtype,
+                                state.model.text_trunk.layers,
+                                {p.dtype for p in state.model.parameters()})
+            proto = state.prototypes.proto.clone()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, *a, **k)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append({n: v.item() for n, v in out[1].items()})
+            proto_moved.append(not torch.equal(proto,
+                                               out[0].prototypes.proto))
+            return out
+        return run
+    pre_train.build_pretrain_step = timed_build
+    try:
         for fn in counters:
             fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = collect_mod.rescore_with_clip(scorer, cloud_store, loader, cap,
-                                            device=dev)
+        tr = _cli(train_net, stage2)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counters}
-        npz = os.path.join(root, "CLIP_collect.npz")
-        out.save(npz)
-        back = ResultStore.load(npz)
-        check(sorted(back.image_ids()) == ids, "CLIP store image ids")
-        before = after = 0
-        for i in ids:
-            for view in ("RCNN", "RPN"):
-                v = back.get_view(i, view)
-                n = len(v["scores"])
-                after += n
-                before += min(len(cloud_store.get_view(i, view)["scores"]),
-                              cap)
-                check(v["probs"].shape == (n, 9)
-                      and bool(np.isfinite(v["probs"]).all())
-                      and bool(np.isfinite(v["boxes"]).all())
-                      and bool((v["classes"] < 8).all())
-                      and bool((np.abs(v["probs"].sum(-1) - 1) < 1e-4).all())
-                      and bool((v["scores"] == v["probs"].max(-1)).all()),
-                      f"CLIP store view {view} of {i}")
-        check(after > 0, "re-scoring kept no box")
-        batch, _ = next(iter(loader))
-        u8 = torch.from_numpy(batch.images).to(dev)
-        boxes = torch.from_numpy(np.stack([cloud_store.pack_view(
-            batch.image_ids[i], "RCNN", cap, float(batch.scale[i]), False,
-            float(batch.image_hw[i][1]))["boxes"]
-            for i in range(len(batch.image_ids))])).to(dev)
-        with torch.inference_mode():
-            batch_ms = time_ms(torch, lambda: scorer(u8, boxes), iters=10,
-                               warmup=2)
-        print(f"[CLIP path] build_clip_scorer(foggy_fast.yaml) from a "
-              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB RN50 checkpoint "
-              f"in {build_s:.1f} s; rescore_with_clip over 12 images (3 "
-              f"batches of 4 on 608 x 1216, both views, {cap} boxes each): "
-              f"{run_s:.3f} s, {run_s * 1e3 / 12:.2f} ms per image with "
-              f"host decode; device {batch_ms:.3f} ms per scorer call (4 "
-              f"images, one view); rows before {before}, after {after} "
-              f"(background-classified boxes dropped); kernel launches "
-              f"{json.dumps(launches)}")
-        check(all(v > 0 for v in launches.values()),
-              f"a kernel was not launched on the CLIP path: {launches}")
-        return launches, dict(ms_per_image=run_s * 1e3 / 12,
-                              call_ms=batch_ms, rows=(before, after))
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        pre_train.build_pretrain_step = build
+    check(isinstance(tr, pre_train.PRETrainer) and tr.state.step == steps
+          and len(times) == steps, f"stage 2: {len(times)} steps")
+    check(first["cfg"] == (torch.bfloat16, 12, {torch.float32})
+          and tr.pcfg.roi_batch_size == 512
+          and tr.pcfg.pre_nms_topk_train == 6000
+          and tr.cfg.SOLVER.IMG_PER_BATCH_UNLABEL == 3
+          and tuple(tr.train_loader.canvas_hw) == (608, 1216),
+          f"stage 2 is not CLIPDET_foggy.yaml at full width: {first['cfg']}")
+    check(all(math.isfinite(v) for l in losses for v in l.values()),
+          "stage 2: a loss is not finite")
+    check(proto_moved == [i >= start for i in range(steps)],
+          f"stage 2: prototypes moved at steps {proto_moved}")
+    moved = _moved(tr.state.model, first["params"])
+    trainable = [n for n, p in tr.state.model.named_parameters()
+                 if p.requires_grad]
+    check(moved and set(moved) <= set(trainable),
+          f"stage 2: {len(moved)} trainable tensors moved")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the pretrain path: {launches}")
+    ap = tr.ap_50.get(steps - 1)
+    check(ap is not None and 0.0 <= ap <= 100.0, f"stage 2 eval AP50 {ap}")
+    ckpt = os.path.join(pre_out, "checkpoints",
+                        f"pre_train_CLIP_{steps:07d}")
+    check(os.path.exists(ckpt), f"stage 2 wrote no {ckpt}")
+    step_ms = statistics.median(times[1:])
+    print(f"[pretrain path] train_net.main(--config CLIPDET_foggy.yaml) at "
+          f"full width, {steps} steps of batch 3 (6 trained images on 608 "
+          f"x 1216, 512 RoIs each) from the CLIP path's CLIP_collect.npz, "
+          f"prototype updates from step {start}, an eval of 4 images: "
+          f"{run_s:.3f} s; ms per step (host clock to a synchronize): "
+          f"median after the first {step_ms:.3f}, all "
+          f"{json.dumps([round(t, 3) for t in times])}; {3000.0 / step_ms:.2f}"
+          f" images/s ({6000.0 / step_ms:.2f} trained views/s); peak device "
+          f"memory {mem:.1f} GiB; trainable tensors moved {len(moved)} of "
+          f"{len(trainable)}; AP50 {ap:.4f}; kernel launches "
+          f"{json.dumps(launches)}")
+    for i, l in enumerate(losses):
+        print(f"  step {i}: " + json.dumps({k: round(v, 5)
+                                            for k, v in l.items()}))
+    pre_model = Checkpointer(pre_out).load_tree(ckpt)["model"]
+
+    # the step by stage, on one batch
+    batch = tr.train_loader._attach_store(tr.train_loader.pack_batch(
+        [0, 5, 9], [False, True, False]))
+    view = lambda v: pre_train.online_view_to_detections(v, dev)
+    args = (torch.from_numpy(batch.images).to(dev),
+            torch.from_numpy(batch.image_hw).to(dev),
+            view(batch.online["RCNN"]), view(batch.online["RPN"]), True)
+    stage_ms = time_stages(
+        torch, lambda on_stage: build(
+            tr.tokens, tr.pcfg, tr.cfg.CLOUD.PROTOTYPE_UPDATE_WEIGHT,
+            tr.prob_weighted, tr.loss_weights, on_stage=on_stage),
+        lambda step: step(tr.state, *args))
+    print(f"[pretrain path] the pre-train step by stage, ms (median of 3 "
+          f"after a warm-up, CUDA events at build_pretrain_step's marks): "
+          f"{json.dumps(stage_ms)}")
+    # the same step on the host clock with no loader thread beside it:
+    # what of the CLI's step time the loader's prefetch thread costs
+    alone = build(tr.tokens, tr.pcfg, tr.cfg.CLOUD.PROTOTYPE_UPDATE_WEIGHT,
+                  tr.prob_weighted, tr.loss_weights)
+    alone_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        alone(tr.state, *args)
+        torch.cuda.synchronize()
+        alone_times.append((time.perf_counter() - t) * 1e3)
+    alone_ms = statistics.median(alone_times[1:])
+    print(f"[pretrain path] the same step with no loader thread running "
+          f"(host clock to a synchronize, median of 3 after a warm-up): "
+          f"{alone_ms:.3f} ms, all "
+          f"{json.dumps([round(t, 3) for t in alone_times])}; in the CLI's "
+          f"run {step_ms:.3f}")
+    del tr, args
+    torch.cuda.empty_cache()
+
+    # stage 3 from the pre-trained weights
+    stage3 = ["--config", os.path.join(
+        REPO, "configs/coin/GDINO/foggy_fast.yaml"), *data,
+        "CLOUD.COLLECT_FILE", os.path.join(root, "GDINO_collect.npz"),
+        "MODEL.WEIGHTS", ckpt, "SOLVER.MAX_ITER", "1",
+        "OUTPUT_DIR", os.path.join(root, "adapt")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coin = _cli(train_net, stage3)
+    torch.cuda.synchronize()
+    coin_s = time.perf_counter() - t0
+    check(isinstance(coin, CoinTrainer) and coin.state.step == 1
+          and coin.model.quant_train_res5 == 1,
+          "stage 3 took no step of foggy_fast.yaml's CoinTrainer")
+    teacher = coin.state.teacher.state_dict()
+    check(all(torch.equal(teacher[k].cpu(), v) for k, v in
+              pre_model.items()),
+          "stage 3: the teacher is not the pre-trained detector")
+    student = dict(coin.state.model.named_parameters())
+    moved3 = [n for n, p in student.items() if p.requires_grad
+              and not torch.equal(p.detach().cpu(), pre_model[n])]
+    check(moved3, "stage 3: the student did not move")
+    print(f"[pretrain path] stage 3: train_net.main(--config "
+          f"foggy_fast.yaml MODEL.WEIGHTS {os.path.basename(ckpt)}): a "
+          f"collection pass and one cached step in {coin_s:.3f} s; the "
+          f"teacher equals the pre-trained weights, {len(moved3)} student "
+          f"tensors moved")
+    del coin
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, images_per_s=3000.0 / step_ms,
+                          peak_gib=mem, stage_ms=stage_ms,
+                          alone_ms=alone_ms)
 
 
 def main() -> int:
@@ -3708,6 +4037,8 @@ def main() -> int:
                      nms_sorted_cuda, fusion_nms_cuda]
     preprocess_counters = [resize_bilinear_cuda, normalize_flip_cuda]
     clip_counters = [roi_align_cuda, normalize_cuda]
+    pretrain_counters = [augment_cuda, nms_sorted_cuda, roi_align_cuda,
+                         roi_align_backward_cuda, normalize_cuda]
     gen = torch.Generator().manual_seed(SEED)
     with torch.inference_mode():
         kernels = [phase_roi_align(torch, dev, gen),
@@ -3739,6 +4070,7 @@ def main() -> int:
     phase_step_reference(torch, dev, num_classes, tokens, int8=True)
     phase_step_reference(torch, dev, num_classes, tokens, int8=True,
                          int8_roi=True)
+    phase_pretrain_reference(torch, dev, num_classes, tokens)
     eval_launches, _ = phase_main_path(torch, dev, cfg, num_classes, tokens,
                                        eval_counters)
     torch.cuda.empty_cache()
@@ -3769,7 +4101,7 @@ def main() -> int:
                    sys.argv[sys.argv.index("--save-rois") + 1])
     with torch.inference_mode():
         next(k for k in kernels if k["name"] == "roi_align_bwd").update(
-            k1b_on_trainer_rois(torch, dev, rec))
+            k1b_on_recorded_rois(torch, dev, rec))
         next(k for k in kernels if k["name"] == "roi_align_int8_bwd").update(
             k5b_on_trainer_rois(torch, dev, rec))
         k1 = next(k for k in kernels if k["name"] == "roi_align")
@@ -3797,6 +4129,9 @@ def main() -> int:
     import tempfile
     from coin_tpu_torch.models.manifests import clip_assets
     tmp = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    # stages 1b, 2 and 3 share the 12 images and the stores in clip_root
+    clip_root = os.path.join(REPO, "output", "chip_smoke_clip")
+    shutil.rmtree(clip_root, ignore_errors=True)
     try:
         t0 = time.perf_counter()
         ckpt, bpe = clip_assets(tmp, CITYSCAPES_CLASSES,
@@ -3807,9 +4142,30 @@ def main() -> int:
         phase_clip_reference(torch, dev, ckpt)
         clip_launches, _ = phase_clip_path(torch, dev, ckpt, bpe,
                                            collect_info.pop("store"),
-                                           clip_counters)
+                                           clip_counters, clip_root)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        # K1 and K1b on the pre-train's first step, as on the trainer's
+        rec_pre, restore_pre = record_first_call(troi, "roi_align_backward")
+        rec_pre_fwd, restore_pre_fwd = record_first_call(
+            troi, "_forward", lambda f, rois: f.requires_grad)
+        try:
+            pretrain_launches, _ = phase_pretrain_path(
+                torch, dev, clip_root, pretrain_counters)
+        finally:
+            restore_pre_fwd()
+            restore_pre()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(clip_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        next(k for k in kernels if k["name"] == "roi_align_bwd").update(
+            k1b_on_recorded_rois(torch, dev, rec_pre, "pretrain"))
+        next(k for k in kernels if k["name"] == "roi_align").update(
+            k1_on_recorded_rois(torch, dev, rec_pre_fwd, "pretrain",
+                                SEED + 16))
+    del rec_pre, rec_pre_fwd
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sd = glip_checkpoint(torch)
@@ -3848,7 +4204,8 @@ def main() -> int:
              "eval": eval_launches, "collect": collect_launches,
              "collect_glip": glip_launches, "int8_roi_trainer": roi_launches,
              "share_crops": trainer["share_launches"],
-             "bench_preprocess": pre_launches, "clip_rescore": clip_launches}
+             "bench_preprocess": pre_launches, "clip_rescore": clip_launches,
+             "pretrain": pretrain_launches}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
                   "fusion_nms": "collect", "deform_conv": "collect_glip",
                   "roi_align_int8": "int8_roi_trainer",

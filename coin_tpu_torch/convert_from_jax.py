@@ -26,12 +26,14 @@ embedding a raw parameter) into ``models.clip_scorer.CLIPScorer``, and an
 attnpool detector's tree into ``OpenVocabularyRCNN(pooling="attnpool")``.
 ``load_jax_params`` loads any of them strictly.
 
-``load_train_state`` carries a whole JAX ``TrainState`` of the adaptation
-step (its fields as numpy arrays) into the port's ``TrainState``.
+``load_train_state`` carries a whole JAX ``TrainState`` (its fields as
+numpy arrays) into the port's ``TrainState``: the adaptation step's, or
+the pre-train step's, whose teacher and CKG fields are None.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -72,8 +74,13 @@ def from_jax_variables(variables: Mapping[str, Any]
                 walk(v, p)
                 continue
             key = ".".join(p[:-1] + (_RENAME.get(k, k),))
-            arr = np.ascontiguousarray(_convert(p, np.asarray(v)))
-            out[key] = torch.from_numpy(arr.astype(np.float32))
+            view = _convert(p, np.asarray(v, dtype=np.float32))
+            with warnings.catch_warnings():
+                # a read-only buffer: the clone below owns its copy
+                warnings.simplefilter("ignore", UserWarning)
+                t = torch.from_numpy(view)
+            # torch copies a permuted view far faster than numpy does
+            out[key] = t.clone(memory_format=torch.contiguous_format)
 
     walk(tree, ())
     return out
@@ -123,22 +130,30 @@ def _load_optimizer(opt, opt_state) -> None:
 
 @torch.no_grad()
 def load_train_state(state, jstate: Any) -> Any:
-    """Load a JAX adaptation ``TrainState`` (``jax.device_get`` of it, or
-    any object with its fields as numpy trees) into the port's
+    """Load a JAX ``TrainState`` (``jax.device_get`` of it, or any object
+    with its fields as numpy trees) into the port's
     ``engine.state.TrainState`` ``state``, built for the same model and
     config: student parameters and frozen leaves, SGD momentum and update
-    count, the EMA teacher, the prototypes, the CKG parameters with their
-    momentum and count, and the step number."""
+    count, the prototypes and the step number; and, for the adaptation
+    step's state, the EMA teacher and the CKG parameters with their
+    momentum and count. A pre-train state (the JAX ``PRETrainer``'s) has
+    None there, and so must ``state``."""
+    pretrain = jstate.teacher_params is None
+    if pretrain != (state.teacher is None):
+        raise ValueError("a pre-train state loads only into a pre-train "
+                         "state, an adaptation state into an adaptation "
+                         "state")
     dev = next(state.model.parameters()).device
     student = from_jax_variables(_merge_trees(jstate.params, jstate.frozen))
     state.model.load_state_dict(student, strict=True)
-    teacher = from_jax_variables(_merge_trees(jstate.teacher_params,
-                                              jstate.frozen))
-    state.teacher.load_state_dict(teacher, strict=True)
-    state.merge_model.load_state_dict(from_jax_variables(
-        jstate.merge_params), strict=True)
+    if not pretrain:
+        teacher = from_jax_variables(_merge_trees(jstate.teacher_params,
+                                                  jstate.frozen))
+        state.teacher.load_state_dict(teacher, strict=True)
+        state.merge_model.load_state_dict(from_jax_variables(
+            jstate.merge_params), strict=True)
+        _load_optimizer(state.merge_optimizer, jstate.merge_opt_state)
     _load_optimizer(state.optimizer, jstate.opt_state)
-    _load_optimizer(state.merge_optimizer, jstate.merge_opt_state)
     p = jstate.prototypes
     state.prototypes = type(state.prototypes)(
         *(torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)

@@ -178,7 +178,8 @@ class TrainLoader(_BaseLoader):
 
     def __init__(self, dataset_name: str, root: str, batch_size: int = 3,
                  seed: int = 2024, flip: bool = True, prefetch: int = 2,
-                 store=None, store_cap: int = 128, **kw):
+                 store=None, store_cap: int = 128,
+                 store_thresh: Optional[float] = None, **kw):
         super().__init__(dataset_name, root, **kw)
         self.batch_size = batch_size
         self.rng = np.random.RandomState(seed)
@@ -186,16 +187,18 @@ class TrainLoader(_BaseLoader):
         self.prefetch = prefetch
         self.store = store
         self.store_cap = store_cap
+        self.store_thresh = store_thresh
 
     def _attach_store(self, batch: Batch) -> Batch:
         """Pack the cached cloud results of each image, rescaled and
-        flipped to the canvas."""
+        flipped to the canvas (only rows scoring ``store_thresh`` or more
+        when it is set)."""
         views = {}
         for view in ("RCNN", "RPN"):
             per_img = [self.store.pack_view(
                 batch.image_ids[j], view, self.store_cap,
                 float(batch.scale[j]), bool(batch.flip[j]),
-                float(batch.image_hw[j][1]))
+                float(batch.image_hw[j][1]), self.store_thresh)
                 for j in range(len(batch.image_ids))]
             views[view] = {k: np.stack([p[k] for p in per_img])
                            for k in per_img[0]}

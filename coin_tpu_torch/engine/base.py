@@ -11,6 +11,7 @@ item 22. ``pipeline_config_from`` and ``loss_weights_from`` stay in
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -25,6 +26,7 @@ from coin_tpu_torch.engine.clip_setup import (load_clip_into_model,
                                               template_prototypes)
 from coin_tpu_torch.engine.common import MetricLogger
 from coin_tpu_torch.engine.evaluator import evaluate_detector
+from coin_tpu_torch.engine.results_store import ResultStore
 
 logger = logging.getLogger(__name__)
 
@@ -42,6 +44,19 @@ def check_ported(cfg) -> None:
         if cfg.get_path(key, None):
             raise NotImplementedError(f"{key} is set, but {what} is not "
                                       f"ported yet")
+
+
+def load_collect_store(cfg, trainer: str) -> ResultStore:
+    """The cached cloud results that ``CLOUD.COLLECT_FILE`` names (a
+    ResultStore .npz), for ``trainer``."""
+    path = cfg.get_path("CLOUD.COLLECT_FILE", "")
+    if path and os.path.exists(path):
+        logger.info("loading collect store: %s", path)
+        return ResultStore.load(path)
+    raise FileNotFoundError(
+        f"{trainer} needs cached cloud results: set CLOUD.COLLECT_FILE to "
+        f"a ResultStore .npz (written by the collection pass) or pass "
+        f"store=")
 
 
 # the port trains on one device until the data-parallel trainer (ROADMAP

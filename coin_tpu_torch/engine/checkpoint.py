@@ -6,9 +6,11 @@ coin_tpu/engine/checkpoint.py, with its names and paths:
 A checkpoint is one ``torch.save`` file holding everything a resumed run
 needs to continue bit for bit: the student, teacher and CKG state dicts,
 both optimizers (update count and momentum), the prototypes, the step and
-the state of the step's random generator. Orbax checkpoints of the JAX
-package are not read; ``convert_from_jax.load_train_state`` carries a JAX
-state over in memory.
+the state of the step's random generator. A pre-train state has no
+teacher, CKG net or merge optimizer, and its checkpoint no such entries;
+``CoinTrainer`` starts from one through ``MODEL.WEIGHTS``. Orbax
+checkpoints of the JAX package are not read;
+``convert_from_jax.load_train_state`` carries a JAX state over in memory.
 """
 
 from __future__ import annotations
@@ -35,30 +37,40 @@ def _optimizer_tree(opt) -> dict:
 
 
 def state_tree(state) -> dict:
-    """The port's TrainState as a tree of CPU tensors and numbers."""
+    """The port's TrainState as a tree of CPU tensors and numbers (without
+    the entries of the fields that a pre-train state leaves None)."""
     p = state.prototypes
-    return {"model": _cpu(state.model.state_dict()),
-            "teacher": _cpu(state.teacher.state_dict()),
-            "merge_model": _cpu(state.merge_model.state_dict()),
+    tree = {"model": _cpu(state.model.state_dict()),
             "optimizer": _optimizer_tree(state.optimizer),
-            "merge_optimizer": _optimizer_tree(state.merge_optimizer),
             "prototypes": {"proto": p.proto.detach().cpu().clone(),
                            "b_online": p.b_online.detach().cpu().clone(),
                            "b_offline": p.b_offline.detach().cpu().clone()},
             "step": int(state.step),
             "generator": state.generator.get_state()}
+    if state.teacher is not None:
+        tree.update(teacher=_cpu(state.teacher.state_dict()),
+                    merge_model=_cpu(state.merge_model.state_dict()),
+                    merge_optimizer=_optimizer_tree(state.merge_optimizer))
+    return tree
 
 
 @torch.no_grad()
 def load_state_tree(state, tree: dict):
     """Load ``tree`` (from :func:`state_tree`) into ``state`` in place:
     parameters are copied into the existing tensors, so modules that share
-    them (an int8 clone) see the restored values."""
+    them (an int8 clone) see the restored values. A pre-train tree loads
+    into a pre-train state, an adaptation tree into an adaptation state."""
+    if ("teacher" in tree) != (state.teacher is not None):
+        raise ValueError("a pre-train checkpoint restores only a pre-train "
+                         "state (start CoinTrainer from one through "
+                         "MODEL.WEIGHTS)")
     state.model.load_state_dict(tree["model"])
-    state.teacher.load_state_dict(tree["teacher"])
-    state.merge_model.load_state_dict(tree["merge_model"])
-    for opt, t in ((state.optimizer, tree["optimizer"]),
-                   (state.merge_optimizer, tree["merge_optimizer"])):
+    opts = [(state.optimizer, tree["optimizer"])]
+    if state.teacher is not None:
+        state.teacher.load_state_dict(tree["teacher"])
+        state.merge_model.load_state_dict(tree["merge_model"])
+        opts.append((state.merge_optimizer, tree["merge_optimizer"]))
+    for opt, t in opts:
         opt.count = int(t["count"])
         opt.set_momentum_buffers(t["momentum"])
     dev = state.prototypes.proto.device

@@ -1,6 +1,6 @@
-"""The final-adaptation losses of the student, the CKG merge losses and the
-prototype updates (counterpart of coin_tpu/engine/coin_pipelines.py:
-27-348; ``pretrain_losses`` belongs to the pre-train slice).
+"""The pre-train losses, the final-adaptation losses of the student, the
+CKG merge losses and the prototype updates (counterpart of
+coin_tpu/engine/coin_pipelines.py:27-348).
 
 Random draws come in as tensors: the RPN and ROI subsampling priorities
 (``engine/step_builder.draw_step``).
@@ -8,7 +8,7 @@ Random draws come in as tensors: the RPN and ROI subsampling priorities
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ from coin_tpu_torch.engine.state import Prototypes, prototype_ema
 from coin_tpu_torch.models import roi_heads as rh
 from coin_tpu_torch.models import rpn as rpn_lib
 from coin_tpu_torch.ops import losses as L
+from coin_tpu_torch.structures import Detections
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -45,6 +46,64 @@ class StudentForward(NamedTuple):
     c_scores: torch.Tensor           # (Rc, C+1) private-box scores
     c_probs: torch.Tensor            # (Rc, C+1) distillation targets
     c_valid: torch.Tensor            # (Rc,)
+
+
+def pretrain_losses(model, images: torch.Tensor, images_hw: torch.Tensor,
+                    rcnn: Detections, rpn_gt: Detections,
+                    proto: torch.Tensor, class_tokens: torch.Tensor,
+                    rpn_priorities: torch.Tensor,
+                    roi_priorities: torch.Tensor,
+                    cfg: pipelines.PipelineConfig, update_prototype: bool,
+                    prototype_rate: float = 0.9996,
+                    prob_weighted: bool = False,
+                    loss_weights: Optional[Dict[str, float]] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The pre-train branch: the cached cloud RCNN detections supervise the
+    heads (MIL CE, gated on any sampled foreground, and box regression on
+    the offline classes), the cached RPN view the RPN; the text-align loss;
+    and the prototype EMA over the foreground and background rows when
+    ``update_prototype``. ``rpn_priorities`` (B, 2, anchors) and
+    ``roi_priorities`` (B, 2, P + Na) are the subsampling draws. Returns
+    (weighted losses, new prototypes)."""
+    feats = model.features(images)
+    anchors = pipelines.anchors_for(images, cfg)
+    obj, rpn_deltas, proposals = pipelines.rpn_forward(
+        model, feats, images_hw, anchors, cfg, train=True)
+    targets = rpn_lib.label_anchors(
+        anchors, rpn_gt, None, rpn_priorities, cfg.rpn_batch_size,
+        cfg.rpn_positive_fraction, cfg.rpn_thresholds)
+    losses = rpn_lib.rpn_losses(anchors, obj, rpn_deltas, targets,
+                                cfg.rpn_batch_size)
+    sp = rh.sample_proposals(
+        proposals, rcnn, None, None, cfg.num_classes, roi_priorities,
+        cfg.roi_batch_size, cfg.roi_positive_fraction, cfg.roi_iou_threshold)
+
+    pooled = model.pool_boxes(feats, sp.boxes, cfg.pooler_resolution)
+    text = model.text_features(class_tokens)
+    scores, deltas, class_feats = model.predict(pooled, text)
+
+    sp_f = rh.SampledProposals(*[_flat(x) for x in sp])
+    scores_f = _flat(scores)
+    losses["loss_text_align"] = text_align_loss(text, proto)
+    cw = (torch.tensor(cfg.classes_weight, device=scores_f.device)
+          if cfg.classes_weight else None)
+    any_fg = (sp_f.group == rh.GROUP_A).any()
+    losses["loss_cls"] = torch.where(any_fg, rh.classification_loss(
+        scores_f, sp_f, cfg.num_classes, cfg.bg_weight, cfg.loss_type,
+        classes_weight=cw, prob_weighted=prob_weighted),
+        scores_f.new_zeros(()))
+    losses["loss_box_reg"] = rh.box_reg_loss(
+        sp_f, _flat(deltas), cfg.num_classes, use_online_classes=False)
+
+    new_proto = proto
+    if update_prototype:
+        with torch.no_grad():
+            rows = (sp_f.group == rh.GROUP_A) | (sp_f.group == rh.GROUP_BG)
+            new_proto = prototype_ema(
+                proto, _normalize(_flat(class_feats).detach()),
+                rh.one_hot_c1(sp_f.cls_offline, cfg.num_classes), rows,
+                prototype_rate)
+    return apply_loss_weights(losses, loss_weights), new_proto
 
 
 def student_forward(model, images: torch.Tensor, images_hw: torch.Tensor,

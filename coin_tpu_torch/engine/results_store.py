@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -65,15 +65,21 @@ class ResultStore:
                               (f"{view}_probs", "probs")]}
 
     def pack_view(self, image_id: str, view: str, capacity: int,
-                  scale: float, flip: bool, canvas_w: float
+                  scale: float, flip: bool, canvas_w: float,
+                  score_thresh: Optional[float] = None
                   ) -> Dict[str, np.ndarray]:
         """Padded arrays in canvas coordinates (the loader-side equivalent
-        of BASE_Trainer.process, coin/engine/base.py:80-126: rescale and
-        hflip)."""
+        of BASE_Trainer.process, coin/engine/base.py:80-126: rescale,
+        hflip, and with ``score_thresh`` only the rows scoring at least
+        that)."""
         rec = self.get_view(image_id, view)
         boxes = rec["boxes"] * scale
         classes, scores, probs = (rec["classes"], rec["scores"],
                                   rec["probs"])
+        if score_thresh is not None:
+            keep = scores >= score_thresh
+            boxes, classes = boxes[keep], classes[keep]
+            scores, probs = scores[keep], probs[keep]
         if flip and len(boxes):
             flipped = boxes.copy()
             flipped[:, 0] = canvas_w - boxes[:, 2]

@@ -10,6 +10,8 @@ the state is a set of modules and optimizers updated in place:
   parameters follow the EMA and whose frozen leaves equal the student's;
 - ``merge_model`` and the two optimizers, the prototypes, the step count
   and the generator of the step's random draws.
+The pre-train step's state has no teacher, CKG net or merge optimizer
+(None), as the JAX ``PRETrainer``'s ``TrainState`` has none.
 Buffer donation (``jit_train_step``) has no counterpart: updates are in
 place.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -110,10 +112,10 @@ def prototype_ema(current: torch.Tensor, feats: torch.Tensor,
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
-    teacher: nn.Module
-    merge_model: nn.Module
+    teacher: Optional[nn.Module]
+    merge_model: Optional[nn.Module]
     optimizer: ScheduledSGD
-    merge_optimizer: ScheduledSGD
+    merge_optimizer: Optional[ScheduledSGD]
     prototypes: Prototypes
     step: int
     generator: torch.Generator

@@ -70,14 +70,22 @@ def num_candidates(cfg: pipelines.PipelineConfig, num_online: int,
     return cfg.post_nms_topk_train + 2 * num_online + num_offline
 
 
+def num_anchors(cfg: pipelines.PipelineConfig, hh: int, ww: int) -> int:
+    """Anchors of one (hh, ww) canvas at the RPN's stride."""
+    return (hh // cfg.stride) * (ww // cfg.stride) * cell_anchors().shape[0]
+
+
 def draw_step(generator: torch.Generator, batch: int, num_anchors: int,
-              candidates: int) -> StepDraws:
+              candidates: int, views: int = 1) -> StepDraws:
+    """The strong view's (batch, 9) values, then the (pos, neg) priorities
+    of the ``views`` x ``batch`` trained images (the pre-train trains the
+    strong and the weak view: ``views=2``)."""
     dev = generator.device
     return StepDraws(
         augment=draw_augment(generator, batch),
-        rpn=torch.rand((batch, 2, num_anchors), generator=generator,
+        rpn=torch.rand((views * batch, 2, num_anchors), generator=generator,
                        device=dev),
-        roi=torch.rand((batch, 2, candidates), generator=generator,
+        roi=torch.rand((views * batch, 2, candidates), generator=generator,
                        device=dev))
 
 
@@ -203,10 +211,8 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
 
     def draws_for(state, images_u8, online, offline_cap):
         b, hh, ww, _ = images_u8.shape
-        anchors = (hh // pcfg.stride) * (ww // pcfg.stride) \
-            * cell_anchors().shape[0]
-        return draw_step(state.generator, b, anchors, num_candidates(
-            pcfg, online.capacity, offline_cap))
+        return draw_step(state.generator, b, num_anchors(pcfg, hh, ww),
+                         num_candidates(pcfg, online.capacity, offline_cap))
 
     def ema(state):
         step_two = state.step >= h.burn_up

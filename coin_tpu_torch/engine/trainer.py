@@ -27,7 +27,8 @@ from coin_tpu_torch.data.loader import TestLoader, TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import pipelines
 from coin_tpu_torch.engine.base import (NUM_WORKERS, DetectorTrainerBase,
-                                        auto_scale_workers, check_ported)
+                                        auto_scale_workers, check_ported,
+                                        load_collect_store)
 from coin_tpu_torch.engine.common import lr_value
 from coin_tpu_torch.engine.pre_train import online_view_to_detections
 from coin_tpu_torch.engine.results_store import ResultStore
@@ -45,7 +46,7 @@ class CoinTrainer(DetectorTrainerBase):
         cfg = auto_scale_workers(cfg, NUM_WORKERS)
         check_ported(cfg)
         if store is None:
-            store = self._load_store(cfg)
+            store = load_collect_store(cfg, "CoinTrainer")
         loader = TrainLoader(
             cfg.DATASETS.TRAIN_UNLABEL[0], cfg.DATASETS.ROOT,
             batch_size=cfg.SOLVER.IMG_PER_BATCH_UNLABEL, seed=cfg.SEED,
@@ -77,14 +78,6 @@ class CoinTrainer(DetectorTrainerBase):
         self._collect_loader = None
         self.ap_50_student = {}
         self.ap_50_offline_teacher = {}
-
-    @staticmethod
-    def _load_store(cfg) -> ResultStore:
-        path = cfg.get_path("CLOUD.COLLECT_FILE", "")
-        if path and os.path.exists(path):
-            return ResultStore.load(path)
-        raise FileNotFoundError(
-            "CoinTrainer needs cached cloud results (CLOUD.COLLECT_FILE)")
 
     # ------------------------------------------------------------- #
     @torch.no_grad()

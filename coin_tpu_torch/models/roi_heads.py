@@ -159,13 +159,20 @@ def one_hot_c1(classes: torch.Tensor, num_classes: int) -> torch.Tensor:
 def classification_loss(scores: torch.Tensor, sp: SampledProposals,
                         num_classes: int, bg_weight: float,
                         loss_type: str = "MILCrossEntropy",
-                        classes_weight: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        classes_weight: Optional[torch.Tensor] = None,
+                        prob_weighted: bool = False) -> torch.Tensor:
     """MIL CE (or, by CLOUD.LOSS_TYPE, MIL focal) over fg (A) and bg rows.
-    The pre-train slice's probability-weighted variant is not ported."""
+    ``prob_weighted`` is clipart's variant (``class_cross_loss1``): the
+    fg targets scaled by their largest offline probability, MIL CE without
+    averaging over the positives."""
     rows = (sp.group == GROUP_A) | (sp.group == GROUP_BG)
     target = one_hot_c1(sp.cls_offline, num_classes)
     weights = torch.where(sp.group == GROUP_BG, bg_weight, 1.0)
+    if prob_weighted:
+        scale = torch.where(sp.group == GROUP_A,
+                            sp.probs_offline.amax(-1), 1.0)
+        return L.mil_cross_entropy(scores, target * scale[:, None], rows,
+                                   weights=weights, avg_positives=False)
     if loss_type == "MILFocalLoss":
         return L.mil_focal_loss(scores, target, rows, alpha=classes_weight,
                                 avg_positives=True)

@@ -13,8 +13,10 @@ in the activation's dtype. ``int8_conv`` (K2s) is the serving forward.
 
 On a CUDA tensor each step runs a kernel (``kernels/qconv.py``); on a CPU
 tensor its plain version here. The plain versions compute the integer sums
-exactly (an f64 convolution of the s8 values: every partial sum is an
-integer below 2**53), wrap them to s32 as XLA's accumulator does, and
+exactly (on the CPU one s8 matrix product of the conv's taps,
+``torch._int_mm``, while no sum can reach 2**31; else an f64 convolution
+of the s8 values: every partial sum is an integer below 2**53), wrap them
+to s32 as XLA's accumulator does, and
 apply the rescale in the kernel's order. Every step is the IEEE operation
 the JAX source writes, in its order: the scale is max(amax, 1e-12) / 127,
 correctly rounded. (Under ``jit`` XLA rewrites that division into a product
@@ -25,6 +27,8 @@ are NHWC at these functions, as in the JAX package; weights are the port's
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -81,25 +85,28 @@ def quantize_weight_pair_plain(w: torch.Tensor):
     return (*quantize_weight_plain(w), *quantize_weight_plain(w, True))
 
 
-# f32 holds every integer below 2**24 exactly, so an f32 convolution of s8
-# values is exact while no partial sum can pass it: K terms of at most
-# 15 * 127 after splitting one operand into 16 * hi + lo
-_F32_TERMS = 2 ** 24 // (15 * 127)
+# an s32 sum of K products of s8 values cannot wrap while K * 128 * 128 <
+# 2**31: an s8 matrix product (torch._int_mm) then gives the exact sum
+_S32_TERMS = 2 ** 31 // (128 * 128) - 1
 
 
-def _exact_sum(conv, a: torch.Tensor, b: torch.Tensor, terms: int):
-    """``conv(a, b)`` of two s8 tensors as exact integers in f64. On the
-    card one f64 convolution; on the CPU, where f64 convolutions are slow,
-    two f32 ones over a = 16 * hi + lo (``terms`` bounds the number of
-    products in one sum)."""
-    if a.is_cuda or terms > _F32_TERMS:
-        return conv(a.double(), b.double())
-    a = a.to(torch.int16)
-    hi = torch.div(a, 16, rounding_mode="floor")
-    lo = a - 16 * hi
-    b = b.float()
-    return (16 * conv(hi.float(), b).double()
-            + conv(lo.float(), b).double())
+def _im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
+    """(N, H, W, C) → (N, Ho, Wo, k * k * C): each output position's taps
+    of a k x k conv, zero-padded by ``pad``, in the (row, column, channel)
+    order of an (O, k, k, C) kernel."""
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    n, h, w, c = x.shape
+    ho, wo = (h - k) // stride + 1, (w - k) // stride + 1
+    taps = [x[:, i:i + stride * (ho - 1) + 1:stride,
+              j:j + stride * (wo - 1) + 1:stride]
+            for i in range(k) for j in range(k)]
+    return torch.stack(taps, 3).reshape(n, ho, wo, k * k * c)
+
+
+def _s32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) of s8 tensors on the CPU as exact int32 sums."""
+    return torch._int_mm(a.contiguous(), b.contiguous())
 
 
 def _wrap_s32(acc: torch.Tensor) -> torch.Tensor:
@@ -119,27 +126,39 @@ def qconv_plain(xq: torch.Tensor, wq: torch.Tensor, row_scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of the s8 convolution: xq (N, H, W, C), wq
     (O, k, k, C) → (N, Ho, Wo, O) = f32(s32 sum) * (row_scale *
-    col_scale), row_scale (1,) or (N,), rounded to ``out_dtype``."""
-    conv = lambda a, b: F.conv2d(a, b, stride=stride, padding=pad)
-    acc = _exact_sum(conv, xq.permute(0, 3, 1, 2), wq.permute(0, 3, 1, 2),
-                     wq[0].numel()).permute(0, 2, 3, 1)
+    col_scale), row_scale (1,) or (N,), rounded to ``out_dtype``. On the
+    CPU one s8 matrix product of the taps."""
     rs = row_scale.float().reshape(-1, 1, 1, 1)
+    o, k = wq.shape[:2]
+    if not xq.is_cuda and wq[0].numel() <= _S32_TERMS:
+        cols = _im2col(xq, k, stride, pad)
+        acc = _s32_matmul(cols.reshape(-1, cols.shape[-1]),
+                          wq.reshape(o, -1).t())
+        return _rescale(acc.reshape(cols.shape[:3] + (o,)), rs,
+                        col_scale.float()).to(out_dtype)
+    # on the card (the kernels' comparisons) or past s32's range: the
+    # exact integer sums in f64, wrapped to s32
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                   wq.permute(0, 3, 1, 2).double(), stride=stride,
+                   padding=pad).permute(0, 2, 3, 1)
     return _rescale(_wrap_s32(acc), rs, col_scale.float()).to(out_dtype)
 
 
 def qconv_wgrad_s32_plain(xq: torch.Tensor, gq: torch.Tensor,
                           k: int) -> torch.Tensor:
     """The s32 sums of the s8 weight gradient of a stride-1 'same' conv:
-    xq (N, H, W, I), gq (N, H, W, O) → (O, I, k, k) int32, wrapped."""
+    xq (N, H, W, I), gq (N, H, W, O) → (O, I, k, k) int32, wrapped. On
+    the CPU one s8 matrix product of the gradient and the taps."""
     shape = (gq.shape[-1], xq.shape[-1], k, k)
-    conv = lambda a, b: torch.nn.grad.conv2d_weight(a, shape, b, stride=1,
-                                                    padding=k // 2)
-    x, g = xq.permute(0, 3, 1, 2), gq.permute(0, 3, 1, 2)
-    per = max(_F32_TERMS // (x.shape[2] * x.shape[3]), 1)  # samples a sum
-    acc = sum(_exact_sum(conv, x[i:i + per], g[i:i + per],
-                         per * x.shape[2] * x.shape[3])
-              for i in range(0, x.shape[0], per))
-    return _wrap_s32(acc)
+    if not xq.is_cuda and math.prod(xq.shape[:3]) <= _S32_TERMS:
+        cols = _im2col(xq, k, 1, k // 2)
+        dw = _s32_matmul(gq.reshape(-1, shape[0]).t(),
+                         cols.reshape(-1, cols.shape[-1]))
+        return dw.reshape(shape[0], k, k, shape[1]).permute(0, 3, 1, 2) \
+            .contiguous()
+    return _wrap_s32(torch.nn.grad.conv2d_weight(
+        xq.permute(0, 3, 1, 2).double(), shape,
+        gq.permute(0, 3, 1, 2).double(), stride=1, padding=k // 2))
 
 
 def wgrad_image_block(k: int) -> int:

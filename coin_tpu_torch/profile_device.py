@@ -1,7 +1,8 @@
 """Kernel-level profile of the port on one CUDA card.
 
     python -m coin_tpu_torch.profile_device
-        [--path eval|train|collect|collect_glip|clip] [--iters 5]
+        [--path eval|train|pretrain|collect|collect_glip|clip]
+        [--iters 5]
         [--int8-roi]
 
 ``--path eval``: the full-width bf16 detector of
@@ -19,6 +20,11 @@ budget as the cached ones), with the optimizers past warmup. With
 ``--int8-roi``, the int8train_ps_roi configuration instead: per-sample
 int8 res5 without the int8 wgrad (TPU.INT8_TRAIN_SCALE sample,
 INT8_TRAIN_WGRAD false) and the int8 RoIAlign (TPU.INT8_ROI: K5, K5b).
+
+``--path pretrain``: ``--iters`` pre-train steps of
+configs/coin/PRETRAINS/CLIPDET_foggy.yaml at full width (bf16, batch 3
+trained as 6 views on the 608 x 1216 canvas, 128 synthetic cloud boxes
+per image, the prototype update on, the optimizer past warmup).
 
 ``--path collect``: ``--iters`` collection batches of the GDINO cloud
 teacher of foggy_fast.yaml at full width (Swin-B, 900 queries, 6 + 6
@@ -196,6 +202,35 @@ def train_calls(device, config="GDINO/foggy_fast.yaml", tpu=None):
             "collect": collect, "batch": b}
 
 
+def pretrain_call(device):
+    """One pre-train step of CLIPDET_foggy.yaml at full width, as a closure
+    over one state and one batch."""
+    from coin_tpu_torch.engine import pre_train
+    cfg = load_config(os.path.join(CONFIGS, "PRETRAINS/CLIPDET_foggy.yaml"))
+    num_classes = len(CITYSCAPES_CLASSES)
+    pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    model = pipelines.build_detector(cfg, num_classes, device)
+    model.random_init(SEED)
+    tokens = torch.as_tensor(simple_class_tokens(num_classes + 1),
+                             device=device).long()
+    with torch.no_grad():
+        proto0 = model.text_features(tokens).float()
+    state = pre_train.init_pretrain_state(cfg, model, SEED, proto0)
+    state.optimizer.count = cfg.SOLVER.WARMUP_ITERS
+    step = pre_train.build_pretrain_step(
+        tokens, pcfg, cfg.CLOUD.PROTOTYPE_UPDATE_WEIGHT, False,
+        pipelines.loss_weights_from(cfg))
+    gen = torch.Generator().manual_seed(SEED)
+    b, (h, w) = cfg.SOLVER.IMG_PER_BATCH_UNLABEL, cfg.TPU.IMAGE_HW
+    images_u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(device)
+    image_hw = torch.tensor([[h, w]] * b, dtype=torch.float32, device=device)
+    rcnn, rpn = (synthetic_detections(gen, b, cfg.TPU.CAP_TEACHER,
+                                      num_classes, (h, w), [48] * b)
+                 .map(lambda t: t.to(device)) for _ in range(2))
+    return lambda: step(state, images_u8, image_hw, rcnn, rpn, True)
+
+
 def _vocab_tokenizer():
     """A WordPiece tokenizer over the Foggy Cityscapes class words."""
     import tempfile
@@ -315,7 +350,8 @@ def profile_calls(path: str, iters: int, device="cuda",
         call = train_calls(device, tpu=INT8_PS_ROI if int8_roi
                            else None)["cached"]
     else:
-        call = {"eval": eval_call, "collect": collect_call,
+        call = {"eval": eval_call, "pretrain": pretrain_call,
+                "collect": collect_call,
                 "collect_glip": collect_glip_call,
                 "clip": clip_call}[path](device)
     for _ in range(2):
@@ -340,8 +376,9 @@ def profile_calls(path: str, iters: int, device="cuda",
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("eval", "train", "collect",
-                                           "collect_glip", "clip"),
+    parser.add_argument("--path", choices=("eval", "train", "pretrain",
+                                           "collect", "collect_glip",
+                                           "clip"),
                         default="eval")
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--int8-roi", action="store_true",
@@ -354,6 +391,8 @@ def main() -> int:
             "train": "one train_step_cached (3 images, bf16, "
                      + ("per-sample int8 res5, int8 RoIAlign)"
                         if args.int8_roi else "int8 res5)"),
+            "pretrain": "one pre-train step (3 images trained as 6 "
+                        "views, bf16)",
             "collect": "one GDINO collection batch (4 images, bf16, fusion "
                        "NMS)",
             "collect_glip": "one GLIP-L collection batch (4 images, bf16 "

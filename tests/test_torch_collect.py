@@ -391,10 +391,13 @@ def test_unported_paths_raise(assets, glip_cfgs):
 
 
 def test_entry_points_raise_without_cuda(assets, glip_cfgs, monkeypatch):
-    """The collection path runs on the card unless the caller passes
-    device="cpu"; without one it raises, never falling back."""
-    from coin_tpu_torch.engine.pre_train import online_view_to_detections
+    """The collection path, the pre-train trainer and the train/eval CLI
+    run on the card unless the caller passes device="cpu" (``--device
+    cpu``); without one they raise, never falling back."""
+    from coin_tpu_torch.engine.pre_train import (PRETrainer,
+                                                 online_view_to_detections)
     from coin_tpu_torch.tools import collect as cli
+    from coin_tpu_torch.tools import train_net
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tl = _loaders(assets)[1]
     view = {k: np.zeros((1, 2) + s, t) for k, s, t in (
@@ -412,7 +415,9 @@ def test_entry_points_raise_without_cuda(assets, glip_cfgs, monkeypatch):
             lambda: ttest.CloudLiveEvalTrainer(assets["cfg"]),
             lambda: online_view_to_detections(view),
             lambda: cli.main(["--config", assets["yaml"],
-                              "--synthetic-teacher"])):
+                              "--synthetic-teacher"]),
+            lambda: PRETrainer(assets["cfg"]),
+            lambda: train_net.main(["--config", assets["yaml"]])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

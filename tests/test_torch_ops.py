@@ -353,9 +353,9 @@ def test_normalize_batch_every_value_matches_jax(constants):
 
 # ------------------------------------------- package and device contract
 def test_port_imports_nothing_of_jax_or_coin_tpu():
-    """Every module of coin_tpu_torch (the K10 and CLIP modules named)
-    imports in a fresh interpreter without pulling in jax, flax or
-    coin_tpu."""
+    """Every module of coin_tpu_torch (the K10, CLIP, pre-train and CLI
+    modules named) imports in a fresh interpreter without pulling in jax,
+    flax or coin_tpu."""
     code = """
 import pkgutil, importlib, sys
 import coin_tpu_torch
@@ -370,7 +370,8 @@ assert len(names) >= 20, names
 new = {'coin_tpu_torch.' + m for m in (
     'ops.preprocess', 'kernels.preprocess', 'tools.bench_preprocess',
     'tools.bench', 'models.tokenizer', 'models.convert',
-    'models.clip_scorer', 'engine.clip_setup')}
+    'models.clip_scorer', 'engine.clip_setup', 'engine.pre_train',
+    'tools.train_net', 'evaluation.testing', 'utils.setup')}
 assert new <= set(names), new - set(names)
 print(len(names))
 """

@@ -263,9 +263,9 @@ def test_plain_wgrad_wraps_like_xla_s32():
 @pytest.mark.parametrize("which", ["conv", "wgrad"])
 def test_plain_integer_sums_are_exact(which):
     """The plain versions' integer sums at res5's longest contractions
-    (3x3 over 512 channels; a weight gradient over 88 crops of 14 x 14,
-    summed in chunks) equal int64 sums: their f32 partial convolutions
-    never round."""
+    (3x3 over 512 channels; a weight gradient over 88 crops of 14 x 14)
+    equal int64 sums past f32's exact range: the CPU's s8 matrix products
+    of the taps never round."""
     rng = np.random.RandomState(7)
     # mostly positive values, so that the sums grow past 2**24
     xq = rng.randint(-10, 128, (88, 14, 14, 512 if which == "conv" else 8))
@@ -290,6 +290,30 @@ def test_plain_integer_sums_are_exact(which):
                          gq.astype(np.int64))
     assert np.abs(want).max() > 2 ** 24          # past f32's exact range
     np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+def test_plain_matrix_product_equals_the_f64_convolution(monkeypatch, k,
+                                                         stride):
+    """On the CPU the plain convolution and weight gradient are one s8
+    matrix product of the taps; past s32's range, and on the card (where
+    the kernels are held to them), an f64 convolution. Both give the same
+    sums, so the same f32 results."""
+    rng = np.random.RandomState(k + stride)
+    xq = torch.from_numpy(rng.randint(-127, 128, (3, 9, 11, 24))
+                          .astype(np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (5, k, k, 24))
+                          .astype(np.int8))
+    gq = torch.from_numpy(rng.randint(-127, 128, (3, 9, 11, 5))
+                          .astype(np.int8))
+    rs, cs = torch.tensor([0.5, 0.25, 2.0]), torch.rand(5) + 0.5
+    runs = []
+    for terms in (tq._S32_TERMS, -1):
+        monkeypatch.setattr(tq, "_S32_TERMS", terms)
+        runs.append((tq.qconv_plain(xq, wq, rs, cs, stride, k // 2),
+                     tq.qconv_wgrad_s32_plain(xq, gq, k)))
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def _shifted_gemm(xq, gq, k):

@@ -30,8 +30,9 @@
    the sum of its launches over one res5 forward and backward is timed
    from CUDA-graph replays. K1, K1b, K5 and K5b are also timed on the RoIs
    of the trainer path's first cached step (phase 8), K1 on the teacher's
-   4 x 512 proposals of its first collection batch, and K1 and K1b on the
-   6 x 512 RoIs of the pre-train path's first step (phase 16), recorded as
+   4 x 512 proposals of its first collection batch, K1 and K1b on the
+   6 x 512 RoIs of the pre-train path's first step (phase 16) and on the
+   3 x 512 RoIs of the oracle path's first step (phase 17), recorded as
    they run.
    K4 runs with both views (every gate on; mixed gates), with the strong
    view alone (the cached flavours' call) and on an odd canvas, its device
@@ -49,7 +50,9 @@
    of foggy_fast.yaml, and one of the int8train_ps_roi configuration
    (per-sample int8 res5, the int8 RoIAlign K5 and K5b); then one
    pre-train step of CLIPDET_foggy.yaml's f32 model (both views, the
-   prototype update on), card vs CPU.
+   prototype update on), and one oracle step of ORACLE/foggy.yaml's f32
+   model (the ground truth alone, the losses summed unweighted), card vs
+   CPU.
 6. eval path: evaluate_detector of the full-width CLIP-RN50
    OpenVocabularyRCNN (bf16 with int8 res5, random weights from a seed)
    over a synthetic 8-image Foggy-Cityscapes-classed VOC set read through
@@ -125,6 +128,16 @@
    a cached step). K4, K3, K1, K1b and K4n must launch; the prototypes
    move only from step 4; the stage-3 teacher equals the pre-trained
    weights. Prints ms per step, images/s and peak memory.
+17. oracle path (the supervised upper bound), through the port's CLI:
+   configs/coin/ORACLE/foggy.yaml at full width (bf16, batch 3 on
+   608 x 1216, 6000 / 1000 RPN boxes, 512 RoIs an image) on 12 synthetic
+   1024 x 2048 images with ground truth, 8 steps, an eval of 4 images
+   that writes detections.pckl, a checkpoint, then --eval-only --resume;
+   2 steps and an eval with per-class box regression, WarmupCosineLR and
+   CLIP_GRADIENTS; 2 steps of configs/coin/ORACLE/clipart.yaml (RN101, 20
+   classes). K4, K3, K1, K1b and K4n must launch; frozen stem and layer1
+   stay; the pickle's AP50 and the resumed AP50 equal the evaluator's.
+   Prints ms per step, images/s and peak memory, and RN101's step time.
 
 Phase 3 also holds K8 (the modulated deformable 3x3 conv of the GLIP
 teacher) at each of its call shapes in GLIP-L's collection batch against
@@ -1523,16 +1536,6 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False,
             losses[d].update({"live/" + k: v.item() for k, v in l2.items()})
     gpu, cpu = states[dev], states["cpu"]
 
-    def rel(a, b, base=None):
-        """||a - b|| / ||b|| per tensor; an update (new - ``base``) less
-        the f32 rounding of the parameters it moved."""
-        a, b = a.detach().cpu().double(), b.detach().cpu().double()
-        norm = torch.linalg.vector_norm
-        slack = 0.0 if base is None else \
-            2 * torch.finfo(torch.float32).eps * norm(base.double()).item()
-        return max(norm(a - b).item() - slack, 0.0) / max(norm(b).item(),
-                                                           1e-30)
-
     errs = {"losses": max(abs(losses[dev][k] - v) / max(abs(v), 1e-3)
                           for k, v in losses["cpu"].items())}
     gp = dict(gpu.model.named_parameters())
@@ -1540,19 +1543,19 @@ def phase_step_reference(torch, dev, num_classes, tokens, int8=False,
     ct = dict(cpu.teacher.named_parameters())
     gm = gpu.optimizer.momentum_buffers()
     cm = cpu.optimizer.momentum_buffers()
-    errs["params"] = max(rel(gp[n] - before[n].to(dev), p - before[n],
-                             before[n])
+    errs["params"] = max(rel_err(torch, gp[n] - before[n].to(dev),
+                                 p - before[n], before[n])
                          for n, p in cpu.model.named_parameters()
                          if p.requires_grad)
-    errs["momentum"] = max(rel(gm[n], cm[n]) for n in cm)
-    errs["teacher"] = max(rel(gt[n] - before[n].to(dev), ct[n] - before[n],
-                              before[n]) for n in ct)
-    errs["prototypes"] = max(rel(getattr(gpu.prototypes, f),
-                                 getattr(cpu.prototypes, f))
+    errs["momentum"] = max(rel_err(torch, gm[n], cm[n]) for n in cm)
+    errs["teacher"] = max(rel_err(torch, gt[n] - before[n].to(dev),
+                                  ct[n] - before[n], before[n]) for n in ct)
+    errs["prototypes"] = max(rel_err(torch, getattr(gpu.prototypes, f),
+                                     getattr(cpu.prototypes, f))
                              for f in ("proto", "b_online", "b_offline"))
     gmm = dict(gpu.merge_model.named_parameters())
-    errs["merge"] = max(rel(gmm[n] - merge_before[n].to(dev),
-                            p - merge_before[n], merge_before[n])
+    errs["merge"] = max(rel_err(torch, gmm[n] - merge_before[n].to(dev),
+                                p - merge_before[n], merge_before[n])
                         for n, p in cpu.merge_model.named_parameters())
     if int8:
         # an s8 value that rounds the other way moves a whole quantisation
@@ -3670,6 +3673,16 @@ def phase_clip_path(torch, dev, ckpt, bpe, cloud_store, counters, root):
 
 
 # ------------------------------------------------------------- stage 2
+def rel_err(torch, a, b, base=None):
+    """||a - b|| / ||b||; an update (new - ``base``) less the f32 rounding
+    of the parameters it moved."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    norm = torch.linalg.vector_norm
+    slack = 0.0 if base is None else \
+        2 * torch.finfo(torch.float32).eps * norm(base.double()).item()
+    return max(norm(a - b).item() - slack, 0.0) / max(norm(b).item(), 1e-30)
+
+
 def phase_pretrain_reference(torch, dev, num_classes, tokens):
     """One pre-train step (``pre_train.build_pretrain_step``) of the
     full-width f32 model of CLIPDET_foggy.yaml on the card (K4, K3, K1,
@@ -3729,26 +3742,17 @@ def phase_pretrain_reference(torch, dev, num_classes, tokens):
         losses[d] = {k: v.item() for k, v in ls.items()}
     gpu, cpu = states[dev], states["cpu"]
 
-    def rel(a, b, base=None):
-        """||a - b|| / ||b||; an update (new - ``base``) less the f32
-        rounding of the parameters it moved."""
-        a, b = a.detach().cpu().double(), b.detach().cpu().double()
-        norm = torch.linalg.vector_norm
-        slack = 0.0 if base is None else \
-            2 * torch.finfo(torch.float32).eps * norm(base.double()).item()
-        return max(norm(a - b).item() - slack, 0.0) / max(norm(b).item(),
-                                                           1e-30)
-
     gp = dict(gpu.model.named_parameters())
     gm, cm = gpu.optimizer.momentum_buffers(), cpu.optimizer.momentum_buffers()
     errs = {"losses": max(abs(losses[dev][k] - v) / max(abs(v), 1e-3)
                           for k, v in losses["cpu"].items()),
-            "params": max(rel(gp[n] - before[n].to(dev), p - before[n],
-                              before[n])
+            "params": max(rel_err(torch, gp[n] - before[n].to(dev),
+                                  p - before[n], before[n])
                           for n, p in cpu.model.named_parameters()
                           if p.requires_grad),
-            "momentum": max(rel(gm[n], cm[n]) for n in cm),
-            "prototypes": rel(gpu.prototypes.proto, cpu.prototypes.proto)}
+            "momentum": max(rel_err(torch, gm[n], cm[n]) for n in cm),
+            "prototypes": rel_err(torch, gpu.prototypes.proto,
+                                  cpu.prototypes.proto)}
     moved = (cpu.prototypes.proto - proto).abs().max().item()
     print(f"[pretrain reference] one pre-train step of the full-width f32 "
           f"model of CLIPDET_foggy.yaml, card vs CPU, 2 x 128 x 256 (4 "
@@ -3970,6 +3974,343 @@ def phase_pretrain_path(torch, dev, root, counters, steps=8, start=4):
                           alone_ms=alone_ms)
 
 
+def phase_oracle_reference(torch, dev, num_classes, tokens):
+    """One oracle step (``oracle.build_oracle_step``) of the full-width f32
+    model of ORACLE/foggy.yaml on the card (K4, K3, K1, K1b) against the
+    CPU (plain versions): same weights, same injected draws, the losses
+    summed without weights; 2 x 128 x 256, 600 / 100 RPN boxes and 64
+    RoIs an image, 16 gt boxes an image."""
+    import dataclasses
+    from coin_tpu_torch.config import load_config
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.engine import oracle, pipelines, step_builder
+    from coin_tpu_torch.engine.common import synthetic_detections
+    parity_numerics()
+    cfg = load_config(os.path.join(REPO, "configs/coin/ORACLE/foggy.yaml"))
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 0
+    pcfg = dataclasses.replace(
+        pipelines.pipeline_config_from(cfg, num_classes),
+        pre_nms_topk_train=600, post_nms_topk_train=100, roi_batch_size=64)
+    gen = torch.Generator().manual_seed(SEED + 41)
+    cells = torch.randint(0, 256, (2, 8, 16, 3), generator=gen,
+                          dtype=torch.uint8)
+    images = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    hw = torch.tensor([[128.0, 256.0], [128.0, 200.0]])
+    gt = synthetic_detections(gen, 2, 16, num_classes, (128, 200),
+                              [9, 6]).replace(probs=None)
+    draws = step_builder.draw_step(gen, 2, 8 * 16 * 15,
+                                   pcfg.post_nms_topk_train + 16)
+    states, losses = {}, {}
+    for d in (dev, "cpu"):
+        model = pipelines.build_detector(cfg, num_classes, d)
+        if d == dev:
+            model.random_init(SEED)
+        else:
+            model.load_state_dict(states[dev].model.state_dict())
+        states[d] = oracle.init_oracle_state(cfg, model, SEED)
+    before = {n: p.detach().cpu().clone()
+              for n, p in states["cpu"].model.named_parameters()}
+    for d in (dev, "cpu"):
+        step = oracle.build_oracle_step(
+            torch.as_tensor(tokens, device=d).long(), pcfg)
+        _, ls = step(states[d], images.to(d), hw.to(d), to_dev(gt, d),
+                     draws=step_builder.StepDraws(
+                         *(t.to(d) for t in dataclasses.astuple(draws))))
+        losses[d] = {k: v.item() for k, v in ls.items()}
+    gpu, cpu = states[dev], states["cpu"]
+
+    gp = dict(gpu.model.named_parameters())
+    gm, cm = gpu.optimizer.momentum_buffers(), cpu.optimizer.momentum_buffers()
+    errs = {"losses": max(abs(losses[dev][k] - v) / max(abs(v), 1e-3)
+                          for k, v in losses["cpu"].items()),
+            "params": max(rel_err(torch, gp[n] - before[n].to(dev),
+                                  p - before[n], before[n])
+                          for n, p in cpu.model.named_parameters()
+                          if p.requires_grad),
+            "momentum": max(rel_err(torch, gm[n], cm[n]) for n in cm)}
+    print(f"[oracle reference] one oracle step of the full-width f32 model "
+          f"of ORACLE/foggy.yaml, card vs CPU, 2 x 128 x 256, 16 gt boxes "
+          f"an image: largest relative errors (losses |card - CPU| / "
+          f"max(|CPU|, 1e-3); ||card - CPU|| / ||CPU|| of the momentum and "
+          f"the parameter updates) {json.dumps(errs)} (tol 1e-3); losses "
+          f"{json.dumps({k: round(v, 6) for k, v in losses['cpu'].items()})}")
+    check(all(v <= 1e-3 for v in errs.values()), f"oracle reference: {errs}")
+    check(gpu.step == cpu.step == 1 and losses["cpu"]["loss_cls"] > 0
+          and losses["cpu"]["loss_box_reg"] > 0 and gpu.prototypes is None,
+          "oracle reference: step not taken")
+    del states, gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def _rounded_losses(losses):
+    return json.dumps([{k: round(v, 5) for k, v in step.items()}
+                       for step in losses])
+
+
+def _pickled_rows(path):
+    """{class: detections} of a ``detections.pckl``, which this script's
+    run of the port wrote."""
+    import pickle
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    return {c: sum(len(rows) for rows in per_image.values())
+            for c, per_image in payload.items()}
+
+
+def phase_oracle_path(torch, dev, root, counters, steps=8):
+    """The oracle (``OracleTrainer``, the supervised upper bound) through
+    the port's CLI, ``coin_tpu_torch.tools.train_net.main``, as a user runs
+    it: ``--config configs/coin/ORACLE/foggy.yaml`` at full width
+    (CLIP-RN50, 12-layer 512-wide text tower, bf16 over f32 masters,
+    batch 3 on 608 x 1216, 6000 / 1000 RPN boxes over 38 x 76 x 15
+    anchors, 512 RoIs an image) on 12 synthetic 1024 x 2048 images with
+    ground truth of the 8 Cityscapes classes, ``steps`` steps, then an
+    eval of 4 more images with TEST.SAVE_DETECTION_PKLS and a checkpoint;
+    ``--eval-only --resume``; then 2 steps and an eval with per-class box
+    regression, WarmupCosineLR and CLIP_GRADIENTS; then 2 steps of
+    ``configs/coin/ORACLE/clipart.yaml`` (RN101, 20 classes). Checks
+    finite losses, trainable parameters that move and frozen ones (stem,
+    layer1) that do not, the launches of K4, K3, K1, K1b and K4n, the
+    pickle's AP50 read back by ``evaluate_pkl``, the resumed AP, and K3 at
+    the per-class eval. Returns the launches of the first run and its
+    measurements."""
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES, CLIPART_CLASSES,
+                                         load_voc_instances,
+                                         make_synthetic_voc)
+    from coin_tpu_torch.engine import oracle
+    from coin_tpu_torch.engine.step_builder import num_anchors
+    from coin_tpu_torch.evaluation.dump import evaluate_pkl
+    from coin_tpu_torch.kernels.nms import nms_sorted_cuda
+    from coin_tpu_torch.tools import train_net
+    sets = {"foggy": CITYSCAPES_CLASSES, "clipart": CLIPART_CLASSES}
+    for name, classes in sets.items():
+        for split, n, seed in (("train", 12, SEED), ("val", 4, SEED + 1)):
+            if name == "clipart" and split == "val":
+                continue
+            make_synthetic_voc(os.path.join(root, name), num_images=n,
+                               class_names=classes, image_hw=(1024, 2048),
+                               seed=seed, split=split)
+
+    def data(name):
+        """The overrides that register and pick ``name``'s sets (clipart's
+        runs no eval: its TEST is its train set)."""
+        splits = ("train",) if name == "clipart" else ("train", "val")
+        custom = [dict(NAME=f"chip_smoke_oracle_{name}_{s}", DIRNAME=name,
+                       SPLIT=s, CLASSES=list(sets[name]), EXT=".jpg")
+                  for s in splits]
+        return ["DATASETS.ROOT", root, "DATASETS.CUSTOM", repr(custom),
+                "DATASETS.TRAIN_UNLABEL", f"['{custom[0]['NAME']}']",
+                "DATASETS.TEST", f"['{custom[-1]['NAME']}']"]
+    cli = ["--config", os.path.join(REPO, "configs/coin/ORACLE/foggy.yaml")]
+    out = os.path.join(root, "oracle")
+    shipped = [*data("foggy"), "SOLVER.MAX_ITER", str(steps),
+               "TEST.EVAL_PERIOD", str(steps), "SOLVER.CHECKPOINT_PERIOD",
+               str(steps), "TEST.SAVE_DETECTION_PKLS", "True",
+               "OUTPUT_DIR", out]
+
+    build = oracle.build_oracle_step
+
+    def recording(times, losses, first):
+        """``build_oracle_step`` whose steps are timed to a synchronize,
+        their losses kept, the parameters and build read before the
+        first."""
+        def timed_build(*args, **kw):
+            step = build(*args, **kw)
+
+            def run(state, *a, **k):
+                if not first:
+                    first["params"] = _snapshot(state.model)
+                    first["cfg"] = (
+                        state.model.compute_dtype,
+                        state.model.text_trunk.layers,
+                        {p.dtype for p in state.model.parameters()})
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(state, *a, **k)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                losses.append({n: v.item() for n, v in out[1].items()})
+                return out
+            return run
+        return timed_build
+
+    times, losses, first = [], [], {}
+    oracle.build_oracle_step = recording(times, losses, first)
+    try:
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = _cli(train_net, cli + shipped)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        oracle.build_oracle_step = build
+    check(isinstance(tr, oracle.OracleTrainer) and tr.state.step == steps
+          and len(times) == steps, f"oracle: {len(times)} steps")
+    check(first["cfg"] == (torch.bfloat16, 12, {torch.float32})
+          and tr.pcfg.roi_batch_size == 512
+          and tr.pcfg.pre_nms_topk_train == 6000
+          and tr.pcfg.post_nms_topk_train == 1000
+          and num_anchors(tr.pcfg, 608, 1216) == 38 * 76 * 15
+          and tr.cfg.SOLVER.IMG_PER_BATCH_UNLABEL == 3
+          and tuple(tr.train_loader.canvas_hw) == (608, 1216),
+          f"the oracle is not ORACLE/foggy.yaml at full width: "
+          f"{first['cfg']}")
+    check(all(math.isfinite(v) for l in losses for v in l.values())
+          and set(losses[0]) == {"loss_rpn_cls", "loss_rpn_loc", "loss_cls",
+                                 "loss_box_reg"},
+          f"oracle: losses {losses[0]}")
+    moved = _moved(tr.state.model, first["params"])
+    trainable = [n for n, p in tr.state.model.named_parameters()
+                 if p.requires_grad]
+    frozen = [n for n in first["params"]
+              if n.startswith(("backbone.conv", "backbone.layer1."))]
+    check(moved and set(moved) <= set(trainable) and frozen
+          and not set(frozen) & set(moved),
+          f"oracle: {len(moved)} trainable tensors moved, frozen ones "
+          f"{sorted(set(frozen) & set(moved))[:3]} moved")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the oracle path: {launches}")
+    ap = tr.ap_50.get(steps - 1)
+    check(ap is not None and 0.0 <= ap <= 100.0, f"oracle eval AP50 {ap}")
+    records = load_voc_instances(os.path.join(root, "foggy"), "val",
+                                 CITYSCAPES_CLASSES, ".jpg")
+    pkl = os.path.join(out, "detections.pckl")
+    pkl_ap = evaluate_pkl(pkl, records, CITYSCAPES_CLASSES)["AP50"]
+    dets = _pickled_rows(pkl)
+    check(pkl_ap == ap and sum(dets.values()) > 0,
+          f"oracle: detections.pckl reads AP50 {pkl_ap}, the evaluator "
+          f"{ap}; rows {dets}")
+    ckpt = os.path.join(out, "checkpoints", f"model_{steps:07d}")
+    check(os.path.exists(ckpt), f"oracle wrote no {ckpt}")
+    step_ms = statistics.median(times[1:])
+    print(f"[oracle path] train_net.main(--config ORACLE/foggy.yaml) at "
+          f"full width, {steps} steps of batch 3 on 608 x 1216 (6000 / 1000 "
+          f"RPN boxes, 512 RoIs an image) on 12 synthetic images with ground "
+          f"truth, an eval of 4 images writing detections.pckl, a "
+          f"checkpoint: {run_s:.3f} s; ms per step (host clock to a "
+          f"synchronize): median after the first {step_ms:.3f}, all "
+          f"{json.dumps([round(t, 3) for t in times])}; "
+          f"{3000.0 / step_ms:.2f} images/s; peak device memory {mem:.1f} "
+          f"GiB; trainable tensors moved {len(moved)} of {len(trainable)}, "
+          f"frozen stem and layer1 tensors {len(frozen)} unmoved; AP50 "
+          f"{ap:.4f}, the same from detections.pckl "
+          f"({sum(dets.values())} rows); kernel launches "
+          f"{json.dumps(launches)}")
+    for i, l in enumerate(losses):
+        print(f"  step {i}: " + json.dumps({k: round(v, 5)
+                                            for k, v in l.items()}))
+
+    # the step by stage, and on the host clock with no loader thread
+    batch = tr.train_loader.pack_batch([0, 5, 9], [False, True, False])
+    args = (torch.from_numpy(batch.images).to(dev),
+            torch.from_numpy(batch.image_hw).to(dev),
+            oracle.gt_detections(batch, dev))
+    stage_ms = time_stages(
+        torch, lambda on_stage: build(tr.tokens, tr.pcfg, on_stage=on_stage),
+        lambda step: step(tr.state, *args))
+    alone = build(tr.tokens, tr.pcfg)
+    alone_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        alone(tr.state, *args)
+        torch.cuda.synchronize()
+        alone_times.append((time.perf_counter() - t) * 1e3)
+    alone_ms = statistics.median(alone_times[1:])
+    print(f"[oracle path] the oracle step by stage, ms (median of 3 after a "
+          f"warm-up, CUDA events at build_oracle_step's marks): "
+          f"{json.dumps(stage_ms)}; the same step with no loader thread "
+          f"running (host clock to a synchronize, median of 3 after a "
+          f"warm-up): {alone_ms:.3f} ms, all "
+          f"{json.dumps([round(t, 3) for t in alone_times])}; in the CLI's "
+          f"run {step_ms:.3f}")
+    del tr, args
+    torch.cuda.empty_cache()
+
+    # the checkpoint, resumed for an eval
+    t0 = time.perf_counter()
+    res = _cli(train_net, cli + ["--eval-only", "--resume"] + shipped)
+    resumed = _pickled_rows(pkl)
+    check(res["AP50"] == ap and resumed == dets,
+          f"oracle --eval-only --resume: AP50 {res['AP50']}, trained {ap}; "
+          f"rows {resumed}, trained {dets}")
+    print(f"[oracle path] --eval-only --resume from model_{steps:07d}: AP50 "
+          f"{res['AP50']:.4f} and the same rows a class in detections.pckl, "
+          f"in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+
+    # the knobs of ROADMAP 8c: per-class regression, cosine, clipping
+    knob_losses = []
+    nms_sorted_cuda.launches = 0
+    oracle.build_oracle_step = recording([], knob_losses, {})
+    try:
+        knobs = _cli(train_net, cli + [
+            *data("foggy"), "SOLVER.MAX_ITER", "2", "TEST.EVAL_PERIOD", "2",
+            "MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", "False",
+            "SOLVER.LR_SCHEDULER_NAME", "WarmupCosineLR",
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+            "OUTPUT_DIR", os.path.join(root, "oracle_knobs")])
+    finally:
+        oracle.build_oracle_step = build
+    # 2 RPN calls in training; at eval the RPN's and the box head's
+    k3_eval = nms_sorted_cuda.launches - 2
+    check(knobs.state.step == 2 and len(knob_losses) == 2
+          and all(math.isfinite(v) for l in knob_losses for v in l.values())
+          and knobs.model.box_predictor.bbox_pred.out_features
+          == 4 * len(CITYSCAPES_CLASSES)
+          and knobs.state.optimizer.clip_norm == 1.0 and k3_eval >= 2
+          and 1 in knobs.ap_50,
+          f"oracle knobs: losses {knob_losses}, K3 at eval {k3_eval}")
+    print(f"[oracle path] CLS_AGNOSTIC_BBOX_REG False (4 x 8 delta "
+          f"columns), WarmupCosineLR, CLIP_GRADIENTS 1.0: 2 steps, losses "
+          f"{_rounded_losses(knob_losses)}; "
+          f"the eval's AP50 {knobs.ap_50[1]:.4f}, K3 launched {k3_eval} "
+          f"times at eval on per-class boxes")
+    del knobs
+    torch.cuda.empty_cache()
+
+    # clipart.yaml: RN101, 20 classes
+    clip_times, clip_losses = [], []
+    oracle.build_oracle_step = recording(clip_times, clip_losses, {})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rn101 = _cli(train_net, [
+            "--config", os.path.join(REPO, "configs/coin/ORACLE/clipart.yaml"),
+            *data("clipart"), "SOLVER.MAX_ITER", "2", "TEST.EVAL_PERIOD",
+            str(10 ** 9), "SOLVER.CHECKPOINT_PERIOD", str(10 ** 9),
+            "OUTPUT_DIR", os.path.join(root, "oracle_clipart")])
+        torch.cuda.synchronize()
+        mem101 = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        oracle.build_oracle_step = build
+    layer3 = {n.split(".")[2] for n, _ in
+              rn101.model.named_parameters() if n.startswith(
+                  "backbone.layer3.")}
+    check(rn101.state.step == 2 and len(layer3) == 23
+          and rn101.num_classes == 20 and rn101.model.text_dim == 512
+          and all(math.isfinite(v) for l in clip_losses for v in l.values()),
+          f"clipart oracle (RN101): {len(layer3)} layer3 blocks, losses "
+          f"{clip_losses}")
+    print(f"[oracle path] train_net.main(--config ORACLE/clipart.yaml): "
+          f"RN101 (23 layer3 blocks, text dim 512), 20 classes, batch 3 on "
+          f"608 x 1216, 2 steps: ms per step (host clock to a "
+          f"synchronize) {json.dumps([round(t, 3) for t in clip_times])}; "
+          f"peak device memory {mem101:.1f} GiB; losses "
+          f"{_rounded_losses(clip_losses)}")
+    del rn101
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, images_per_s=3000.0 / step_ms,
+                          peak_gib=mem, stage_ms=stage_ms, alone_ms=alone_ms,
+                          rn101_ms=clip_times[-1], rn101_peak_gib=mem101)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4071,6 +4412,7 @@ def main() -> int:
     phase_step_reference(torch, dev, num_classes, tokens, int8=True,
                          int8_roi=True)
     phase_pretrain_reference(torch, dev, num_classes, tokens)
+    phase_oracle_reference(torch, dev, num_classes, tokens)
     eval_launches, _ = phase_main_path(torch, dev, cfg, num_classes, tokens,
                                        eval_counters)
     torch.cuda.empty_cache()
@@ -4167,6 +4509,28 @@ def main() -> int:
                                 SEED + 16))
     del rec_pre, rec_pre_fwd
     torch.cuda.empty_cache()
+    # the oracle through the CLI; K1 and K1b on its first step's RoIs
+    oracle_root = os.path.join(REPO, "output", "chip_smoke_oracle")
+    shutil.rmtree(oracle_root, ignore_errors=True)
+    rec_or, restore_or = record_first_call(troi, "roi_align_backward")
+    rec_or_fwd, restore_or_fwd = record_first_call(
+        troi, "_forward", lambda f, rois: f.requires_grad)
+    try:
+        # the oracle's kernels are the pre-train's
+        oracle_launches, _ = phase_oracle_path(torch, dev, oracle_root,
+                                               pretrain_counters)
+    finally:
+        restore_or_fwd()
+        restore_or()
+        shutil.rmtree(oracle_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        next(k for k in kernels if k["name"] == "roi_align_bwd").update(
+            k1b_on_recorded_rois(torch, dev, rec_or, "oracle"))
+        next(k for k in kernels if k["name"] == "roi_align").update(
+            k1_on_recorded_rois(torch, dev, rec_or_fwd, "oracle", SEED + 17))
+    del rec_or, rec_or_fwd
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sd = glip_checkpoint(torch)
     print(f"[GLIP checkpoint] {len(sd)} tensors, "
@@ -4205,7 +4569,7 @@ def main() -> int:
              "collect_glip": glip_launches, "int8_roi_trainer": roi_launches,
              "share_crops": trainer["share_launches"],
              "bench_preprocess": pre_launches, "clip_rescore": clip_launches,
-             "pretrain": pretrain_launches}
+             "pretrain": pretrain_launches, "oracle": oracle_launches}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
                   "fusion_nms": "collect", "deform_conv": "collect_glip",
                   "roi_align_int8": "int8_roi_trainer",

@@ -27,8 +27,10 @@ attnpool detector's tree into ``OpenVocabularyRCNN(pooling="attnpool")``.
 ``load_jax_params`` loads any of them strictly.
 
 ``load_train_state`` carries a whole JAX ``TrainState`` (its fields as
-numpy arrays) into the port's ``TrainState``: the adaptation step's, or
-the pre-train step's, whose teacher and CKG fields are None.
+numpy arrays) into the port's ``TrainState``: the adaptation step's, the
+pre-train step's, whose teacher and CKG fields are None, or the oracle's,
+which has no prototypes either. A per-class box predictor's (D, 4 · C)
+``bbox_pred`` kernel carries over like any Dense kernel.
 """
 
 from __future__ import annotations
@@ -137,7 +139,8 @@ def load_train_state(state, jstate: Any) -> Any:
     count, the prototypes and the step number; and, for the adaptation
     step's state, the EMA teacher and the CKG parameters with their
     momentum and count. A pre-train state (the JAX ``PRETrainer``'s) has
-    None there, and so must ``state``."""
+    None there, and so must ``state``; an oracle state (the JAX
+    ``OracleTrainer``'s) has no prototypes, and neither must ``state``."""
     pretrain = jstate.teacher_params is None
     if pretrain != (state.teacher is None):
         raise ValueError("a pre-train state loads only into a pre-train "
@@ -155,8 +158,12 @@ def load_train_state(state, jstate: Any) -> Any:
         _load_optimizer(state.merge_optimizer, jstate.merge_opt_state)
     _load_optimizer(state.optimizer, jstate.opt_state)
     p = jstate.prototypes
-    state.prototypes = type(state.prototypes)(
-        *(torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
-          for x in (p.proto, p.b_online, p.b_offline)))
+    if (p is None) != (state.prototypes is None):
+        raise ValueError("an oracle state loads only into an oracle state")
+    if p is not None:
+        state.prototypes = type(state.prototypes)(
+            *(torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                              device=dev)
+              for x in (p.proto, p.b_online, p.b_offline)))
     state.step = int(np.asarray(jstate.step))
     return state

@@ -34,7 +34,6 @@ logger = logging.getLogger(__name__)
 # (a knob that is set and not honoured would train another recipe silently)
 _NOT_PORTED = {
     "TPU.TEACHER_FAST_HEAD": "the teacher's fast head (pool_boxes_fast)",
-    "TEST.SAVE_DETECTION_PKLS": "detection pickles of the evaluator",
 }
 
 
@@ -151,7 +150,8 @@ class DetectorTrainerBase:
     def evaluate(self, model) -> Dict[str, float]:
         """AP of ``model`` (the student or the teacher) on DATASETS.TEST[0];
         under TPU.INT8_INFERENCE through its int8 clone, which shares the
-        weights."""
+        weights. Under TEST.SAVE_DETECTION_PKLS the detections are also
+        pickled to ``OUTPUT_DIR/detections.pckl``."""
         if self._eval_loader is None:
             self._eval_loader = TestLoader(
                 self.cfg.DATASETS.TEST[0], self.cfg.DATASETS.ROOT,
@@ -159,8 +159,11 @@ class DetectorTrainerBase:
                 min_size=self.cfg.INPUT.MIN_SIZE_TEST,
                 max_size=self.cfg.INPUT.MAX_SIZE,
                 canvas_hw=self.train_loader.canvas_hw)
+        save_pkl = (os.path.join(self.cfg.OUTPUT_DIR, "detections.pckl")
+                    if self.cfg.get_path("TEST.SAVE_DETECTION_PKLS", False)
+                    else None)
         if self.cfg.get_path("TPU.INT8_INFERENCE", False):
             model = model.clone(quant_convs=True)
         return evaluate_detector(model, model.state_dict(),
                                  self._eval_loader, self.class_tokens,
-                                 self.pcfg)
+                                 self.pcfg, save_pkl=save_pkl)

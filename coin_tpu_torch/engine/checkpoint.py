@@ -8,7 +8,8 @@ needs to continue bit for bit: the student, teacher and CKG state dicts,
 both optimizers (update count and momentum), the prototypes, the step and
 the state of the step's random generator. A pre-train state has no
 teacher, CKG net or merge optimizer, and its checkpoint no such entries;
-``CoinTrainer`` starts from one through ``MODEL.WEIGHTS``. Orbax
+``CoinTrainer`` starts from one through ``MODEL.WEIGHTS``. An oracle
+state has no prototypes either. Orbax
 checkpoints of the JAX package are not read;
 ``convert_from_jax.load_train_state`` carries a JAX state over in memory.
 """
@@ -38,15 +39,18 @@ def _optimizer_tree(opt) -> dict:
 
 def state_tree(state) -> dict:
     """The port's TrainState as a tree of CPU tensors and numbers (without
-    the entries of the fields that a pre-train state leaves None)."""
-    p = state.prototypes
+    the entries of the fields that a pre-train or oracle state leaves
+    None)."""
     tree = {"model": _cpu(state.model.state_dict()),
             "optimizer": _optimizer_tree(state.optimizer),
-            "prototypes": {"proto": p.proto.detach().cpu().clone(),
-                           "b_online": p.b_online.detach().cpu().clone(),
-                           "b_offline": p.b_offline.detach().cpu().clone()},
             "step": int(state.step),
             "generator": state.generator.get_state()}
+    p = state.prototypes
+    if p is not None:
+        tree["prototypes"] = {
+            "proto": p.proto.detach().cpu().clone(),
+            "b_online": p.b_online.detach().cpu().clone(),
+            "b_offline": p.b_offline.detach().cpu().clone()}
     if state.teacher is not None:
         tree.update(teacher=_cpu(state.teacher.state_dict()),
                     merge_model=_cpu(state.merge_model.state_dict()),
@@ -59,11 +63,15 @@ def load_state_tree(state, tree: dict):
     """Load ``tree`` (from :func:`state_tree`) into ``state`` in place:
     parameters are copied into the existing tensors, so modules that share
     them (an int8 clone) see the restored values. A pre-train tree loads
-    into a pre-train state, an adaptation tree into an adaptation state."""
+    into a pre-train state, an adaptation tree into an adaptation state,
+    an oracle tree into an oracle state."""
     if ("teacher" in tree) != (state.teacher is not None):
         raise ValueError("a pre-train checkpoint restores only a pre-train "
                          "state (start CoinTrainer from one through "
                          "MODEL.WEIGHTS)")
+    if ("prototypes" in tree) != (state.prototypes is not None):
+        raise ValueError("an oracle checkpoint restores only an oracle "
+                         "state")
     state.model.load_state_dict(tree["model"])
     opts = [(state.optimizer, tree["optimizer"])]
     if state.teacher is not None:
@@ -73,10 +81,11 @@ def load_state_tree(state, tree: dict):
     for opt, t in opts:
         opt.count = int(t["count"])
         opt.set_momentum_buffers(t["momentum"])
-    dev = state.prototypes.proto.device
-    pr = tree["prototypes"]
-    state.prototypes = type(state.prototypes)(
-        *(pr[k].to(dev) for k in ("proto", "b_online", "b_offline")))
+    if state.prototypes is not None:
+        dev = state.prototypes.proto.device
+        pr = tree["prototypes"]
+        state.prototypes = type(state.prototypes)(
+            *(pr[k].to(dev) for k in ("proto", "b_online", "b_offline")))
     state.step = int(tree["step"])
     state.generator.set_state(tree["generator"])
     return state

@@ -176,15 +176,24 @@ def student_forward(model, images: torch.Tensor, images_hw: torch.Tensor,
             torch.log(torch.softmax(scores_f, dim=-1) + 1e-7), merge_b, conf)
         losses["loss_cls_b"] = torch.where(conf.any(), kl_b, zero)
 
-    # class-agnostic box regression with the online classes, normalised by
-    # the sampled rows while any background row was sampled
+    # box regression, normalised by the sampled rows while any background
+    # row was sampled: class-agnostic, one loss with the online classes;
+    # per class, the online and the offline loss, which differ only on the
+    # B rows, where the two classes pick different columns
     calc_bg = (sp_f.group == rh.GROUP_BG).any()
     total_rows = (sp_f.group != rh.GROUP_PAD).sum().clamp_min(1).float()
     denom = torch.where(calc_bg, total_rows,
                         total_rows.new_tensor(float(cfg.roi_batch_size * b)))
-    losses["loss_box_reg"] = rh.box_reg_loss(
-        sp_f, deltas_f, cfg.num_classes, use_online_classes=True,
-        normalizer=denom)
+    if cfg.cls_agnostic_bbox_reg:
+        losses["loss_box_reg"] = rh.box_reg_loss(
+            sp_f, deltas_f, cfg.num_classes, use_online_classes=True,
+            normalizer=denom)
+    else:
+        for name, online in (("loss_box_reg_online", True),
+                             ("loss_box_reg_offline", False)):
+            losses[name] = rh.box_reg_loss(
+                sp_f, deltas_f, cfg.num_classes, use_online_classes=online,
+                normalizer=denom)
     return StudentForward(losses, sp_f, scores_f, class_feats_f, pooled_f,
                           c_scores_f, c_probs_f, c_valid_f)
 

@@ -4,7 +4,7 @@ accumulation (counterpart of coin_tpu/engine/evaluator.py:48-77)."""
 from __future__ import annotations
 
 import logging
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -13,6 +13,7 @@ from coin_tpu_torch.data.augment import normalize_batch
 from coin_tpu_torch.data.loader import TestLoader
 from coin_tpu_torch.engine import pipelines
 from coin_tpu_torch.evaluation import VOCEvaluator
+from coin_tpu_torch.evaluation.dump import save_detections_pkl
 
 logger = logging.getLogger(__name__)
 
@@ -20,10 +21,12 @@ logger = logging.getLogger(__name__)
 @torch.inference_mode()
 def evaluate_detector(model, params: Mapping[str, torch.Tensor],
                       loader: TestLoader, class_tokens: np.ndarray,
-                      cfg: pipelines.PipelineConfig) -> Dict[str, float]:
+                      cfg: pipelines.PipelineConfig,
+                      save_pkl: Optional[str] = None) -> Dict[str, float]:
     """Load ``params`` (a state_dict, e.g. the EMA teacher's) into
     ``model``, run inference over ``loader`` on the model's device and
-    return {"AP", "AP50", "AP75", "AP50-<class>"...}."""
+    return {"AP", "AP50", "AP75", "AP50-<class>"...}; with ``save_pkl``,
+    also pickle the detections there (``evaluation.dump``)."""
     model.load_state_dict(params)
     model.eval()
     device = next(model.parameters()).device
@@ -51,6 +54,9 @@ def evaluate_detector(model, params: Mapping[str, torch.Tensor],
                 batch.gt_boxes[i][gt_valid] / batch.scale[i],
                 batch.gt_classes[i][gt_valid],
                 batch.gt_difficult[i][gt_valid])
+    if save_pkl:
+        save_detections_pkl(evaluator, save_pkl)
+        logger.info("dumped detections to %s", save_pkl)
     results = evaluator.evaluate()
     logger.info("eval: AP50=%.2f AP=%.2f", results["AP50"], results["AP"])
     return results

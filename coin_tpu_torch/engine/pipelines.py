@@ -1,6 +1,6 @@
-"""Detector construction, the pipeline configuration and the inference
-pipeline with its res5-crop sharing (counterparts of
-coin_tpu/engine/pipelines.py:23-83,133-191 and
+"""Detector construction, the pipeline configuration, the oracle's
+supervised losses and the inference pipeline with its res5-crop sharing
+(counterparts of coin_tpu/engine/pipelines.py:23-191 and
 coin_tpu/engine/base.py:27-70,126-152)."""
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from coin_tpu_torch.models import rpn as rpn_lib
 from coin_tpu_torch.models.anchors import grid_anchors
 from coin_tpu_torch.models.detector import OpenVocabularyRCNN
 from coin_tpu_torch.ops import boxes as box_ops
+from coin_tpu_torch.ops import losses as L
 from coin_tpu_torch.ops.dedup import self_cluster_index
 from coin_tpu_torch.structures import Detections
 
@@ -128,13 +129,10 @@ def build_detector(cfg, num_classes: int, device="cuda"
     (K5; ``quant_roi``), as ``coin_tpu/engine/base.py`` builds it.
     ``MODEL.ROI_HEADS.POOLING_TYPE`` picks the mean pool or CLIP's
     attention pool (``attnpool``) after res5.
-
-    Raises for per-class box regression, whose code waits for a later
-    slice (ROADMAP item 8c).
+    ``MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG`` false gives the box
+    predictor a column of 4 deltas per class.
     """
     device = resolve_device(device)
-    if not cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG:
-        raise NotImplementedError("per-class box regression is not ported")
     model = OpenVocabularyRCNN(
         num_classes=num_classes,
         depth=cfg.MODEL.RESNETS.DEPTH,
@@ -145,7 +143,9 @@ def build_detector(cfg, num_classes: int, device="cuda"
         compute_dtype=compute_dtype(cfg),
         quant_train_res5=int8_train_mode(cfg),
         quant_roi=cfg.get_path("TPU.INT8_ROI", False),
-        pooling=cfg.MODEL.ROI_HEADS.POOLING_TYPE)
+        pooling=cfg.MODEL.ROI_HEADS.POOLING_TYPE,
+        box_reg_classes=(1 if cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG
+                         else num_classes))
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -169,6 +169,47 @@ def rpn_forward(model: OpenVocabularyRCNN, feats: torch.Tensor,
         cfg.post_nms_topk_train if train else cfg.post_nms_topk_test,
         cfg.rpn_nms_thresh)
     return obj, deltas, proposals
+
+
+def oracle_train_losses(model: OpenVocabularyRCNN, images: torch.Tensor,
+                        images_hw: torch.Tensor, gt: Detections,
+                        class_tokens: torch.Tensor,
+                        rpn_priorities: torch.Tensor,
+                        roi_priorities: torch.Tensor,
+                        cfg: PipelineConfig) -> Dict[str, torch.Tensor]:
+    """The oracle's supervised branch: Faster R-CNN's losses with the
+    cosine classifier on the ground truth ``gt`` (B, G) alone. The RPN
+    learns the anchors labelled against ``gt``; 512 (``roi_batch_size``)
+    proposals an image are sampled against it, the gt boxes among the
+    candidates; CE on the offline class clipped to [0, C] over the
+    sampled rows and box regression on the offline classes. Unweighted.
+    ``rpn_priorities`` (B, 2, anchors) and ``roi_priorities``
+    (B, 2, P + G) are the subsampling draws."""
+    feats = model.features(images)
+    anchors = anchors_for(images, cfg)
+    obj, rpn_deltas, proposals = rpn_forward(model, feats, images_hw,
+                                             anchors, cfg, train=True)
+    targets = rpn_lib.label_anchors(
+        anchors, gt, None, rpn_priorities, cfg.rpn_batch_size,
+        cfg.rpn_positive_fraction, cfg.rpn_thresholds)
+    losses = rpn_lib.rpn_losses(anchors, obj, rpn_deltas, targets,
+                                cfg.rpn_batch_size)
+    sp = rh.sample_proposals(
+        proposals, gt, None, None, cfg.num_classes, roi_priorities,
+        cfg.roi_batch_size, cfg.roi_positive_fraction, cfg.roi_iou_threshold)
+    pooled = model.pool_boxes(feats, sp.boxes, cfg.pooler_resolution)
+    text = model.text_features(class_tokens)
+    scores, deltas, _ = model.predict(pooled, text)
+
+    flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))
+    sp_f = rh.SampledProposals(*[flat(x) for x in sp])
+    labels = sp_f.cls_offline.long().clamp(0, cfg.num_classes)
+    logp = torch.log_softmax(flat(scores), dim=-1)
+    ce = -torch.gather(logp, 1, labels[:, None])[:, 0]
+    losses["loss_cls"] = L.masked_mean(ce, sp_f.group != rh.GROUP_PAD)
+    losses["loss_box_reg"] = rh.box_reg_loss(
+        sp_f, flat(deltas), cfg.num_classes, use_online_classes=False)
+    return losses
 
 
 def shared_pool(model: OpenVocabularyRCNN, feats: torch.Tensor,
@@ -217,11 +258,17 @@ def box_inference(model: OpenVocabularyRCNN, pooled: torch.Tensor,
                   proposals: Detections, images_hw: torch.Tensor,
                   text_features: torch.Tensor,
                   cfg: PipelineConfig) -> Detections:
-    """Pooled proposal features → classified, decoded, NMS'd detections."""
+    """Pooled proposal features → classified, decoded, NMS'd detections;
+    per-class deltas decode to a box per (proposal, class)."""
     scores, deltas, _ = model.predict(pooled, text_features)
     probs = torch.softmax(scores, dim=-1)
-    boxes = box_ops.decode_deltas(proposals.boxes, deltas,
-                                  rh.BOX_REG_WEIGHTS)
+    if deltas.shape[-1] == 4:
+        boxes = box_ops.decode_deltas(proposals.boxes, deltas,
+                                      rh.BOX_REG_WEIGHTS)
+    else:  # (B, R, C, 4) candidate boxes
+        boxes = box_ops.decode_deltas(
+            proposals.boxes[..., None, :],
+            deltas.reshape(deltas.shape[:-1] + (-1, 4)), rh.BOX_REG_WEIGHTS)
     return rh.fast_rcnn_inference(boxes, probs, proposals.valid, images_hw,
                                   cfg.test_score_thresh, cfg.test_nms_thresh,
                                   cfg.test_topk)

@@ -11,7 +11,8 @@ the state is a set of modules and optimizers updated in place:
 - ``merge_model`` and the two optimizers, the prototypes, the step count
   and the generator of the step's random draws.
 The pre-train step's state has no teacher, CKG net or merge optimizer
-(None), as the JAX ``PRETrainer``'s ``TrainState`` has none.
+(None), as the JAX ``PRETrainer``'s ``TrainState`` has none; the oracle's
+has no prototypes either, as the JAX ``OracleTrainer``'s.
 Buffer donation (``jit_train_step``) has no counterpart: updates are in
 place.
 """
@@ -116,6 +117,6 @@ class TrainState:
     merge_model: Optional[nn.Module]
     optimizer: ScheduledSGD
     merge_optimizer: Optional[ScheduledSGD]
-    prototypes: Prototypes
+    prototypes: Optional[Prototypes]
     step: int
     generator: torch.Generator

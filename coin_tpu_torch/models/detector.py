@@ -4,7 +4,8 @@
 CLIP-ResNet C4 backbone → RPN head → RoIAlign(res4) → res5 on the
 collapsed B·N crop batch → mean pool (or CLIP's attention pool under
 ``pooling="attnpool"``) → cosine classifier against
-learnable-prompt text features + class-agnostic box regression.
+learnable-prompt text features + box regression, class-agnostic or, with
+``box_reg_classes`` = C, per class.
 Every parameter is held in f32, as flax keeps them; convolutions and the
 text tower's linears cast their weights to the compute dtype at each call
 (``models/layers.py``), while FrozenBN statistics, embeddings, LayerNorms
@@ -42,10 +43,13 @@ class OpenVocabularyRCNN(nn.Module):
                  text_width: int = 512, text_heads: int = 8,
                  compute_dtype: torch.dtype = torch.float32,
                  quant_convs: bool = False, quant_train_res5: int = 0,
-                 quant_roi: bool = False, pooling: str = "meanpool"):
+                 quant_roi: bool = False, pooling: str = "meanpool",
+                 box_reg_classes: int = 1):
         super().__init__()
         cfg = DEPTH_CFG[depth]
         self.num_classes = num_classes
+        # 1: class-agnostic deltas; num_classes: a column of 4 per class
+        self.box_reg_classes = box_reg_classes
         self.compute_dtype = compute_dtype
         # TPU.INT8_ROI: pool_boxes runs the int8 RoIAlign (K5); clone()
         # keeps it, as flax's clone keeps every field
@@ -62,7 +66,8 @@ class OpenVocabularyRCNN(nn.Module):
             self.attnpool = AttentionPool2d(feat_dim, cfg["heads"],
                                             self.text_dim)
             feat_dim = self.text_dim
-        self.box_predictor = BoxPredictor(feat_dim, self.text_dim)
+        self.box_predictor = BoxPredictor(feat_dim, self.text_dim,
+                                          box_dim=4 * box_reg_classes)
         self.text_trunk = TextTransformer(width=text_width, heads=text_heads,
                                           layers=text_layers,
                                           embed_dim=self.text_dim)
@@ -152,13 +157,14 @@ class OpenVocabularyRCNN(nn.Module):
             .reshape(b, n, -1)
 
     def predict(self, pooled: torch.Tensor, text_features: torch.Tensor):
-        """pooled (..., D) → scores (..., C+1), deltas (..., 4),
-        class_feats (..., text_dim), in f32."""
+        """pooled (..., D) → scores (..., C+1), deltas (..., 4 · K),
+        class_feats (..., text_dim), in f32; K = ``box_reg_classes``."""
         flat = pooled.reshape(-1, pooled.shape[-1]).float()
         class_feats, deltas = self.box_predictor(flat)
         scores = self.box_predictor.classify(class_feats, text_features)
         lead = pooled.shape[:-1]
-        return (scores.reshape(lead + (-1,)), deltas.reshape(lead + (4,)),
+        return (scores.reshape(lead + (-1,)),
+                deltas.reshape(lead + (4 * self.box_reg_classes,)),
                 class_feats.reshape(lead + (-1,)))
 
     def text_features(self, class_tokens: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 (counterpart of coin_tpu/models/roi_heads.py:38-346), batched over images.
 
 Sampled proposals are a fixed-size block per image with group tags:
-0 = A/fg, 1 = B (inconsistent), 2 = background, -1 = padding. Only
-class-agnostic box regression is ported (every shipped config).
+0 = A/fg, 1 = B (inconsistent), 2 = background, -1 = padding. Box
+regression is class-agnostic (4 delta columns, every shipped config) or
+per class (4 · C columns, ``CLS_AGNOSTIC_BBOX_REG: false``).
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ BOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
 class BoxPredictor(nn.Module):
     """``trans`` 3-layer MLP (leaky ReLU) → class features (text dim) and
-    class-agnostic box deltas; classification is cosine similarity with
-    the text features divided by ``logit_scale``. Runs in f32."""
+    box deltas (``box_dim`` 4, or 4 · C per class); classification is
+    cosine similarity with the text features divided by ``logit_scale``.
+    Runs in f32."""
 
     def __init__(self, in_dim: int, text_dim: int, box_dim: int = 4,
                  logit_scale: float = 0.01):
@@ -183,12 +185,17 @@ def classification_loss(scores: torch.Tensor, sp: SampledProposals,
 def box_reg_loss(sp: SampledProposals, deltas: torch.Tensor,
                  num_classes: int, use_online_classes: bool = True,
                  normalizer=None) -> torch.Tensor:
-    """L1 class-agnostic box regression over fg rows, normalised by the
-    sampled count (or ``normalizer``)."""
-    if deltas.shape[-1] != 4:
-        raise NotImplementedError("per-class box regression is not ported")
+    """L1 box regression over fg rows, normalised by the sampled count (or
+    ``normalizer``). ``deltas`` (S, 4) class-agnostic, or (S, 4 · C) per
+    class: each row's own class (online or offline) picks its column,
+    clipped to [0, C − 1] (background rows pick column 0 and are masked)."""
     cls = sp.cls_online if use_online_classes else sp.cls_offline
     fg = (cls >= 0) & (cls < num_classes)
+    if deltas.shape[-1] != 4:
+        per_cls = deltas.reshape(deltas.shape[0], num_classes, 4)
+        col = cls.long().clamp(0, num_classes - 1)
+        deltas = torch.gather(per_cls, 1,
+                              col[:, None, None].expand(-1, 1, 4))[:, 0]
     gt_deltas = box_ops.encode_deltas(sp.boxes, sp.gt_boxes, BOX_REG_WEIGHTS)
     per_row = L.smooth_l1(deltas, gt_deltas, beta=0.0).sum(-1)
     total = torch.where(fg, per_row, torch.zeros_like(per_row)).sum()
@@ -226,7 +233,8 @@ def fast_rcnn_inference(boxes: torch.Tensor, scores: torch.Tensor,
                         pre_nms_candidates: int = 1024) -> Detections:
     """``fast_rcnn_inference_single`` over a batch of images.
 
-    boxes (B, R, 4) decoded class-agnostic boxes; scores (B, R, C+1)
+    boxes (B, R, 4) decoded class-agnostic boxes, or (B, R, C, 4) per-class
+    boxes (each (row, class) candidate its own box); scores (B, R, C+1)
     softmax probabilities incl. background; proposal_valid (B, R);
     image_hw (B, 2). Per-class thresholding → the top
     ``pre_nms_candidates`` (row, class) candidates → class-aware NMS →
@@ -234,14 +242,14 @@ def fast_rcnn_inference(boxes: torch.Tensor, scores: torch.Tensor,
     """
     b, r, c1 = scores.shape
     c = c1 - 1
-    h = image_hw[:, 0:1, None].to(boxes.dtype)
-    w = image_hw[:, 1:2, None].to(boxes.dtype)
+    lead = (b,) + (1,) * (boxes.dim() - 2)
+    h = image_hw[:, 0].to(boxes.dtype).reshape(lead)
+    w = image_hw[:, 1].to(boxes.dtype).reshape(lead)
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
     clip = lambda v, hi: torch.minimum(torch.maximum(v, zero), hi)
-    boxes = torch.stack([clip(boxes[..., 0], w[..., 0]),
-                         clip(boxes[..., 1], h[..., 0]),
-                         clip(boxes[..., 2], w[..., 0]),
-                         clip(boxes[..., 3], h[..., 0])], dim=-1)
+    boxes = torch.stack([clip(boxes[..., 0], w), clip(boxes[..., 1], h),
+                         clip(boxes[..., 2], w), clip(boxes[..., 3], h)],
+                        dim=-1)
 
     # (row, class) candidates, row-major
     dev = scores.device
@@ -250,7 +258,8 @@ def fast_rcnn_inference(boxes: torch.Tensor, scores: torch.Tensor,
         .repeat(r).expand(b, -1)
     cand_rows = torch.arange(r, device=dev).repeat_interleave(c) \
         .expand(b, -1)
-    cand_boxes = boxes.repeat_interleave(c, dim=1)
+    cand_boxes = (boxes.repeat_interleave(c, dim=1) if boxes.dim() == 3
+                  else boxes.reshape(b, r * c, 4))
     cand_valid = (cand_scores > score_thresh) \
         & proposal_valid.repeat_interleave(c, dim=1)
 

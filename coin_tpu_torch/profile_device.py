@@ -1,7 +1,7 @@
 """Kernel-level profile of the port on one CUDA card.
 
     python -m coin_tpu_torch.profile_device
-        [--path eval|train|pretrain|collect|collect_glip|clip]
+        [--path eval|train|pretrain|oracle|collect|collect_glip|clip]
         [--iters 5]
         [--int8-roi]
 
@@ -25,6 +25,11 @@ INT8_TRAIN_WGRAD false) and the int8 RoIAlign (TPU.INT8_ROI: K5, K5b).
 configs/coin/PRETRAINS/CLIPDET_foggy.yaml at full width (bf16, batch 3
 trained as 6 views on the 608 x 1216 canvas, 128 synthetic cloud boxes
 per image, the prototype update on, the optimizer past warmup).
+
+``--path oracle``: ``--iters`` oracle steps of
+configs/coin/ORACLE/foggy.yaml at full width (bf16, the strong view alone,
+batch 3 on the 608 x 1216 canvas, 48 synthetic gt boxes per image in the
+loader's 64 slots, the optimizer past warmup).
 
 ``--path collect``: ``--iters`` collection batches of the GDINO cloud
 teacher of foggy_fast.yaml at full width (Swin-B, 900 queries, 6 + 6
@@ -231,6 +236,30 @@ def pretrain_call(device):
     return lambda: step(state, images_u8, image_hw, rcnn, rpn, True)
 
 
+def oracle_call(device):
+    """One oracle step of ORACLE/foggy.yaml at full width, as a closure
+    over one state and one batch."""
+    from coin_tpu_torch.engine import oracle
+    cfg = load_config(os.path.join(CONFIGS, "ORACLE/foggy.yaml"))
+    num_classes = len(CITYSCAPES_CLASSES)
+    pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    model = pipelines.build_detector(cfg, num_classes, device)
+    model.random_init(SEED)
+    tokens = torch.as_tensor(simple_class_tokens(num_classes + 1),
+                             device=device).long()
+    state = oracle.init_oracle_state(cfg, model, SEED)
+    state.optimizer.count = cfg.SOLVER.WARMUP_ITERS
+    step = oracle.build_oracle_step(tokens, pcfg)
+    gen = torch.Generator().manual_seed(SEED)
+    b, (h, w) = cfg.SOLVER.IMG_PER_BATCH_UNLABEL, cfg.TPU.IMAGE_HW
+    images_u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen,
+                              dtype=torch.uint8).to(device)
+    image_hw = torch.tensor([[h, w]] * b, dtype=torch.float32, device=device)
+    gt = synthetic_detections(gen, b, 64, num_classes, (h, w), [48] * b) \
+        .replace(probs=None).map(lambda t: t.to(device))
+    return lambda: step(state, images_u8, image_hw, gt)
+
+
 def _vocab_tokenizer():
     """A WordPiece tokenizer over the Foggy Cityscapes class words."""
     import tempfile
@@ -351,6 +380,7 @@ def profile_calls(path: str, iters: int, device="cuda",
                            else None)["cached"]
     else:
         call = {"eval": eval_call, "pretrain": pretrain_call,
+                "oracle": oracle_call,
                 "collect": collect_call,
                 "collect_glip": collect_glip_call,
                 "clip": clip_call}[path](device)
@@ -377,8 +407,8 @@ def profile_calls(path: str, iters: int, device="cuda",
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=("eval", "train", "pretrain",
-                                           "collect", "collect_glip",
-                                           "clip"),
+                                           "oracle", "collect",
+                                           "collect_glip", "clip"),
                         default="eval")
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--int8-roi", action="store_true",
@@ -393,6 +423,7 @@ def main() -> int:
                         if args.int8_roi else "int8 res5)"),
             "pretrain": "one pre-train step (3 images trained as 6 "
                         "views, bf16)",
+            "oracle": "one oracle step (3 images, the strong view, bf16)",
             "collect": "one GDINO collection batch (4 images, bf16, fusion "
                        "NMS)",
             "collect_glip": "one GLIP-L collection batch (4 images, bf16 "

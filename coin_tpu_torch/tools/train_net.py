@@ -9,8 +9,10 @@ Stage 2 of a recipe, the pre-train on stage 1b's ``CLIP_collect.npz``:
 ``--config configs/coin/PRETRAINS/CLIPDET_foggy.yaml``, which writes
 ``$OUTPUT_DIR/checkpoints/pre_train_CLIP_<MAX_ITER>``. Stage 3 from it:
 ``--config configs/coin/GDINO/foggy_fast.yaml MODEL.WEIGHTS
-<that checkpoint>``. ``--eval-only`` evaluates (the latest checkpoint with
-``--resume``); the GDINO_test, GLIP_test and CLIP_test trainers only
+<that checkpoint>``. The oracle, the supervised upper bound:
+``--config configs/coin/ORACLE/foggy.yaml``. ``--eval-only`` evaluates
+(the latest checkpoint with ``--resume``); the GDINO_test, GLIP_test and
+CLIP_test trainers only
 evaluate. ``DATASETS.CUSTOM`` registers VOC-layout datasets. The launcher
 flags of the reference CLI (``--num-gpus`` and the like) are accepted and
 ignored. Runs on the card unless ``--device cpu``.
@@ -77,9 +79,8 @@ def build_trainer(cfg, device="cuda"):
     """The trainer ``CLOUD.Trainer`` names, on ``device``."""
     name = cfg.CLOUD.Trainer
     if name == "OracleTrainer":
-        raise NotImplementedError(
-            "CLOUD.Trainer OracleTrainer is not ported yet (ROADMAP item "
-            "16b)")
+        from coin_tpu_torch.engine.oracle import OracleTrainer
+        return OracleTrainer(cfg, device=device)
     if name == "PRETrainer":
         from coin_tpu_torch.engine.pre_train import PRETrainer
         return PRETrainer(cfg, device=device)

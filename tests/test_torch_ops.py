@@ -371,7 +371,8 @@ new = {'coin_tpu_torch.' + m for m in (
     'ops.preprocess', 'kernels.preprocess', 'tools.bench_preprocess',
     'tools.bench', 'models.tokenizer', 'models.convert',
     'models.clip_scorer', 'engine.clip_setup', 'engine.pre_train',
-    'tools.train_net', 'evaluation.testing', 'utils.setup')}
+    'tools.train_net', 'evaluation.testing', 'utils.setup',
+    'engine.oracle', 'evaluation.dump')}
 assert new <= set(names), new - set(names)
 print(len(names))
 """

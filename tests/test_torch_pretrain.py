@@ -677,11 +677,22 @@ def test_cli_dispatches_every_trainer_name(monkeypatch, name):
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("OracleTrainer", NotImplementedError, "ROADMAP item 16b"),
+    ("OracleTrainer", None, None),
     ("NoSuchTrainer", ValueError, "unknown CLOUD.Trainer")])
-def test_cli_refuses_oracle_and_unknown_names(name, error, match):
+def test_cli_refuses_oracle_and_unknown_names(monkeypatch, name, error,
+                                              match):
+    """An unknown CLOUD.Trainer name raises; OracleTrainer, once refused
+    here, is now dispatched on the caller's device (the trainer replaced
+    by a recorder, so no model is built)."""
+    from coin_tpu_torch.engine import oracle as toracle
+    monkeypatch.setattr(toracle, "OracleTrainer", type("O", (_Stub,), {}))
     cfg = load_config(PRETRAIN_YAML)
     cfg.CLOUD.Trainer = name
+    if error is None:
+        got = train_net.build_trainer(cfg, "cpu")
+        assert type(got).__name__ == "O" and got.args[0] is cfg \
+            and got.kw["device"] == "cpu"
+        return
     with pytest.raises(error, match=match):
         train_net.build_trainer(cfg, "cpu")
 

@@ -33,7 +33,9 @@
    4 x 512 proposals of its first collection batch, K1 and K1b on the
    6 x 512 RoIs of the pre-train path's first step (phase 16) and on the
    3 x 512 RoIs of the oracle path's first step (phase 17), recorded as
-   they run.
+   they run, and K1 at the teacher's fast head's shape (the teacher's
+   4 x 512 proposals on the 4 x 19 x 38 x 2048 res5 map, stride 32,
+   resolution 7) in bf16 and f32.
    K4 runs with both views (every gate on; mixed gates), with the strong
    view alone (the cached flavours' call) and on an odd canvas, its device
    time from CUDA-graph replays apart from the host's launch. K3
@@ -138,6 +140,17 @@
    classes). K4, K3, K1, K1b and K4n must launch; frozen stem and layer1
    stay; the pickle's AP50 and the resumed AP50 equal the evaluator's.
    Prints ms per step, images/s and peak memory, and RN101's step time.
+18. fast head (TPU.TEACHER_FAST_HEAD): the full-width f32 detector's
+   pool_boxes_fast (res5 over the res4 map once, K1 on the res5 map) on
+   the card against the CPU on identical proposals, then the teacher's
+   inference at 4 x 608 x 1216 with 512 proposals, fast head and exact
+   head timed in turns on one batch, in f32 and as foggy_fast.yaml's
+   collection pass runs it (bf16, the int8 clone); K1, K3, K4n and the
+   int8 convolutions must launch.
+19. A/B harness path: coin_tpu_torch.tools.validate through its main,
+   one shipped_i8 seed of fixture v3 at 16 train and 8 eval images, 40
+   pre-train and 2 x 20 adaptation iterations with an eval every 10,
+   inside a budget of 90 s; the trainer path's kernels must launch.
 
 Phase 3 also holds K8 (the modulated deformable 3x3 conv of the GLIP
 teacher) at each of its call shapes in GLIP-L's collection batch against
@@ -555,10 +568,14 @@ def k1_on_recorded_rois(torch, dev, rec, label, seed):
     got = roi_align_cuda(feats, rois, *args).float()
     want = roi_align_plain(feats, rois, *args).float()
     err = (got - want).abs()
-    tol = torch.ldexp(torch.ones_like(want), torch.frexp(
-        torch.maximum(got.abs(), want.abs())).exponent - 8) + 1e-5
+    if feats.dtype == torch.float32:
+        tol, tol_text = torch.full_like(want, 1e-5), "1e-5"
+    else:
+        tol = torch.ldexp(torch.ones_like(want), torch.frexp(
+            torch.maximum(got.abs(), want.abs())).exponent - 8) + 1e-5
+        tol_text = "1 bf16 ulp + 1e-5"
     check(bool((err <= tol).all()), f"roi_align on the {label}'s RoIs: "
-          f"{int((err > tol).sum())} values over 1 bf16 ulp + 1e-5")
+          f"{int((err > tol).sum())} values over {tol_text}")
     ms = time_ms(torch, lambda: roi_align_cuda(feats, rois, *args))
     plain_ms = time_ms(torch, lambda: roi_align_plain(feats, rois, *args),
                        iters=3, warmup=1)
@@ -568,8 +585,9 @@ def k1_on_recorded_rois(torch, dev, rec, label, seed):
     side = (rois[..., 2:] - rois[..., :2]).float()
     print(f"[K1 roi_align, the {label}'s RoIs] feats {tuple(feats.shape)} "
           f"{feats.dtype}, rois {tuple(rois.shape)} (median side "
-          f"{side.median().item():.1f} px) -> {tuple(got.shape)}: max abs "
-          f"err {err.max().item():.3g} (tol 1 bf16 ulp + 1e-5), f32 err "
+          f"{side.median().item():.1f} px), scale {args[0]}, resolution "
+          f"{args[1]} -> {tuple(got.shape)}: max abs "
+          f"err {err.max().item():.3g} (tol {tol_text}), f32 err "
           f"{e32:.3g} (tol 1e-5); {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {b_ms:.4f} ms (bytes)")
     return {f"{label}_ms": ms, f"{label}_plain_ms": plain_ms,
@@ -4311,6 +4329,186 @@ def phase_oracle_path(torch, dev, root, counters, steps=8):
                           rn101_ms=clip_times[-1], rn101_peak_gib=mem101)
 
 
+# ------------------------------------------------- the teacher's fast head
+def phase_fast_head(torch, dev, cfg, num_classes, tokens, counters):
+    """The teacher's fast head (TPU.TEACHER_FAST_HEAD,
+    ``OpenVocabularyRCNN.pool_boxes_fast``: res5 over the res4 map once,
+    K1 on the res5 map at stride 32, resolution 7). First the full-width
+    f32 detector on the card against the CPU on the same weights at
+    2 x 128 x 256: res5 of the map, the fast head's pooled features and
+    its scores on identical proposals within 1e-3 (relative). Then the
+    teacher's inference at full width (4 images on the canvas of
+    TPU.IMAGE_HW, 608 x 1216, and 512 proposals) with
+    the fast head and with the exact head, timed in turns on the same
+    batch: the f32 detector (K1, K3, K4n), then foggy_fast.yaml's teacher
+    as its collection pass runs it (bf16, the int8 clone: K2s backbone,
+    K2's int8 res5 forward, here over the whole map); the launches are
+    counted over one fast-head call of each, ``counters`` for the
+    second."""
+    import dataclasses
+    from coin_tpu_torch.data.augment import normalize_batch
+    from coin_tpu_torch.device import parity_numerics
+    from coin_tpu_torch.engine import pipelines
+    from coin_tpu_torch.models.rpn import predict_proposals
+    parity_numerics()
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    gpu = pipelines.build_detector(cfg32, num_classes, dev).random_init(SEED)
+    cpu = pipelines.build_detector(cfg32, num_classes, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 18)
+    cells = torch.randint(0, 256, (2, 8, 16, 3), generator=gen,
+                          dtype=torch.uint8)
+    images_u8 = cells.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    hw = torch.tensor([[128.0, 256.0], [128.0, 200.0]])
+    tok = torch.as_tensor(tokens).long()
+    with torch.inference_mode():
+        feats = cpu.features(normalize_batch(images_u8))
+        obj, deltas = cpu.rpn(feats)
+        anchors = pipelines.anchors_for(normalize_batch(images_u8),
+                                        pipelines.pipeline_config_from(
+                                            cfg32, num_classes))
+        props = predict_proposals(anchors, obj, deltas, hw, 600, 100, 0.7)
+        text = cpu.text_features(tok)
+        out = {}
+        for name, m, d in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
+            f, b = feats.to(d), props.boxes.to(d)
+            pooled = m.pool_boxes_fast(f, b)
+            scores = m.predict(pooled, text.to(d))[0]
+            out[name] = (m.res5(f), pooled, scores)
+    errs = {k: rel_err(torch, out["gpu"][i], out["cpu"][i])
+            for i, k in enumerate(("res5_map", "pooled", "scores"))}
+    print(f"[fast head] f32 card vs CPU, full-width RN50 at 2x128x256, "
+          f"{props.boxes.shape[1]} proposals an image: relative errors "
+          f"{json.dumps(errs)} (tol 1e-3)")
+    check(all(v <= 1e-3 for v in errs.values()), f"fast head: {errs}")
+    del cpu, out
+    # the teacher's call at full width, fast and exact head in turns
+    pcfg = pipelines.pipeline_config_from(cfg, num_classes)
+    pcfg = dataclasses.replace(
+        pcfg, pre_nms_topk_test=cfg.get_path("TPU.TEACHER_PRE_NMS_TOPK",
+                                             pcfg.pre_nms_topk_test),
+        post_nms_topk_test=cfg.get_path("TPU.TEACHER_POST_NMS_TOPK",
+                                        pcfg.post_nms_topk_test))
+    check(pcfg.post_nms_topk_test == 512, f"teacher budget {pcfg}")
+    gen = torch.Generator().manual_seed(SEED + 19)
+    canvas = tuple(cfg.TPU.IMAGE_HW)
+    cells = torch.randint(0, 256, (4, canvas[0] // 16, canvas[1] // 16, 3),
+                          generator=gen, dtype=torch.uint8)
+    big = cells.repeat_interleave(16, 1).repeat_interleave(16, 2).to(dev)
+    big_hw = torch.tensor([list(map(float, canvas))] * 4, device=dev)
+    tok = tok.to(dev)
+    from coin_tpu_torch.kernels.nms import nms_sorted_cuda
+    from coin_tpu_torch.kernels.normalize import normalize_cuda
+    from coin_tpu_torch.kernels.roi_align import roi_align_cuda
+    times, launches = {}, {}
+    for tag in ("f32", "bf16_int8"):
+        if tag == "f32":
+            model, counted = gpu, [roi_align_cuda, nms_sorted_cuda,
+                                   normalize_cuda]
+        else:   # the collection pass's teacher under TPU.INT8_COLLECT
+            model = pipelines.build_detector(cfg, num_classes, dev) \
+                .random_init(SEED).clone(quant_convs=True)
+            counted = counters
+            check(model.compute_dtype == torch.bfloat16
+                  and model.quant_train_res5 == 1, "not foggy_fast's "
+                  "teacher")
+        with torch.inference_mode():
+            text = model.text_features(tok)
+            fast = dataclasses.replace(pcfg, fast_head=True)
+
+            def infer(c):
+                return pipelines.inference(model, normalize_batch(big),
+                                           big_hw, tok, c,
+                                           text_features=text)
+            dets = infer(fast)
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            infer(fast)
+            torch.cuda.synchronize()
+            launches[tag] = {fn.__name__: fn.launches for fn in counted}
+            turns = {"fast": [], "exact": []}
+            for _ in range(3):
+                for head, c in (("fast", fast), ("exact", pcfg)):
+                    turns[head].append(time_ms(torch, lambda: infer(c),
+                                               iters=5, warmup=1))
+        v = dets.valid
+        check(bool(torch.isfinite(dets.boxes[v]).all()
+                   and torch.isfinite(dets.scores[v]).all()),
+              f"fast head {tag}: non-finite detections")
+        times[tag] = {h: statistics.median(t) for h, t in turns.items()}
+        times[tag]["turns"] = turns
+        print(f"[fast head] teacher inference {tag}, 4 x {canvas[0]} x "
+              f"{canvas[1]}, {pcfg.post_nms_topk_test} proposals: fast "
+              f"head {times[tag]['fast']:.3f} ms, exact "
+              f"head {times[tag]['exact']:.3f} ms a batch (medians of 3 "
+              f"turns, each the median of 5 calls: fast "
+              f"{[round(t, 3) for t in turns['fast']]}, exact "
+              f"{[round(t, 3) for t in turns['exact']]}); "
+              f"{int(v.sum())} detections; launches of one call "
+              f"{json.dumps(launches[tag])}")
+        check(all(n > 0 for n in launches[tag].values()),
+              f"fast head {tag}: a kernel was not launched: "
+              f"{launches[tag]}")
+        del model
+    torch.cuda.empty_cache()
+    return launches["bf16_int8"], times
+
+
+def phase_validate_path(torch, dev, counters, budget_s=90.0):
+    """One short seed of the port's A/B harness
+    (``coin_tpu_torch.tools.validate``, the shipped_i8 mode on fixture v3)
+    through its main, as a user runs it: 16 train and 8 eval images, 40
+    pre-train iterations, then the parity arm (live teacher) and the
+    shipped_i8 arm (cached and refreshed int8 teacher, int8 res5) for 20
+    iterations each with an eval every 10. Its wall time must stay inside
+    ``budget_s``; the artifact must hold finite AP50s of each arm's two
+    evals and the pre-train's."""
+    import tempfile
+    from coin_tpu_torch.tools import validate
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_validate_")
+    out = os.path.join(out_dir, "ab_shipped_i8.json")
+    try:
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _cli(validate, ["--mode", "shipped_i8", "--seeds", "1",
+                        "--images", "16", "--eval-images", "8",
+                        "--pre-iters", "40", "--iters", "20",
+                        "--eval-every", "10", "--out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        with open(out) as f:
+            art = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    row = art["per_seed"][0]
+    aps = [row["pretrain_ap50"]] + [
+        v for arm in art["arms"] for v in row[f"{arm}_ap50"].values()]
+    print(f"[validate path] tools.validate shipped_i8, 1 seed of 16 + 8 "
+          f"images, 40 + 2 x 20 iterations: {wall:.1f} s (budget "
+          f"{budget_s:.0f} s); pre-train AP50 {row['pretrain_ap50']:.3f}, "
+          f"parity {json.dumps(row['parity_ap50'])}, shipped_i8 "
+          f"{json.dumps(row['shipped_i8_ap50'])}, arm seconds "
+          f"{row['parity_seconds']:.1f} / {row['shipped_i8_seconds']:.1f}; "
+          f"platform {art['platform']!r}; kernel launches "
+          f"{json.dumps(launches)}")
+    check(art["arms"] == ["parity", "shipped_i8"]
+          and all(len(row[f"{a}_ap50"]) == 2 for a in art["arms"]),
+          f"validate artifact: {art['arms']}, {row}")
+    check(all(math.isfinite(a) and 0.0 <= a <= 100.0 for a in aps),
+          f"validate AP50s {aps}")
+    check(art["platform"].startswith("cuda: "), art["platform"])
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was not launched on the validate path: {launches}")
+    check(wall <= budget_s, f"validate path {wall:.1f} s over its budget "
+          f"of {budget_s:.0f} s")
+    return launches, wall
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4453,7 +4651,18 @@ def main() -> int:
                                       SEED + 15))
         next(k for k in kernels if k["name"] == "roi_align_int8").update(
             k5_on_trainer_rois(torch, dev, rec_fwd))
-    del rec, rec_fwd, rec_teacher
+        # the fast head's K1: the teacher's 4 x 512 proposals on the res5
+        # map of its res4 map (stride 32, 2048 channels), resolution 7
+        b, h, w, _ = rec_teacher["grad_shape"]
+        check((b, h, w) == (4, 38, 76), f"teacher map {(b, h, w)}")
+        fast_rec = dict(rec_teacher, grad_shape=(b, h // 2, w // 2, 2048),
+                        args=(1.0 / 32.0, 7, 2))
+        for label, dtype in (("fast_head", torch.bfloat16),
+                             ("fast_head_f32", torch.float32)):
+            k1.update(k1_on_recorded_rois(
+                torch, dev, dict(fast_rec, grad_dtype=dtype), label,
+                SEED + 18))
+    del rec, rec_fwd, rec_teacher, fast_rec
     torch.cuda.empty_cache()
     roi_launches, _ = phase_int8_roi_trainer_path(torch, dev, num_classes,
                                                   roi_counters)
@@ -4531,6 +4740,10 @@ def main() -> int:
             k1_on_recorded_rois(torch, dev, rec_or_fwd, "oracle", SEED + 17))
     del rec_or, rec_or_fwd
     torch.cuda.empty_cache()
+    fast_launches, _ = phase_fast_head(torch, dev, cfg, num_classes, tokens,
+                                       eval_counters + [int8_conv_cuda])
+    validate_launches, _ = phase_validate_path(torch, dev, trainer_counters)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sd = glip_checkpoint(torch)
     print(f"[GLIP checkpoint] {len(sd)} tensors, "
@@ -4569,7 +4782,8 @@ def main() -> int:
              "collect_glip": glip_launches, "int8_roi_trainer": roi_launches,
              "share_crops": trainer["share_launches"],
              "bench_preprocess": pre_launches, "clip_rescore": clip_launches,
-             "pretrain": pretrain_launches, "oracle": oracle_launches}
+             "pretrain": pretrain_launches, "oracle": oracle_launches,
+             "fast_head": fast_launches, "validate": validate_launches}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
                   "fusion_nms": "collect", "deform_conv": "collect_glip",
                   "roi_align_int8": "int8_roi_trainer",

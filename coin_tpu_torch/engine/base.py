@@ -30,21 +30,6 @@ from coin_tpu_torch.engine.results_store import ResultStore
 
 logger = logging.getLogger(__name__)
 
-# TPU.* knobs the JAX trainers honour whose code the port does not have yet
-# (a knob that is set and not honoured would train another recipe silently)
-_NOT_PORTED = {
-    "TPU.TEACHER_FAST_HEAD": "the teacher's fast head (pool_boxes_fast)",
-}
-
-
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a set knob of :data:`_NOT_PORTED`."""
-    for key, what in _NOT_PORTED.items():
-        if cfg.get_path(key, None):
-            raise NotImplementedError(f"{key} is set, but {what} is not "
-                                      f"ported yet")
-
-
 def load_collect_store(cfg, trainer: str) -> ResultStore:
     """The cached cloud results that ``CLOUD.COLLECT_FILE`` names (a
     ResultStore .npz), for ``trainer``."""
@@ -104,7 +89,6 @@ class DetectorTrainerBase:
                  device="cuda"):
         self.device = resolve_device(device)
         cfg = auto_scale_workers(cfg, NUM_WORKERS)
-        check_ported(cfg)
         self.cfg = cfg
         self.train_loader = train_loader or TrainLoader(
             cfg.DATASETS.TRAIN_UNLABEL[0], cfg.DATASETS.ROOT,

@@ -23,8 +23,7 @@ from coin_tpu_torch.structures import Detections
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """coin_tpu's PipelineConfig, less the fast head (off in every shipped
-    config; ``TPU.TEACHER_FAST_HEAD`` raises)."""
+    """coin_tpu's PipelineConfig (coin_tpu/engine/pipelines.py:23-66)."""
     num_classes: int
     # RPN
     rpn_batch_size: int = 256
@@ -55,6 +54,9 @@ class PipelineConfig:
     # representatives, at most this many per image; 0 = off
     share_crops_budget: int = 0
     share_crops_thresh: float = 0.9
+    # the fast head (TPU.TEACHER_FAST_HEAD): res5 once over the map, then
+    # RoIAlign of the res5 map (OpenVocabularyRCNN.pool_boxes_fast)
+    fast_head: bool = False
 
 
 def pipeline_config_from(cfg, num_classes: int) -> PipelineConfig:
@@ -242,7 +244,9 @@ def inference(model: OpenVocabularyRCNN, images: torch.Tensor,
     feats = model.features(images)
     anchors = anchors_for(images, cfg)
     _, _, proposals = rpn_forward(model, feats, images_hw, anchors, cfg)
-    if cfg.share_crops_budget:
+    if cfg.fast_head:
+        pooled = model.pool_boxes_fast(feats, proposals.boxes)
+    elif cfg.share_crops_budget:
         pooled = shared_pool(model, feats, proposals.boxes, proposals.valid,
                              cfg)
     else:

@@ -25,7 +25,7 @@ from coin_tpu_torch.data.loader import TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import coin_pipelines, pipelines
 from coin_tpu_torch.engine.base import (NUM_WORKERS, DetectorTrainerBase,
-                                        auto_scale_workers, check_ported,
+                                        auto_scale_workers,
                                         load_collect_store)
 from coin_tpu_torch.engine.common import lr_value
 from coin_tpu_torch.engine.results_store import ResultStore
@@ -124,7 +124,6 @@ class PRETrainer(DetectorTrainerBase):
                  class_tokens: Optional[np.ndarray] = None, device="cuda"):
         device = resolve_device(device)
         cfg = auto_scale_workers(cfg, NUM_WORKERS)
-        check_ported(cfg)
         if store is None:
             store = load_collect_store(cfg, "PRETrainer")
         clipart = tuple(cfg.DATASETS.TRAIN_UNLABEL) == ("cliparttrain",)

@@ -27,7 +27,7 @@ from coin_tpu_torch.data.loader import TestLoader, TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import pipelines
 from coin_tpu_torch.engine.base import (NUM_WORKERS, DetectorTrainerBase,
-                                        auto_scale_workers, check_ported,
+                                        auto_scale_workers,
                                         load_collect_store)
 from coin_tpu_torch.engine.common import lr_value
 from coin_tpu_torch.engine.pre_train import online_view_to_detections
@@ -44,7 +44,6 @@ class CoinTrainer(DetectorTrainerBase):
                  class_tokens: Optional[np.ndarray] = None, device="cuda"):
         device = resolve_device(device)
         cfg = auto_scale_workers(cfg, NUM_WORKERS)
-        check_ported(cfg)
         if store is None:
             store = load_collect_store(cfg, "CoinTrainer")
         loader = TrainLoader(
@@ -57,8 +56,9 @@ class CoinTrainer(DetectorTrainerBase):
         self.store = store
         self.state = init_train_state(cfg, self.model, self.tokens, cfg.SEED,
                                       proto0=self.init_prototypes())
-        # the teacher's proposal budget (TPU.TEACHER_PRE/POST_NMS_TOPK) and
-        # its res5-crop sharing (TPU.TEACHER_SHARE_CROPS/SHARE_THRESH)
+        # the teacher's proposal budget (TPU.TEACHER_PRE/POST_NMS_TOPK), its
+        # res5-crop sharing (TPU.TEACHER_SHARE_CROPS/SHARE_THRESH) and its
+        # fast head (TPU.TEACHER_FAST_HEAD)
         self.teacher_pcfg = dataclasses.replace(
             self.pcfg,
             pre_nms_topk_test=cfg.get_path("TPU.TEACHER_PRE_NMS_TOPK",
@@ -67,7 +67,8 @@ class CoinTrainer(DetectorTrainerBase):
                                             self.pcfg.post_nms_topk_test),
             share_crops_budget=cfg.get_path("TPU.TEACHER_SHARE_CROPS", 0),
             share_crops_thresh=cfg.get_path("TPU.TEACHER_SHARE_THRESH",
-                                            0.9))
+                                            0.9),
+            fast_head=cfg.get_path("TPU.TEACHER_FAST_HEAD", False))
         hyper = dataclasses.replace(hyper_from_cfg(cfg),
                                     loss_weights=self.loss_weights)
         self._refresh_epochs = cfg.get_path("TPU.TEACHER_REFRESH_EPOCHS", 0)

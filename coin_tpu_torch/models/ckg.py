@@ -12,6 +12,8 @@ import math
 import torch
 from torch import nn
 
+from coin_tpu_torch.models.layers import lecun_normal_
+
 
 class CrossAttention(nn.Module):
     def __init__(self, hidden_size: int, num_classes: int,
@@ -58,12 +60,11 @@ class CKGNet(nn.Module):
     @torch.no_grad()
     def random_init(self, seed: int) -> "CKGNet":
         """flax's Dense initialisers from ``seed``, drawn on the CPU:
-        LeCun-normal kernels, zero biases."""
+        LeCun-normal kernels (truncated at 2 σ), zero biases."""
         gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
             else:
-                p.copy_(torch.randn(p.shape, generator=gen)
-                        * p.shape[1] ** -0.5)
+                lecun_normal_(p, gen)
         return self

@@ -23,7 +23,7 @@ from torch import nn
 from coin_tpu_torch.models.clip_resnet import (DEPTH_CFG, AttentionPool2d,
                                                CLIPResNetBackbone, QConv2d,
                                                Res5Head)
-from coin_tpu_torch.models.layers import Conv2d
+from coin_tpu_torch.models.layers import Conv2d, lecun_normal_
 from coin_tpu_torch.models.roi_heads import BoxPredictor
 from coin_tpu_torch.models.rpn import RPNHead
 from coin_tpu_torch.models.text_encoder import (PromptedTextEncoder,
@@ -110,29 +110,37 @@ class OpenVocabularyRCNN(nn.Module):
     @torch.no_grad()
     def random_init(self, seed: int) -> "OpenVocabularyRCNN":
         """Random weights from ``seed``, drawn on the CPU so that every
-        device gets the same ones: flax's initialisers of the JAX modules
-        (LeCun-normal kernels, zero biases, identity FrozenBN, the normal
-        scales of the text and predictor parameters)."""
+        device gets the same ones, from the distribution of the flax
+        initialiser that each JAX module declares: LeCun-normal kernels
+        (truncated at 2 σ, :func:`lecun_normal_`), zero biases, unit
+        LayerNorm scales, identity FrozenBN (buffers, left as built), and
+        plain normals where the JAX module names its own scale (the text
+        tower's embeddings and projection, the prompts, the attention
+        pool's positional embedding, the classifier and box deltas)."""
         gen = torch.Generator().manual_seed(seed)
-        scales = {"text_trunk.token_embedding.weight": 0.02,
-                  "text_trunk.positional_embedding": 0.01,
-                  "text_trunk.text_projection":
-                      self.text_trunk.text_projection.shape[0] ** -0.5,
-                  "prompted_text.embedding_tmp": 0.02,
-                  "prompted_text.add_in_embedding": 0.02,
-                  "box_predictor.cls_score.weight": 0.01,
-                  "box_predictor.bbox_pred.weight": 0.001}
+        width = self.text_trunk.text_projection.shape[0]
+        scales = {
+            # nn.Embed's default: variance_scaling(1, fan_in, normal) over
+            # (vocab, width), fan_in = width
+            "text_trunk.token_embedding.weight": width ** -0.5,
+            "text_trunk.positional_embedding": 0.01,
+            "text_trunk.text_projection": width ** -0.5,
+            "prompted_text.embedding_tmp": 0.02,
+            "prompted_text.add_in_embedding": 0.02,
+            "box_predictor.cls_score.weight": 0.01,
+            "box_predictor.bbox_pred.weight": 0.001}
+        if self.pooling == "attnpool":
+            pos = self.attnpool.positional_embedding
+            scales["attnpool.positional_embedding"] = pos.shape[1] ** -0.5
         for name, p in self.named_parameters():
             if name in scales:
-                std = scales[name]
+                p.copy_(torch.randn(p.shape, generator=gen) * scales[name])
             elif name.endswith("bias") or p.dim() == 1:
                 p.zero_()
                 if name.endswith("weight"):   # LayerNorm scale
                     p.fill_(1.0)
-                continue
             else:
-                std = (p[0].numel()) ** -0.5  # fan_in of (out, in, ...)
-            p.copy_(torch.randn(p.shape, generator=gen) * std)
+                lecun_normal_(p, gen)
         return self
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
@@ -149,12 +157,28 @@ class OpenVocabularyRCNN(nn.Module):
         h, w, C), boxes (B, N, 4) image coordinates → (B, N, D)."""
         ra = roi_align_int8_batched if self.quant_roi else roi_align_batched
         x = ra(feats, boxes, 1.0 / 16.0, resolution, 2)
-        b, n = x.shape[:2]
-        x = self.res5(x.reshape((b * n,) + x.shape[2:]))
+        return self._pool(self.res5(x.flatten(0, 1)), x.shape[:2])
+
+    def pool_boxes_fast(self, feats: torch.Tensor, boxes: torch.Tensor,
+                        resolution: int = 7) -> torch.Tensor:
+        """The teacher's fast head (``TPU.TEACHER_FAST_HEAD``): res5 over
+        the whole res4 map once, then RoIAlign (K1) of the res5 map at
+        stride 32, then the mean or attention pool: feats (B, h, w, C),
+        boxes (B, N, 4) → (B, N, D). The same parameters and output as
+        :meth:`pool_boxes`; the features differ at crop borders (the
+        image's context instead of the crop's padding). The float
+        RoIAlign also under ``quant_roi``, as in the JAX package."""
+        f5 = self.res5(feats)                 # (B, h/2, w/2, 2048)
+        x = roi_align_batched(f5, boxes, 1.0 / 32.0, resolution, 2)
+        return self._pool(x.flatten(0, 1), x.shape[:2])
+
+    def _pool(self, x: torch.Tensor, lead) -> torch.Tensor:
+        """res5 features of the crops (B·N, r, r, C) → the mean pool (in
+        the compute dtype) or the attention pool (f32), (B, N, D)."""
         if self.pooling == "attnpool":
-            return self.attnpool(x).reshape(b, n, -1)
+            return self.attnpool(x).reshape(*lead, -1)
         return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype) \
-            .reshape(b, n, -1)
+            .reshape(*lead, -1)
 
     def predict(self, pooled: torch.Tensor, text_features: torch.Tensor):
         """pooled (..., D) → scores (..., C+1), deltas (..., 4 · K),

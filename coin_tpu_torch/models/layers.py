@@ -8,6 +8,7 @@ f32 master is what lets an SGD step or the EMA teacher update move it.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -67,6 +68,25 @@ class GroupNorm32(nn.Module):
             self.groups, -1)
         y = (g - mean) * mul + self.bias.reshape(self.groups, -1)
         return y.reshape(x.shape)
+
+
+def truncated_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """A standard normal truncated to [-2, 2], drawn as
+    ``jax.random.truncated_normal`` draws it: a uniform between erf(-2/√2)
+    and erf(2/√2) through √2 erfinv, clipped inside the bounds."""
+    a, b = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    x = torch.rand(shape, generator=gen).mul_(b - a).add_(a)
+    lim = float(np.nextafter(np.float32(2.0), np.float32(0.0)))
+    return x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-lim, lim)
+
+
+@torch.no_grad()
+def lecun_normal_(p: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` (``variance_scaling(1, "fan_in",
+    "truncated_normal")``) into ``p`` of layout (out, in, ...): a normal
+    truncated at 2 σ, scaled so that its deviation is fan_in ** -0.5."""
+    std = p[0].numel() ** -0.5 / 0.87962566103423978
+    return p.copy_(truncated_normal(p.shape, gen).mul_(std))
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:

@@ -1,6 +1,10 @@
 """The detector-inference slice as a whole against the JAX package on the
 CPU: ``pipelines.inference`` and ``evaluate_detector`` of both packages on
-one set of weights (the tiny f32 detector of test_torch_models).
+one set of weights (the tiny f32 detector of test_torch_models), and the
+teacher's fast head (``TPU.TEACHER_FAST_HEAD``): ``pool_boxes_fast`` (res5
+over the whole res4 map, then RoIAlign of the res5 map at stride 32,
+resolution 7, then the mean pool) at the modules' 1e-4 in f32 and at a
+measured bound in bf16, and the fast-head branch of ``inference``.
 
 Top-k and NMS are discrete: on near-tied random-init scores they may flip
 between XLA and PyTorch. So the stage test feeds both sides the same
@@ -21,11 +25,14 @@ from coin_tpu.data.augment import normalize_batch as jnormalize
 from coin_tpu.engine import pipelines as jpipe
 from coin_tpu.models import roi_heads as jrh
 from coin_tpu.models import rpn as jrpn
+from coin_tpu_torch.convert_from_jax import from_jax_variables
 from coin_tpu_torch.data.augment import normalize_batch
 from coin_tpu_torch.engine import pipelines as tpipe
 from coin_tpu_torch.models import roi_heads as trh
 from coin_tpu_torch.models import rpn as trpn
-from tests.test_torch_models import CANVAS, tiny_pair
+from coin_tpu_torch.models.detector import OpenVocabularyRCNN
+from coin_tpu_torch.structures import Detections
+from tests.test_torch_models import CANVAS, random_rois, tiny_pair
 from tests.test_torch_models import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -207,8 +214,6 @@ def test_inference_end_to_end_bf16_matches_jax_bf16(pair):
     """The test branch of both packages in bf16 (f32 weights cast per
     call, as foggy_fast.yaml runs) on the same images, the top-k cut
     lifted; held to the measured pairing above."""
-    from coin_tpu_torch.convert_from_jax import from_jax_variables
-    from coin_tpu_torch.models.detector import OpenVocabularyRCNN
     jmodel, pcfg, tokens, variables, tmodel = pair
     pcfg = dataclasses.replace(pcfg, test_topk=1024)
     jbf16 = jmodel.clone(compute_dtype=jnp.bfloat16)
@@ -270,3 +275,123 @@ def test_evaluate_detector_ap_matches_jax(pair, tmp_path):
     assert set(got) == set(want)
     for k in want:
         assert got[k] == pytest.approx(want[k], abs=1e-6), k
+
+
+# ------------------------------------------------------------ fast head
+# bf16 (each package's convolutions in bf16 over f32 weights): measured on
+# these inputs, the port's pooled features lie at most 0.0078 from JAX's,
+# against a largest |value| of 0.99 (res5's three blocks round at every
+# convolution, in another order on each side); the bound is 2.5 times that
+FAST_BF16_ATOL = 0.02
+
+
+def _pool_inputs(rng):
+    feats = rng.randn(2, 4, 8, 1024).astype(np.float32)
+    # RoIs from below a res5 cell to past the 64 x 128 canvas
+    return feats, random_rois(rng, 2, 6)
+
+
+def test_pool_boxes_fast_matches_jax(pair, rng):
+    jmodel, _, _, variables, tmodel = pair
+    feats, rois = _pool_inputs(rng)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(feats),
+                                   jnp.asarray(rois),
+                                   method="pool_boxes_fast"))
+    with torch.no_grad():
+        got = tmodel.pool_boxes_fast(torch.from_numpy(feats),
+                                     torch.from_numpy(rois)).numpy()
+    assert got.shape == (2, 6, 2048)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_pool_boxes_fast_bf16_matches_jax_bf16(pair, rng):
+    jmodel, _, _, variables, tmodel = pair
+    feats, rois = _pool_inputs(rng)
+    jbf16 = jmodel.clone(compute_dtype=jnp.bfloat16)
+    want = np.asarray(jbf16.apply(
+        variables, jnp.asarray(feats, jnp.bfloat16), jnp.asarray(rois),
+        method="pool_boxes_fast").astype(jnp.float32))
+    tbf16 = OpenVocabularyRCNN(num_classes=tmodel.num_classes, text_layers=2,
+                               text_width=64, text_heads=2,
+                               compute_dtype=torch.bfloat16).eval()
+    tbf16.load_state_dict(from_jax_variables(variables), strict=True)
+    with torch.no_grad():
+        got = tbf16.pool_boxes_fast(
+            torch.from_numpy(feats).bfloat16(),
+            torch.from_numpy(rois)).float().numpy()
+    err = np.abs(got - want).max()
+    print(f"bf16 pool_boxes_fast: max abs err {err:.4g}, max |want| "
+          f"{np.abs(want).max():.3g}")
+    assert err <= FAST_BF16_ATOL
+
+
+# the random-init classifier scores the rows of a cluster of boxes within
+# ~1e-4 of each other, so the class-wise NMS keeps other members of such a
+# cluster on each side: measured on these inputs, all 92 of JAX's rows of
+# image 0 and 93 of its 96 rows of image 1 (93 of the port's 95; the rest
+# are class-0 boxes scoring 0.115) pair with a row of the other side
+# within 1e-4
+FAST_PAIRED_SHARE = 0.95
+
+
+def test_fast_head_inference_matches_jax(pair, monkeypatch):
+    """The test branch with ``fast_head`` in both packages on the same
+    images and proposals, the top-k cut lifted. The stages before the fast
+    head (features, RPN) are held at 1e-4 by test_torch_inference; here
+    both packages' inference runs from JAX's res4 features and proposals
+    (the RPN's top-k and NMS see near-tied random-init logits). The fast
+    head's pooled features and the predictor's scores and deltas inside
+    the port's inference are held to JAX's at 1e-4, and its detections
+    pair with JAX's (same class, box and score within 1e-4) as stated
+    above."""
+    jmodel, pcfg, tokens, variables, tmodel = pair
+    pcfg = dataclasses.replace(pcfg, test_topk=1024, fast_head=True)
+    images_u8, hw = _inputs(seed=2)
+    rpn_forward = jpipe.rpn_forward
+
+    def jax_side(v, im, h):
+        """JAX's features and proposals, its fast head's pooled features
+        and predictions on them, and its inference from those proposals."""
+        im = jnormalize(im)
+        feats = jmodel.apply(v, im, method="features")
+        rpn = rpn_forward(jmodel, v, feats, h, jpipe._anchors_for(im, pcfg),
+                          pcfg, False)
+        pooled = jmodel.apply(v, feats, rpn[2].boxes,
+                              method="pool_boxes_fast")
+        text = jmodel.apply(v, tokens, method="text_features")
+        scores, deltas, _ = jmodel.apply(v, pooled, text, method="predict")
+        monkeypatch.setattr(jpipe, "rpn_forward", lambda *a, **k: rpn)
+        dets = jpipe.inference(jmodel, v, im, h, tokens, pcfg)
+        monkeypatch.setattr(jpipe, "rpn_forward", rpn_forward)
+        return feats, rpn[2], (pooled, scores, deltas), dets
+    feats, props, stages, want = jax.jit(jax_side)(
+        variables, jnp.asarray(images_u8), jnp.asarray(hw))
+    t_props = Detections(_t(props.boxes), _t(props.scores),
+                         _t(props.classes), _t(props.valid))
+    monkeypatch.setattr(tmodel, "features", lambda images: _t(feats))
+    monkeypatch.setattr(tpipe, "rpn_forward",
+                        lambda *a, **k: (None, None, t_props))
+    seen = []
+    for name in ("pool_boxes_fast", "predict"):
+        fn = getattr(tmodel, name)
+        monkeypatch.setattr(tmodel, name, lambda *a, fn=fn: seen.append(
+            fn(*a)) or seen[-1])
+    tcfg = dataclasses.replace(_tcfg(pcfg), fast_head=True)
+    with torch.no_grad():
+        got = tpipe.inference(tmodel, normalize_batch(_t(images_u8)), _t(hw),
+                              _t(tokens).long(), tcfg)
+    assert len(seen) == 2            # the fast head, then the predictor
+    pooled, (scores, deltas, _) = seen
+    for g, w in zip((pooled, scores, deltas), stages):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    for i in range(2):
+        g = _as_rows(got.boxes[i].numpy(), got.classes[i].numpy(),
+                     got.scores[i].numpy(), got.valid[i].numpy())
+        w = _as_rows(*(np.asarray(a[i]) for a in (
+            want.boxes, want.classes, want.scores, want.valid)))
+        assert len(g) > 0
+        for a, b in ((g, w), (w, g)):
+            near = [np.abs(a[(a[:, 0] == r[0])] - r).max(1)
+                    .min(initial=np.inf) <= 1e-4 for r in b]
+            print(f"image {i}: {sum(near)} of {len(b)} rows paired")
+            assert sum(near) >= FAST_PAIRED_SHARE * len(b)

@@ -254,6 +254,34 @@ def test_roi_align_footprints_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_roi_align_fast_head_shape_on_card(cuda_device, dtype):
+    """K1 at the teacher's fast head (``pool_boxes_fast``): 4 x 512
+    proposals of 2-600 px on the res5 map of 4 x 608 x 1216 (19 x 38 x
+    2048, stride 32), resolution 7, sampling 2, RoIs many times the map's
+    stride, below it and off the image; against the plain version at 1e-5
+    in f32, one bf16 ulp + 1e-5 in bf16."""
+    rng = np.random.RandomState(18)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    xy = rng.uniform(-40, 1216, (4, 512, 2))
+    wh = rng.uniform(2, 600, (4, 512, 2))
+    wh[:, :16] = rng.uniform(0.5, 24, (4, 16, 2))          # below a cell
+    xy[:, 16:24] = rng.uniform(-900, -700, (4, 8, 2))     # off the image
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                            .astype(np.float32)).to(cuda_device)
+    feats = torch.from_numpy(rng.randn(4, 19, 38, 2048).astype(np.float32)
+                             ).to(cuda_device, dt)
+    got = troi.roi_align_batched(feats, rois, 1 / 32, 7, 2).float()
+    want = troi.roi_align_plain(feats, rois, 1 / 32, 7, 2).float()
+    assert got.shape == (4, 512, 7, 7, 2048)
+    tol = 1e-5
+    if dt == torch.bfloat16:
+        tol = torch.ldexp(torch.ones_like(want), torch.frexp(
+            torch.maximum(got.abs(), want.abs())).exponent - 8) + 1e-5
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["one", "three", "odd"])
 def test_augment_views_on_card(cuda_device, case):
     """K4 against its plain version (1e-5: the canvas mean sums in another

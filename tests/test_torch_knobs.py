@@ -386,7 +386,6 @@ def test_evaluator_writes_detections_pckl(rng, tmp_path, monkeypatch):
             str(tmp_path)])
         tr.evaluate(model)
     assert seen == [str(tmp_path / "detections.pckl"), None]
-    base.check_ported(tr.cfg)
 
 
 # ---------------------------------------------------------------- RN101

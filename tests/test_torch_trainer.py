@@ -451,20 +451,15 @@ def test_checkpoint_resume_continues_bit_for_bit(setup, out_dir, pil_decode):
     assert torch.equal(s1.generator.get_state(), s2.generator.get_state())
 
 
-@pytest.mark.parametrize("knob", ["TPU.TEACHER_FAST_HEAD"])
-def test_unported_knobs_raise(setup, knob):
-    with pytest.raises(NotImplementedError, match=knob.split(".")[1]):
-        _port_trainer(setup, **{knob: True})
-
-
 @pytest.mark.parametrize("knob,value", [
     ("TPU.INT8_ROI", True), ("TPU.TEACHER_SHARE_CROPS", 256),
-    ("TPU.TEACHER_SHARE_THRESH", 0.8)])
+    ("TPU.TEACHER_SHARE_THRESH", 0.8), ("TPU.TEACHER_FAST_HEAD", True)])
 def test_ported_knobs_build_what_jax_builds(setup, knob, value):
     """TPU.INT8_ROI gives the model (and its int8 clone) ``quant_roi``, and
-    TPU.TEACHER_SHARE_CROPS / SHARE_THRESH set the teacher's
-    ``share_crops_budget`` / ``share_crops_thresh``, as the JAX trainer
-    reads them (coin_tpu/engine/base.py:151, trainer.py:97-99)."""
+    TPU.TEACHER_SHARE_CROPS / SHARE_THRESH / FAST_HEAD set the teacher's
+    ``share_crops_budget`` / ``share_crops_thresh`` / ``fast_head``, as
+    the JAX trainer reads them (coin_tpu/engine/base.py:151,
+    trainer.py:97-102); the student's ``pcfg`` keeps the exact head."""
     tr = _port_trainer(setup, **{knob: value})
     jcfg = setup["jcfg"].clone()
     node, _, leaf = knob.rpartition(".")
@@ -472,13 +467,16 @@ def test_ported_knobs_build_what_jax_builds(setup, knob, value):
     jtr = JTrainer(jcfg, store=setup["jstore"])
     assert tr.model.quant_roi == jtr.model.quant_roi
     assert tr.model.clone(quant_convs=True).quant_roi == jtr.model.quant_roi
-    for f in ("share_crops_budget", "share_crops_thresh"):
+    for f in ("share_crops_budget", "share_crops_thresh", "fast_head"):
         assert getattr(tr.teacher_pcfg, f) == getattr(jtr.teacher_pcfg, f)
+        assert getattr(tr.pcfg, f) == getattr(jtr.pcfg, f)
     assert (tr.model.quant_roi, tr.teacher_pcfg.share_crops_budget,
-            tr.teacher_pcfg.share_crops_thresh) == {
-        "TPU.INT8_ROI": (True, 0, 0.9),
-        "TPU.TEACHER_SHARE_CROPS": (False, 256, 0.9),
-        "TPU.TEACHER_SHARE_THRESH": (False, 0, 0.8)}[knob]
+            tr.teacher_pcfg.share_crops_thresh,
+            tr.teacher_pcfg.fast_head, tr.pcfg.fast_head) == {
+        "TPU.INT8_ROI": (True, 0, 0.9, False, False),
+        "TPU.TEACHER_SHARE_CROPS": (False, 256, 0.9, False, False),
+        "TPU.TEACHER_SHARE_THRESH": (False, 0, 0.8, False, False),
+        "TPU.TEACHER_FAST_HEAD": (False, 0, 0.9, True, False)}[knob]
 
 
 @pytest.fixture(scope="module")
@@ -570,8 +568,10 @@ def test_auto_scale_counts_one_worker(setup, monkeypatch, reference):
     for mod in (base, trainer):
         monkeypatch.setattr(mod, "resolve_device",
                             lambda d="cuda": torch.device(d))
-    # the base's check follows its own auto_scale_workers call
-    monkeypatch.setattr(base, "check_ported", stop)
+    # the base reads the CLIP assets just after its own auto_scale_workers
+    # call
+    monkeypatch.setattr(base, "setup_clip_assets",
+                        lambda cfg, class_names: stop(cfg))
     cfg = setup["cfg"].clone()
     cfg.SOLVER.REFERENCE_WORLD_SIZE = reference
     with pytest.raises(_Built) as built:

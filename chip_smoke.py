@@ -105,6 +105,21 @@
    per batch, a stage split (Swin, FPN, the blocks' VLFuse, language layer
    and DyConv, head and post-processing), detections before and after K6,
    peak memory, and the checkpoint's write and build seconds.
+10b. collection views, on phase 10's teacher: collect_cloud with
+   COLLECT_AUG 'ZOOM&AUG' over one batch of 4 of its images (608 x 1216,
+   the 320 x 640 centre zoom). K4 in its identity mode (the AUG view,
+   strong_view_u8, first held to its plain version byte for byte after
+   the cast) must launch once, K4n, K7 and K9 for three detector calls
+   and K6 once. Prints ms per image in turns with the plain pass over the
+   batch, rows per image with and without the views, merge_zoom's counts
+   (kept, border, fused, replaced, dropped, appended); the npz read back.
+10c. loader: which decoder ran (the native libjpeg decoder must build
+   where g++ and jpeglib.h are present), host ms per image of PIL against
+   native over 12 JPEGs of 1024 x 2048 into 608 x 1216 (in turns), then
+   TrainLoader(aspect_buckets=True) over landscape 1024 x 2048 and
+   portrait 2048 x 1024 images: its batches on 608 x 1216 and 1216 x 608
+   canvases, each through K4 against the plain version, K4 timed on the
+   portrait canvas. Prints both phases' wall time.
 
 13. bench_preprocess path, the main path of K10: the port's
    tools/bench_preprocess through its main (normalize_flip of 3 x 608 x
@@ -952,18 +967,61 @@ def host_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def k4_case(torch, label, images, params, weak=True, mean=None, std=None,
+            tol=1e-5):
+    """K4 on one call's inputs against its plain version (within ``tol``
+    of it, each view), then timed: device time from CUDA-graph replays,
+    CUDA events around each call, the host's launch of one, the plain
+    version and the card's bound. ``mean``/``std`` default to CLIP's."""
+    from coin_tpu_torch.data.augment import (CLIP_MEAN, CLIP_STD,
+                                             preprocess_plain)
+    from coin_tpu_torch.kernels.augment import augment_cuda
+    mean, std = mean or CLIP_MEAN, std or CLIP_STD
+    call = lambda: augment_cuda(images, params, mean, std, weak)
+    got = call()
+    want = preprocess_plain(images, params, weak, mean, std)
+    check(got[1] is None if not weak else got[1] is not None,
+          f"augment {label}: the weak view is {got[1]}")
+    err = max((a - b).abs().max().item() for a, b in zip(got, want)
+              if a is not None)
+    check(err <= tol, f"augment {label}: max abs err {err} > {tol}")
+    ms = graph_ms(torch, call)
+    call_ms = time_ms(torch, call)
+    launch_ms = host_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: preprocess_plain(images, params, weak,
+                                                       mean, std),
+                       iters=5, warmup=1)
+    n = images.numel()
+    gates = (params[:, :4] != 0).int().tolist()
+    on = [sum(g[i] for g in gates) for i in range(4)]
+    # operations the function needs per channel value with these gates:
+    # jitter ~20, gray 5, the two 9-tap passes 36, solarize and the
+    # normalisations 3 per view
+    per = [20 * g[0] + 5 * g[1] + 36 * g[2] + 3 * (2 if weak else 1)
+           for g in gates]
+    flops = n / len(gates) * sum(per)
+    b_ms, b_by = bound(n + (2 if weak else 1) * 4 * n, flops)
+    print(f"[K4 augment {label}] {tuple(images.shape)} u8 -> "
+          f"{'2 x' if weak else 'strong'} f32, mean {tuple(mean)}, std "
+          f"{tuple(std)}, gates on per (jitter, gray, blur, solarize) "
+          f"{on}: max abs err {err:.3g} (tol {tol}); device {ms:.4f} ms "
+          f"(graph replays), events around each call {call_ms:.4f} ms, "
+          f"host launch {launch_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return dict(case=label, shape=list(images.shape), max_abs_err=err,
+                ms=ms, call_ms=call_ms, host_ms=launch_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_augment(torch, dev, gen):
     """K4 at the training path's batch of 3 on the 608 x 1216 canvas: both
     views with every gate on and with mixed gates (the live step's call),
     the strong view alone (the cached flavours' call), and an odd canvas
     (H and W off the 16 x 64 tiles, rows off 16 bytes) with mixed gates;
-    each within 1e-5 of the plain version. Device time from CUDA-graph
-    replays, apart from the host's time to launch one call and from CUDA
-    events around each call."""
-    from coin_tpu_torch.data.augment import (CLIP_MEAN, CLIP_STD,
-                                             augment_params,
-                                             preprocess_plain)
-    from coin_tpu_torch.kernels.augment import augment_cuda
+    each within 1e-5 of the plain version (``k4_case``). The collection
+    views' identity mode and the loader's portrait canvas are added by
+    phases 10b and 10c."""
+    from coin_tpu_torch.data.augment import augment_params
 
     def blocky(hw):
         cells = torch.randint(0, 256, (3, hw[0] // 16 + 1, hw[1] // 16 + 1,
@@ -981,39 +1039,7 @@ def phase_augment(torch, dev, gen):
     out = {}
     for label, images, gates, weak in cases:
         params = augment_params(_augment_draws(torch, gen, gates).to(dev))
-        call = lambda: augment_cuda(images, params, CLIP_MEAN, CLIP_STD,
-                                    weak)
-        got = call()
-        want = preprocess_plain(images, params, weak)
-        check(got[1] is None if not weak else got[1] is not None,
-              f"augment {label}: the weak view is {got[1]}")
-        err = max((a - b).abs().max().item() for a, b in zip(got, want)
-                  if a is not None)
-        check(err <= 1e-5, f"augment {label}: max abs err {err} > 1e-5")
-        ms = graph_ms(torch, call)
-        call_ms = time_ms(torch, call)
-        launch_ms = host_ms(torch, call)
-        plain_ms = time_ms(torch, lambda: preprocess_plain(images, params,
-                                                           weak),
-                           iters=5, warmup=1)
-        n = images.numel()
-        on = torch.tensor(gates).sum(0).tolist()
-        # operations the function needs per channel value with these
-        # gates: jitter ~20, gray 5, the two 9-tap passes 36, solarize and
-        # the normalisations 3 per view
-        per = [20 * gates[i][0] + 5 * gates[i][1] + 36 * gates[i][2]
-               + 3 * (2 if weak else 1) for i in range(len(gates))]
-        flops = n / len(gates) * sum(per)
-        b_ms, b_by = bound(n + (2 if weak else 1) * 4 * n, flops)
-        print(f"[K4 augment {label}] {tuple(images.shape)} u8 -> "
-              f"{'2 x' if weak else 'strong'} f32, gates on per (jitter, "
-              f"gray, blur, solarize) {on}: max abs err {err:.3g} (tol "
-              f"1e-5); device {ms:.4f} ms (graph replays), events around "
-              f"each call {call_ms:.4f} ms, host launch {launch_ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-        out[label] = dict(case=label, max_abs_err=err, ms=ms,
-                          call_ms=call_ms, host_ms=launch_ms,
-                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        out[label] = k4_case(torch, label, images, params, weak)
     a = out["all_on"]
     return dict(name="augment", route="cuda",
                 source="coin_tpu_torch/csrc/augment.cu",
@@ -2802,14 +2828,17 @@ def _synthetic_vocab(path, class_names):
         f.write("\n".join(words) + "\n")
 
 
-def phase_collect_path(torch, dev, sd, counters):
+def phase_collect_path(torch, dev, sd, counters, then=None):
     """The collection pass with the cloud teacher: build_cloud_detector
     of foggy_fast.yaml's GDINO teacher (Swin-B, 900 queries, 6 + 6
     layers, BERT-base; bf16 over f32 parameters) from a checkpoint file
     in the official layout, then collect_cloud with CLOUD.NMS_METHOD 'ms'
     over the 12 synthetic 1024 x 2048 images of the trainer path (3
     batches of 4 on 608 x 1216); the npz saved, loaded and packed as the
-    trainer reads it. K4n, K6, K7 and K9 must launch."""
+    trainer reads it. K4n, K6, K7 and K9 must launch. ``then``, when
+    given, is a phase called with (det, loader, cfg, kw, launches, root)
+    on this teacher and these images before they are freed; its result
+    comes back as the info's "then"."""
     import tempfile
     import numpy as np
     from coin_tpu_torch.config import load_config
@@ -2971,11 +3000,261 @@ def phase_collect_path(torch, dev, sd, counters):
         check(all(v > 0 for v in launches.values()),
               f"a kernel was not launched on the collection path: "
               f"{launches}")
-        return launches, dict(ms_per_image=run_s * 1e3 / 12,
-                              batch_ms=batch_ms, stage_ms=stage_ms,
-                              peak_gib=mem, store=store)
+        info = dict(ms_per_image=run_s * 1e3 / 12, batch_ms=batch_ms,
+                    stage_ms=stage_ms, peak_gib=mem, store=store)
+        if then is not None:
+            info["then"] = then(det, loader, cfg, kw, launches, root)
+        return launches, info
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_collect_views(torch, dev, det, loader, cfg, kw, plain_launches,
+                        root, counters):
+    """10b. The collection views on phase 10's teacher: collect_cloud with
+    COLLECT_AUG 'ZOOM&AUG' over the first batch of 4 of its 1024 x 2048
+    images (608 x 1216 canvas, the 320 x 640 centre zoom): K4 with the
+    identity normalisation (the AUG view; first held to its plain version
+    on the batch, byte for byte after the cast), K4n, K7 and K9 for three
+    detector calls and K6 once; timed in turns with the plain pass over
+    the same batch; rows per image with and without the views and
+    merge_zoom's counts; the npz read back as the trainer reads it."""
+    import copy
+    import numpy as np
+    from coin_tpu_torch.data.augment import (IDENTITY_MEAN, IDENTITY_STD,
+                                             augment_params, draw_augment,
+                                             preprocess_plain,
+                                             strong_view_u8)
+    from coin_tpu_torch.engine import collect as collect_mod
+    from coin_tpu_torch.engine import zoom_merge
+    from coin_tpu_torch.engine.results_store import ResultStore
+    t_phase = time.perf_counter()
+    one = copy.copy(loader)
+    one.records = loader.records[:4]
+    check(len(one) == 1 and tuple(one.canvas_hw) == (608, 1216),
+          f"views batch {len(one)} x {one.canvas_hw}")
+    itc = cfg.INPUT.TEACHER_CLOUD
+    min_zoom = itc.get("MIN_CENTER_ZOOM_SIZE", 320)
+    batch, _ = next(iter(one))
+    check(zoom_merge.center_zoom_box(*map(int, batch.image_hw[0]),
+                                     min_zoom)[2:] == (640, 320),
+          "not the 320 x 640 zoom")
+    # the draws collect_cloud makes when none are given
+    draws = draw_augment(torch.Generator().manual_seed(0), 4)
+    u8 = torch.from_numpy(batch.images).to(dev)
+    with torch.inference_mode():
+        got = strong_view_u8(u8, draws)
+        params = augment_params(draws.to(dev))
+        want = (preprocess_plain(u8, params, False, IDENTITY_MEAN,
+                                 IDENTITY_STD)[0] * 255.0).to(torch.uint8)
+        d = (got.int() - want.int()).abs()
+        share, dmax = (d != 0).float().mean().item(), d.max().item()
+        print(f"[collect views] strong_view_u8 {tuple(u8.shape)} on the "
+              f"card against its plain version: {share:.3g} of the bytes "
+              f"differ, by at most {dmax} (tol: 1e-3 of the bytes, by 1)")
+        check(dmax <= 1 and share <= 1e-3, "strong_view_u8 disagrees")
+        case = k4_case(torch, "identity", u8, params, False, IDENTITY_MEAN,
+                       IDENTITY_STD)
+    per_image = []
+    merge = zoom_merge.merge_zoom
+
+    def counted_merge(*a, **k):
+        per_image.append({})
+        return merge(*a, stats=per_image[-1], **k)
+    views_kw = dict(kw, collect_aug="ZOOM&AUG", min_zoom=min_zoom)
+
+    def run(views):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = collect_mod.collect_cloud(det, one, 8,
+                                          **(views_kw if views else kw))
+        torch.cuda.synchronize()
+        return store, (time.perf_counter() - t0) * 1e3 / 4
+    zoom_merge.merge_zoom = counted_merge
+    try:
+        run(True)                                       # warm-up
+        for fn in counters:
+            fn.launches = 0
+        per_image.clear()
+        store, views_ms = run(True)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        stats = list(per_image)
+        # in turns with the plain pass over the same batch
+        plain, plain_ms = run(False)
+        _, views_ms2 = run(True)
+        _, plain_ms2 = run(False)
+    finally:
+        zoom_merge.merge_zoom = merge
+    want_launches = {"augment_cuda": 1, "fusion_nms_cuda": 1}
+    for name in ("normalize_cuda", "window_attention_cuda",
+                 "ms_deform_cuda"):   # 3 calls, as phase 10's 3 batches
+        want_launches[name] = plain_launches[name]
+    print(f"[collect views] kernel launches {json.dumps(launches)} "
+          f"(expected {json.dumps(want_launches)})")
+    check(launches == want_launches, "collection views' launches")
+    check(len(stats) == 4, f"merge_zoom ran {len(stats)} times")
+    npz = os.path.join(root, "GDINO_views_collect.npz")
+    store.save(npz)
+    back = ResultStore.load(npz)
+    rows = {}
+    for j, rec in enumerate(one.records):
+        iid = rec["image_id"]
+        r = rows[iid] = {}
+        for view, thresh in (("RCNN", kw["rcnn_thresh"]),
+                             ("RPN", kw["rpn_thresh"])):
+            v = back.get_view(iid, view)
+            n = len(v["scores"])
+            r[view] = n
+            r[view + "_plain"] = len(plain.get_view(iid, view)["scores"])
+            check(v["probs"].shape == (n, 9)
+                  and bool(np.isfinite(v["boxes"]).all())
+                  and bool((v["scores"] >= thresh).all())
+                  and bool((v["scores"] <= 1.0).all()),
+                  f"views store {view} of {iid}")
+            packed = back.pack_view(iid, view, 128, float(batch.scale[j]),
+                                    False, float(one.canvas_hw[1]))
+            check(int(packed["valid"].sum()) == min(n, 128), "pack_view")
+        r.update(stats[j])
+    wall = time.perf_counter() - t_phase
+    print(f"[collect views] collect_cloud COLLECT_AUG ZOOM&AUG over 4 "
+          f"images (608 x 1216, zoom 320 x 640): {views_ms:.2f} / "
+          f"{views_ms2:.2f} ms per image against the plain pass's "
+          f"{plain_ms:.2f} / {plain_ms2:.2f} (in turns); per image rows "
+          f"with views and plain, and merge_zoom's counts (kept outside, "
+          f"border, border_fused, fused, replaced, dropped, appended): "
+          f"{json.dumps(rows)}; phase wall {wall:.1f} s")
+    return launches, dict(views_ms=[views_ms, views_ms2],
+                          plain_ms=[plain_ms, plain_ms2], rows=rows,
+                          byte_share=share, byte_max=dmax, k4_case=case,
+                          wall_s=wall)
+
+
+def phase_loader(torch, dev, counters):
+    """10c. The loader: which decoder ran (the native one must build where
+    g++ and jpeglib.h are on the host); pack_batch of 12 JPEGs of 1024 x
+    2048 into 608 x 1216, PIL against native in turns; then
+    TrainLoader(aspect_buckets=True) of foggy_fast.yaml's sizes over 12
+    landscape 1024 x 2048 and 4 portrait 2048 x 1024 images, its batches
+    on 608 x 1216 and 1216 x 608 canvases, each through K4
+    (preprocess_batch, both views) held to the plain version; K4 timed on
+    the portrait canvas."""
+    import numpy as np
+    from coin_tpu_torch import native
+    from coin_tpu_torch.data.augment import (augment_params, draw_augment,
+                                             preprocess_batch,
+                                             preprocess_plain)
+    from coin_tpu_torch.data.loader import TestLoader, TrainLoader
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES,
+                                         make_synthetic_voc,
+                                         register_pascal_voc)
+    t_phase = time.perf_counter()
+    gxx, header = native.toolchain()
+    ok = native.available()
+    print(f"[loader] g++ {gxx or 'missing'}, jpeglib.h "
+          f"{'found' if header else 'missing'} on the card's host; the "
+          f"native decoder "
+          f"{'built and loaded' if ok else 'unavailable: '}"
+          f"{'' if ok else native.build_error()}; JPEG batches decode with "
+          f"{'the native decoder' if ok else 'PIL'}")
+    if gxx and header:
+        check(ok, f"the native decoder did not build: {native.build_error()}")
+    root = os.path.join(REPO, "output", "chip_smoke_loader")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        voc = os.path.join(root, "foggy")
+        make_synthetic_voc(voc, num_images=12, class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED, split="land")
+        make_synthetic_voc(voc, num_images=4, class_names=CITYSCAPES_CLASSES,
+                           image_hw=(2048, 1024), seed=SEED + 1,
+                           split="port")
+        main_dir = os.path.join(voc, "ImageSets", "Main")
+        ids = [open(os.path.join(main_dir, f"{s}.txt")).read().split()
+               for s in ("land", "port")]
+        with open(os.path.join(main_dir, "mixed.txt"), "w") as f:
+            f.write("\n".join(ids[0] + ids[1]) + "\n")
+        for name, split in (("chip_smoke_land", "land"),
+                            ("chip_smoke_mixed", "mixed")):
+            register_pascal_voc(name, "foggy", split, CITYSCAPES_CLASSES,
+                                ".jpg")
+        size = dict(min_size=600, max_size=1333)
+        tl = TestLoader("chip_smoke_land", root, batch_size=12, **size)
+        check(tuple(tl.canvas_hw) == (608, 1216), f"{tl.canvas_hw}")
+
+        def pack_ms(use_native):
+            saved = native.available
+            if not use_native:
+                native.available = lambda: False
+            try:
+                t0 = time.perf_counter()
+                b = tl.pack_batch(list(range(12)))
+                return (time.perf_counter() - t0) * 1e3 / 12, b
+            finally:
+                native.available = saved
+        decode = {"pil": [], "native": []}
+        for which in ("pil", "native", "native", "pil"):
+            ms, b = pack_ms(which == "native")
+            decode[which].append(ms)
+            decode[which + "_batch"] = b
+        a = decode.pop("pil_batch")
+        b = decode.pop("native_batch")
+        check(np.array_equal(a.image_hw, b.image_hw), "PIL and native hw")
+        gap = float(np.abs(a.images.astype(np.float32) - b.images).mean())
+        print(f"[loader] pack_batch of 12 JPEGs 1024 x 2048 into 608 x "
+              f"1216, host ms per image in turns (PIL, native, native, "
+              f"PIL): PIL {decode['pil']}, native " + (
+                  f"{decode['native']}; mean |PIL - native| {gap:.3f} "
+                  f"grey levels" if ok else "not measured (PIL ran)"))
+
+        trl = TrainLoader("chip_smoke_mixed", root, batch_size=3, seed=SEED,
+                          aspect_buckets=True, **size)
+        gen = torch.Generator().manual_seed(SEED + 30)
+        for fn in counters:
+            fn.launches = 0
+        seen, runs = {}, []
+        it = iter(trl)
+        t0 = time.perf_counter()
+        while len(runs) < 6 or len(seen) < 2:
+            check(len(runs) < 16, f"16 batches, canvases {sorted(seen)}")
+            batch = next(it)
+            u8 = torch.from_numpy(batch.images).to(dev)
+            draws = draw_augment(gen, 3)
+            with torch.inference_mode():
+                views = preprocess_batch(u8, draws)
+            h, w = batch.orig_hw.T
+            land = set((w >= h).tolist())
+            check(len(land) == 1, "a batch mixes orientations")
+            want = (608, 1216) if land.pop() else (1216, 608)
+            check(tuple(u8.shape[1:3]) == want, f"canvas {u8.shape}")
+            seen[want] = seen.get(want, 0) + 1
+            runs.append((u8, draws, views))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        check(launches.get("augment_cuda") == len(runs),
+              f"K4 launches {launches} for {len(runs)} batches")
+        err = 0.0
+        with torch.inference_mode():
+            for u8, draws, views in runs:
+                plain = preprocess_plain(u8, augment_params(draws.to(dev)))
+                err = max(err, *((x - y).abs().max().item()
+                                 for x, y in zip(views, plain)))
+        check(err <= 1e-5, f"K4 on the loader's batches: {err} > 1e-5")
+        u8, draws, _ = next(r for r in runs if r[0].shape[1] == 1216)
+        with torch.inference_mode():
+            case = k4_case(torch, "portrait", u8,
+                           augment_params(draws.to(dev)))
+        wall = time.perf_counter() - t_phase
+        canvases = {f"{h} x {w}": n for (h, w), n in seen.items()}
+        print(f"[loader] TrainLoader(aspect_buckets=True) over 12 landscape "
+              f"and 4 portrait images: {len(runs)} batches of 3 in "
+              f"{load_s:.2f} s, canvases {json.dumps(canvases)}; "
+              f"K4 on each against its plain version: max abs err "
+              f"{err:.3g} (tol 1e-5); launches {json.dumps(launches)}; "
+              f"phase wall {wall:.1f} s")
+        return launches, dict(decode_ms=decode, gap=gap, canvases=canvases,
+                              k4_case=case, native=ok, wall_s=wall)
+    finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -4673,9 +4952,19 @@ def main() -> int:
           f"{sum(v.size for v in sd.values()) / 1e6:.1f} M values, drawn in "
           f"{time.perf_counter() - t0:.1f} s")
     phase_gdino_reference(torch, dev, sd)
-    collect_launches, collect_info = phase_collect_path(torch, dev, sd,
-                                                        collect_counters)
+    views_counters = collect_counters + [augment_cuda]
+    collect_launches, collect_info = phase_collect_path(
+        torch, dev, sd, collect_counters,
+        then=lambda *args: phase_collect_views(torch, dev, *args,
+                                               views_counters))
+    views_launches, views_info = collect_info.pop("then")
     del sd
+    torch.cuda.empty_cache()
+    loader_launches, loader_info = phase_loader(torch, dev, [augment_cuda])
+    next(k for k in kernels if k["name"] == "augment")["cases"] += [
+        views_info["k4_case"], loader_info["k4_case"]]
+    print(f"[wall] phases 10b and 10c (collection views, loader) "
+          f"{views_info['wall_s'] + loader_info['wall_s']:.1f} s")
     torch.cuda.empty_cache()
     import tempfile
     from coin_tpu_torch.models.manifests import clip_assets
@@ -4756,8 +5045,8 @@ def main() -> int:
     # GDINO collection path for K6, K7 and K9, the GLIP collection path for
     # K8, the int8-RoI trainer path for K5 and K5b, the share-crops
     # collection pass for K11, the bench_preprocess path for K10a and
-    # K10b, the trainer path for the rest); an entry of several wrappers
-    # counts them all
+    # K10b, the trainer path for the rest; every path's in
+    # launches_by_path); an entry of several wrappers counts them all
     by_fn = {"roi_align": ["roi_align_cuda"],
              "roi_align_bwd": ["roi_align_backward_cuda"],
              "roi_align_int8": ["roi_align_int8_cuda"],
@@ -4783,7 +5072,8 @@ def main() -> int:
              "share_crops": trainer["share_launches"],
              "bench_preprocess": pre_launches, "clip_rescore": clip_launches,
              "pretrain": pretrain_launches, "oracle": oracle_launches,
-             "fast_head": fast_launches, "validate": validate_launches}
+             "fast_head": fast_launches, "validate": validate_launches,
+             "collect_views": views_launches, "loader": loader_launches}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
                   "fusion_nms": "collect", "deform_conv": "collect_glip",
                   "roi_align_int8": "int8_roi_trainer",

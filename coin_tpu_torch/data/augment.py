@@ -21,6 +21,7 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IDENTITY_MEAN, IDENTITY_STD = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
 GRAY = (0.299, 0.587, 0.114)
 GATE_P = (0.8, 0.2, 0.5, 0.2)
 BLUR_RADIUS = 4
@@ -102,13 +103,13 @@ def _shifted_sum(x: torch.Tensor, taps: torch.Tensor, dim: int):
 
 
 def preprocess_plain(images_u8: torch.Tensor, params: torch.Tensor,
-                     weak: bool = True):
+                     weak: bool = True, mean=CLIP_MEAN, std=CLIP_STD):
     """Plain version of K4: uint8 (B, H, W, 3), params (B, 20) →
-    (strong, weak), each CLIP-normalised float32 (B, H, W, 3); weak is
-    None when ``weak`` is false."""
+    (strong, weak), each float32 (B, H, W, 3) normalised with ``mean`` and
+    ``std`` (CLIP's unless given); weak is None when ``weak`` is false."""
     dev = images_u8.device
-    mean_c = torch.tensor(CLIP_MEAN, device=dev)
-    std_c = torch.tensor(CLIP_STD, device=dev)
+    mean_c = torch.tensor(mean, device=dev)
+    std_c = torch.tensor(std, device=dev)
     img = _div(images_u8.float(), 255.0)
     weak_view = _div(img - mean_c, std_c) if weak else None
     col = lambda i: params[:, i].reshape(-1, 1, 1, 1)
@@ -117,9 +118,9 @@ def preprocess_plain(images_u8: torch.Tensor, params: torch.Tensor,
     # colour jitter: brightness, contrast around the canvas's mean gray,
     # saturation around the pixel's gray, hue, one clip
     v = img * col(4)
-    mean = (_gray(v).double().sum((1, 2)) / (v.shape[1] * v.shape[2])) \
-        .float().reshape(-1, 1, 1, 1)
-    v = (v - mean) * col(5) + mean
+    gray_mean = (_gray(v).double().sum((1, 2))
+                 / (v.shape[1] * v.shape[2])).float().reshape(-1, 1, 1, 1)
+    v = (v - gray_mean) * col(5) + gray_mean
     g = _gray(v)[..., None]
     v = (v - g) * col(6) + g
     v = v + col(7) * (torch.roll(v, 1, dims=-1) - v)
@@ -133,14 +134,28 @@ def preprocess_plain(images_u8: torch.Tensor, params: torch.Tensor,
 
 
 def preprocess_batch(images_u8: torch.Tensor, draws: torch.Tensor,
-                     weak: bool = True):
+                     weak: bool = True, mean=CLIP_MEAN, std=CLIP_STD):
     """uint8 (B, H, W, 3) and draws (B, 9) → (strong, weak) views, each
-    CLIP-normalised float32 (B, H, W, 3). With ``weak`` false the weak view
-    is not computed and comes back as None, as the compiled JAX step never
-    computes the view that its cached flavours drop. The horizontal flip
-    happens on the host, in the loader, as in the JAX package."""
+    float32 (B, H, W, 3) normalised with ``mean`` and ``std`` (CLIP's
+    unless given). With ``weak`` false the weak view is not computed and
+    comes back as None, as the compiled JAX step never computes the view
+    that its cached flavours drop. The horizontal flip happens on the
+    host, in the loader, as in the JAX package."""
     params = augment_params(draws.to(images_u8.device))
     if images_u8.is_cuda:
         from coin_tpu_torch.kernels.augment import augment_cuda
-        return augment_cuda(images_u8, params, CLIP_MEAN, CLIP_STD, weak)
-    return preprocess_plain(images_u8, params, weak)
+        return augment_cuda(images_u8, params, mean, std, weak)
+    return preprocess_plain(images_u8, params, weak, mean, std)
+
+
+def strong_view_u8(images_u8: torch.Tensor, draws: torch.Tensor
+                   ) -> torch.Tensor:
+    """The collection's AUG view (coin_tpu/engine/collect.py:93-97): the
+    strong view of uint8 (B, H, W, 3) under draws (B, 9), from K4 with the
+    identity normalisation (mean 0, std 1, so ``(x - 0) / 1`` is ``x``),
+    times 255 and cast to uint8. The cast truncates as JAX's does: an
+    untouched pixel ``v`` comes back as ``v - 1`` wherever ``v / 255 *
+    255`` rounds below ``v`` in f32."""
+    strong, _ = preprocess_batch(images_u8, draws, weak=False,
+                                 mean=IDENTITY_MEAN, std=IDENTITY_STD)
+    return (strong * 255.0).to(torch.uint8)

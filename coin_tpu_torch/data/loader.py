@@ -1,8 +1,10 @@
 """Data loaders: host decode/resize onto a static padded canvas (copy of
 coin_tpu/data/loader.py's ``Batch``, ``_BaseLoader``, ``TestLoader`` and
-``TrainLoader`` with the PIL decode path only; the native libjpeg decoder
-is ROADMAP item 8b). Everything photometric happens on the device
-(``data/augment.py``).
+``TrainLoader``). A batch of JPEGs is decoded by the port's native
+libjpeg decoder (``coin_tpu_torch.native``) where it builds, else, and for
+any other format, by PIL on a shared thread pool, in the JAX loaders'
+order, so that both packages see the same pixels. Everything photometric
+happens on the device (``data/augment.py``).
 """
 
 from __future__ import annotations
@@ -18,11 +20,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from coin_tpu_torch import native
 from coin_tpu_torch.data.voc import get_dataset, load_voc_instances
 
 logger = logging.getLogger(__name__)
 
-DECODE_THREADS = 8  # PIL decode/resize release the GIL
+# PIL decode/resize release the GIL; one shared pool (its threads start at
+# the first batch) decodes every loader's batches
+_DECODE_POOL = ThreadPoolExecutor(max_workers=8)
 
 
 @dataclass
@@ -82,8 +87,11 @@ class _BaseLoader:
         up = lambda v: int(-(-max(v) // 32) * 32)
         return up(hs), up(ws)
 
-    def load_image(self, rec: dict):
-        ch, cw = self.canvas_hw
+    def load_image(self, rec: dict, canvas_hw=None):
+        """PIL decode and bilinear resize of one image into the top left of
+        a zeroed canvas (``self.canvas_hw`` unless given) → (canvas, scale,
+        (nh, nw))."""
+        ch, cw = canvas_hw or self.canvas_hw
         with Image.open(rec["file_name"]) as im:
             im = im.convert("RGB")
             w, h = im.size
@@ -95,17 +103,45 @@ class _BaseLoader:
                 logger.warning("image %s (%dx%d, scaled %dx%d) exceeds the "
                                "static canvas %s; clamping distorts its "
                                "scale", rec.get("image_id"), h, w, nh, nw,
-                               self.canvas_hw)
+                               (ch, cw))
                 nh, nw = min(nh, ch), min(nw, cw)
             im = im.resize((nw, nh), Image.BILINEAR)
         canvas = np.zeros((ch, cw, 3), np.uint8)
         canvas[:nh, :nw] = np.asarray(im, np.uint8)
         return canvas, scale, (nh, nw)
 
+    def _native_decode(self, indices: Sequence[int], canvas_hw=None):
+        """The batch through the native decoder: ((canvases, out_hw),
+        scales), with ``decode_batch``'s None in place of the pair when an
+        image failed; None when the library is unavailable or a file is not
+        a JPEG. A record without its size takes it from the JPEG's
+        header."""
+        if not native.available():
+            return None
+        blobs, scales = [], []
+        for i in indices:
+            rec = self.records[i]
+            if not rec["file_name"].lower().endswith((".jpg", ".jpeg")):
+                return None
+            with open(rec["file_name"], "rb") as f:
+                blob = f.read()
+            if "height" not in rec:
+                hw = native.jpeg_size(blob)
+                if hw is None:
+                    return None
+                rec["height"], rec["width"] = hw
+            blobs.append(blob)
+            scales.append(_resize_factor(rec["height"], rec["width"],
+                                         self.min_size, self.max_size))
+        return native.decode_batch(blobs, scales,
+                                   canvas_hw or self.canvas_hw), scales
+
     def pack_batch(self, indices: Sequence[int],
-                   flips: Optional[np.ndarray] = None) -> Batch:
+                   flips: Optional[np.ndarray] = None,
+                   canvas_hw: Optional[Tuple[int, int]] = None) -> Batch:
         b, g = len(indices), self.gt_capacity
-        images = np.zeros((b, *self.canvas_hw, 3), np.uint8)
+        ch, cw = canvas_hw or self.canvas_hw
+        images = np.zeros((b, ch, cw, 3), np.uint8)
         image_hw = np.zeros((b, 2), np.float32)
         orig_hw = np.zeros((b, 2), np.float32)
         scales = np.zeros((b,), np.float32)
@@ -115,9 +151,16 @@ class _BaseLoader:
         gt_diff = np.zeros((b, g), bool)
         flips = (np.zeros(b, bool) if flips is None
                  else np.asarray(flips, bool))
-        with ThreadPoolExecutor(DECODE_THREADS) as pool:
-            loaded = list(pool.map(
-                lambda i: self.load_image(self.records[i]), indices))
+        nat = self._native_decode(indices, (ch, cw))
+        if nat is not None and nat[0] is not None:
+            (canvases, out_hw), nat_scales = nat
+            loaded = [(canvases[j], nat_scales[j],
+                       (int(out_hw[j][0]), int(out_hw[j][1])))
+                      for j in range(b)]
+        else:
+            loaded = list(_DECODE_POOL.map(
+                lambda i: self.load_image(self.records[i], (ch, cw)),
+                indices))
         ids = []
         for j, i in enumerate(indices):
             rec = self.records[i]
@@ -172,14 +215,17 @@ class TestLoader(_BaseLoader):
 
 class TrainLoader(_BaseLoader):
     """Infinite shuffled loader with random horizontal flips and a
-    background prefetch thread. The order and the flips come from
-    ``np.random.RandomState(seed)`` in the JAX loader's sequence of draws,
-    so both packages see the same batches for one seed."""
+    background prefetch thread. The order, the groups and the flips come
+    from ``np.random.RandomState(seed)`` in the JAX loader's sequence of
+    draws, so both packages see the same batches for one seed. With
+    ``aspect_buckets`` every batch is drawn from the landscape or the
+    portrait images, each group on a canvas of its own."""
 
     def __init__(self, dataset_name: str, root: str, batch_size: int = 3,
                  seed: int = 2024, flip: bool = True, prefetch: int = 2,
                  store=None, store_cap: int = 128,
-                 store_thresh: Optional[float] = None, **kw):
+                 store_thresh: Optional[float] = None,
+                 aspect_buckets: bool = False, **kw):
         super().__init__(dataset_name, root, **kw)
         self.batch_size = batch_size
         self.rng = np.random.RandomState(seed)
@@ -188,6 +234,7 @@ class TrainLoader(_BaseLoader):
         self.store = store
         self.store_cap = store_cap
         self.store_thresh = store_thresh
+        self.aspect_buckets = aspect_buckets
 
     def _attach_store(self, batch: Batch) -> Batch:
         """Pack the cached cloud results of each image, rescaled and
@@ -205,28 +252,60 @@ class TrainLoader(_BaseLoader):
         batch.online = views
         return batch
 
+    def _aspect_groups(self):
+        """The landscape (w >= h) and portrait indices, empty groups
+        dropped (the reference's AspectRatioGroupedDatasetTwoCrop,
+        coin/data/common.py:4-48)."""
+        land, port = [], []
+        for i, rec in enumerate(self.records):
+            h, w = rec.get("height"), rec.get("width")
+            if h is None:
+                with Image.open(rec["file_name"]) as im:
+                    w, h = im.size
+                rec["height"], rec["width"] = h, w
+            (land if w >= h else port).append(i)
+        return [g for g in (land, port) if g]
+
+    def _group_canvas(self, gi: int):
+        return self._canvases[gi] if self.aspect_buckets else self.canvas_hw
+
     def _gen(self):
-        n = len(self.records)
-        order = self.rng.permutation(n)
-        pos = 0
+        groups = self._aspect_groups() if self.aspect_buckets \
+            else [list(range(len(self.records)))]
+        if self.aspect_buckets:
+            # each group's canvas: its largest resized extent, up to /32
+            up = lambda v: int(-(-v // 32) * 32)
+            self._canvases = []
+            for g in groups:
+                hs, ws = [], []
+                for i in g:
+                    rec = self.records[i]
+                    sc = _resize_factor(rec["height"], rec["width"],
+                                        self.min_size, self.max_size)
+                    hs.append(rec["height"] * sc)
+                    ws.append(rec["width"] * sc)
+                self._canvases.append((up(max(hs)), up(max(ws))))
+        orders = [self.rng.permutation(g) for g in groups]
+        pos = [0] * len(groups)
+        weights = np.asarray([len(g) for g in groups], np.float64)
+        weights = weights / weights.sum()
         while True:
-            # the JAX loader draws its (here single) aspect group first
-            self.rng.choice(1, p=[1.0])
-            if pos + self.batch_size > n:
-                order = self.rng.permutation(n)
-                pos = 0
-                if n < self.batch_size:
-                    # tiny dataset: sample with replacement
-                    idx = self.rng.choice(n, self.batch_size)
+            gi = int(self.rng.choice(len(groups), p=weights))
+            if pos[gi] + self.batch_size > len(groups[gi]):
+                orders[gi] = self.rng.permutation(groups[gi])
+                pos[gi] = 0
+                if len(groups[gi]) < self.batch_size:
+                    # tiny group: sample with replacement
+                    idx = self.rng.choice(groups[gi], self.batch_size)
                 else:
-                    idx = order[:self.batch_size]
-                    pos = self.batch_size
+                    idx = orders[gi][:self.batch_size]
+                    pos[gi] = self.batch_size
             else:
-                idx = order[pos:pos + self.batch_size]
-                pos += self.batch_size
+                idx = orders[gi][pos[gi]:pos[gi] + self.batch_size]
+                pos[gi] += self.batch_size
             flips = (self.rng.rand(len(idx)) < 0.5) if self.flip \
                 else np.zeros(len(idx), bool)
-            batch = self.pack_batch(idx, flips)
+            batch = self.pack_batch(idx, flips, self._group_canvas(gi))
             if self.store is not None:
                 batch = self._attach_store(batch)
             yield batch

@@ -70,7 +70,8 @@ def main(argv=None):
         rcnn_thresh=ctc.RCNN_THRESH,
         rpn_thresh=(ctc.RPN_THRESH if ctc.RPN_SEPARATE_COLLECT
                     else ctc.RCNN_THRESH),
-        collect_aug=tc.get("COLLECT_AUG", ""), device=args.device)
+        collect_aug=tc.get("COLLECT_AUG", ""),
+        min_zoom=tc.get("MIN_CENTER_ZOOM_SIZE", 320), device=args.device)
     out = os.path.join(cfg.OUTPUT_DIR, f"{arch}_collect.npz")
     store.save(out)
     print(f"saved cloud collection: {out}")

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import coin_tpu.native
+import coin_tpu_torch.native
 from coin_tpu.config import load_config as jload_config
 from coin_tpu.data import voc as jvoc
 from coin_tpu.data.loader import TestLoader as JTestLoader
@@ -75,12 +76,16 @@ def _rel(a, b):
 
 @pytest.fixture(autouse=True, scope="module")
 def _cpu_setup():
-    """Two intra-op torch threads beside the suite's other workers; the
-    JAX loaders decode with PIL, as the port does."""
+    """Two intra-op torch threads beside the suite's other workers; both
+    packages' loaders decode with PIL, the native decoder patched off in
+    each (tests/test_torch_native.py holds the native path), so these
+    tests compare the pixels they compared before the port decoded
+    natively."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coin_tpu.native, "available", lambda: False)
+        mp.setattr(coin_tpu_torch.native, "available", lambda: False)
         yield
     torch.set_num_threads(n)
 

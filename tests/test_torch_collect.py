@@ -20,16 +20,28 @@ order two rows differently), boxes, scores and probs within 1e-4. The
 bf16 cases build both teachers as the factories do, in bf16, and hold
 the share of paired rows and their deltas to the measured values stated
 at ``BF16``.
+
+The collection views (COLLECT_AUG 'ZOOM', 'AUG', 'ZOOM&AUG') go through
+both packages' ``collect_cloud`` on the f32 detectors, the port taking
+JAX's AUG draws of ``jax.random.key(0)``: the stores match at the same
+1e-4 (the zoom merge's decisions are thresholds on those values).
+
+The loaders of both packages decode with PIL here: the native JPEG
+decoder is patched off in both (``tests/test_torch_native.py`` holds the
+native path), so these tests keep comparing the pixels they compared
+before the port had its own decoder.
 """
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import coin_tpu.native
+import coin_tpu_torch.native
 from coin_tpu.config import load_config as jload_config
 from coin_tpu.data import voc as jvoc
 from coin_tpu.data.loader import TestLoader as JTestLoader
@@ -54,6 +66,7 @@ from coin_tpu_torch.models import gdino_variants as tvar
 from coin_tpu_torch.models.glip_detector import GLIPDetector
 from coin_tpu_torch.models.manifests import (gdino_manifest, glip_manifest,
                                              synth_state_dict)
+from tests.test_torch_augment import jax_augment_draws
 
 CLASSES = ("car", "person")
 TOL = 1e-4
@@ -61,12 +74,13 @@ TOL = 1e-4
 
 @pytest.fixture(autouse=True, scope="module")
 def _cpu_setup():
-    """Two intra-op torch threads beside the suite's other workers; the
-    JAX loaders decode with PIL, as the port does."""
+    """Two intra-op torch threads beside the suite's other workers; both
+    packages' loaders decode with PIL."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(coin_tpu.native, "available", lambda: False)
+        mp.setattr(coin_tpu_torch.native, "available", lambda: False)
         yield
     torch.set_num_threads(n)
 
@@ -233,6 +247,37 @@ def test_collect_cloud_matches_jax(assets, detectors, nms_method):
     assert_stores_match(again, jstore)
 
 
+@pytest.mark.parametrize("collect_aug", ["ZOOM", "AUG", "ZOOM&AUG"])
+def test_collect_views_match_jax(assets, detectors, collect_aug):
+    """The extra views: a 40-pixel centre zoom of each 64 x 85 image
+    merged into the original view, the strong view's rows appended to the
+    RPN view; the port's store against JAX's, and against the port's
+    plain store the views' effect."""
+    jdet, tdet = detectors
+    jl, tl = _loaders(assets)
+    kw = dict(nms_method="ms", collect_nms_thresh=0.6, rcnn_thresh=0.25,
+              rpn_thresh=0.3, min_zoom=40)
+    jstore = jcollect.collect_cloud(jdet, jl, len(CLASSES),
+                                    collect_aug=collect_aug, **kw)
+    draws = torch.from_numpy(jax_augment_draws(jax.random.key(0), 2))
+    tstore = tcollect.collect_cloud(tdet, tl, len(CLASSES), device="cpu",
+                                    collect_aug=collect_aug,
+                                    aug_draws=draws, **kw)
+    assert_stores_match(tstore, jstore)
+    plain = tcollect.collect_cloud(tdet, tl, len(CLASSES), device="cpu",
+                                   **kw)
+    rows = lambda st, view: [len(st.get_view(i, view)["scores"])
+                             for i in sorted(st.image_ids())]
+    for view in ("RCNN", "RPN"):
+        same = all(np.array_equal(tstore.get_view(i, view)["boxes"],
+                                  plain.get_view(i, view)["boxes"])
+                   for i in plain.image_ids())
+        assert same == (view == "RCNN" and "ZOOM" not in collect_aug)
+    if collect_aug == "AUG":      # appended to the RPN view alone
+        assert all(a > b for a, b in zip(rows(tstore, "RPN"),
+                                         rows(plain, "RPN")))
+
+
 @pytest.mark.parametrize("nms_method", ["ms", "nms"])
 def test_collect_cloud_with_glip_matches_jax(assets, glip_detectors,
                                              nms_method):
@@ -367,10 +412,6 @@ def test_parse_nms_method_matches_jax(method):
 
 
 def test_unported_paths_raise(assets, glip_cfgs):
-    tl = _loaders(assets)[1]
-    with pytest.raises(NotImplementedError, match="COLLECT_AUG"):
-        tcollect.collect_cloud(None, tl, 2, collect_aug="ZOOM",
-                               device="cpu")
     # GLIP is ported: its factory builds the bf16 model from the checkpoint
     det = tcf.build_cloud_detector(glip_cfgs[1], "GLIP", CLASSES,
                                    device="cpu")

@@ -353,9 +353,9 @@ def test_normalize_batch_every_value_matches_jax(constants):
 
 # ------------------------------------------- package and device contract
 def test_port_imports_nothing_of_jax_or_coin_tpu():
-    """Every module of coin_tpu_torch (the K10, CLIP, pre-train, CLI and
-    A/B harness modules named) imports in a fresh interpreter without
-    pulling in jax, flax or coin_tpu."""
+    """Every module of coin_tpu_torch (the K10, CLIP, pre-train, CLI, A/B
+    harness, native decoder, loader and zoom-merge modules named) imports
+    in a fresh interpreter without pulling in jax, flax or coin_tpu."""
     code = """
 import pkgutil, importlib, sys
 import coin_tpu_torch
@@ -372,7 +372,8 @@ new = {'coin_tpu_torch.' + m for m in (
     'tools.bench', 'models.tokenizer', 'models.convert',
     'models.clip_scorer', 'engine.clip_setup', 'engine.pre_train',
     'tools.train_net', 'evaluation.testing', 'utils.setup',
-    'engine.oracle', 'evaluation.dump', 'tools.validate', 'tools.ab_compare', 'data.voc')}
+    'engine.oracle', 'evaluation.dump', 'tools.validate', 'tools.ab_compare', 'data.voc',
+    'native', 'data.loader', 'engine.zoom_merge')}
 assert new <= set(names), new - set(names)
 print(len(names))
 """

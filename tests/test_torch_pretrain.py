@@ -59,6 +59,7 @@ import torch
 import yaml
 
 import coin_tpu.native
+import coin_tpu_torch.native
 from coin_tpu.data import voc as jvoc
 from coin_tpu.data.augment import normalize_batch as jnormalize
 from coin_tpu.data.loader import TrainLoader as JTrainLoader
@@ -459,8 +460,11 @@ def test_pack_view_score_thresh_matches_jax(data, thresh):
 
 def test_train_loader_store_thresh_matches_jax(data, monkeypatch):
     """TrainLoader(store_thresh=0.88): the packed cloud views of the first
-    batches are the JAX loader's."""
+    batches are the JAX loader's. Both loaders decode with PIL, the
+    native decoder patched off in each (tests/test_torch_native.py holds
+    the native path)."""
     monkeypatch.setattr(coin_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(coin_tpu_torch.native, "available", lambda: False)
     kw = dict(batch_size=2, seed=11, min_size=64, max_size=96, store_cap=8,
               store_thresh=0.88)
     jl = JTrainLoader("psynthtrain", str(data["root"]),

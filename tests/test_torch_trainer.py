@@ -33,6 +33,7 @@ import pytest
 import torch
 
 import coin_tpu.native
+import coin_tpu_torch.native
 from coin_tpu.config import load_config as jload_config
 from coin_tpu.data import voc as jvoc
 from coin_tpu.data.loader import TrainLoader as JTrainLoader
@@ -123,9 +124,12 @@ def setup(tmp_path_factory):
 
 @pytest.fixture
 def pil_decode(monkeypatch):
-    """The JAX loaders decode with PIL, as the port does (the native
-    libjpeg decoder is ROADMAP 8b)."""
+    """Both packages' loaders decode with PIL, the native decoder patched
+    off in each (tests/test_torch_native.py holds the native path), so
+    these tests compare the pixels they compared before the port decoded
+    natively."""
     monkeypatch.setattr(coin_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(coin_tpu_torch.native, "available", lambda: False)
 
 
 def _port_trainer(setup, **overrides):

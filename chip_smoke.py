@@ -28,7 +28,12 @@
    quantiser also writes K2 wgrad's layout at every res5 shape (byte for
    byte) and quantises both weights of each res5 conv in one launch, and
    the sum of its launches over one res5 forward and backward is timed
-   from CUDA-graph replays. K1, K1b, K5 and K5b are also timed on the RoIs
+   from CUDA-graph replays; its given-scale mode (an abs-max launch and a
+   quantise launch that reads the all-reduced abs-max: the data-parallel
+   step's) byte for byte at the res5 input and gradient and with the
+   layout at every res5 shape, and one res5 forward and backward's quant
+   launches at W = 1 in both modes, in turns. K1, K1b, K5 and K5b are also
+   timed on the RoIs
    of the trainer path's first cached step (phase 8), K1 on the teacher's
    4 x 512 proposals of its first collection batch, K1 and K1b on the
    6 x 512 RoIs of the pre-train path's first step (phase 16) and on the
@@ -166,6 +171,19 @@
    one shipped_i8 seed of fixture v3 at 16 train and 8 eval images, 40
    pre-train and 2 x 20 adaptation iterations with an eval every 10,
    inside a budget of 90 s; the trainer path's kernels must launch.
+20. data parallel (parallel/, ROADMAP item 22) on the one card: (b)
+   CoinTrainer of foggy_fast.yaml as shipped over NCCL at world 1, a
+   collection pass and 4 cached steps, against the same trainer without a
+   process group (1e-3 of each tensor's largest entry); (c) in the card's
+   default compute mode, two processes on the card over gloo (this script
+   with --dp-child), foggy_fast.yaml with a batch of 4 split 2 + 2 and the
+   int8 res5's global scale from K2 quant's given-scale mode, 2 cached
+   steps, against the single-process trainer over the same batches (the
+   prototypes and the parameters that do not start at zero within 1e-3 of
+   their own largest entry, those that start at zero, whose values are
+   their updates, within 5e-2; the scale within 2^-7); gloo
+   must carry CUDA tensors. Its kernels must launch in the ranks. Prints
+   each part's wall time; no scaling figure (the ranks share one card).
 
 Phase 3 also holds K8 (the modulated deformable 3x3 conv of the GLIP
 teacher) at each of its call shapes in GLIP-L's collection batch against
@@ -292,7 +310,8 @@ def graph_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up's stream, whose K2 quant scratch exists
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -4788,6 +4807,445 @@ def phase_validate_path(torch, dev, counters, budget_s=90.0):
     return launches, wall
 
 
+
+def phase_quantize_given(torch, dev):
+    """K2 quant's given-scale mode (``absmax_cuda``, then
+    ``quantize_given_cuda``; the data-parallel step's res5 quantisation,
+    which all-reduces the abs-maxima between the two launches) against its
+    plain version, byte for byte: the res5 input (bf16) and the largest
+    res5 gradient (f32, bf16) handed their own abs-max and a larger one
+    (a scale from another rank), then K2 wgrad's layout at every res5
+    shape (activation and gradient, N = 1728). Then one res5 forward and
+    backward's quant launches at W = 1 (no all-reduce) in the given-scale
+    mode and in the one-launch mode, in turns in this call, CUDA-graph
+    replays, summed over res5's convs."""
+    from coin_tpu_torch.kernels import qconv as kq
+    from coin_tpu_torch.ops import qconv as tq
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn((RES5_N, 14, 14, 1024), generator=g, device=dev,
+                    dtype=bf16)
+    acts = {"res5_input_bf16": x,
+            "res5_grad_f32": torch.randn((RES5_N, 7, 7, 2048), generator=g,
+                                         device=dev) * 1e-4}
+    acts["res5_grad_bf16"] = acts["res5_grad_f32"].to(bf16)
+    for label, t in acts.items():
+        own = kq.absmax_cuda(t)
+        check(torch.equal(own, tq.absmax_plain(t)),
+              f"absmax {label}: {own.item()} against the plain version")
+        for amax in (own, own * 1.5):
+            q, s = kq.quantize_given_cuda(t, amax)
+            wq, ws = tq.quantize_given_plain(t, amax)
+            check(torch.equal(q, wq) and torch.equal(s, ws),
+                  f"quantize_given {label}: s8 values or scale differ from "
+                  f"the plain version")
+        q, s = kq.quantize_given_cuda(t, own)
+        q1, s1 = kq.quantize_cuda(t, False)
+        check(torch.equal(q, q1) and torch.equal(s, s1),
+              f"quantize_given {label} at its own abs-max differs from the "
+              f"one-launch quantisation")
+        del q, q1, wq
+    n = x.numel()
+    ms = time_ms(torch, lambda: kq.quantize_given_cuda(x, kq.absmax_cuda(x)))
+    plain_ms = time_ms(torch, lambda: tq.quantize_given_plain(
+        x, tq.absmax_plain(x)), iters=5, warmup=1)
+    b_ms, b_by = bound(n * x.element_size() + n + 4, 4 * n)
+    del acts
+    steps = []
+    for h, ci, co, k, convs in RES5_SHAPES:
+        xa = torch.randn((RES5_N, h, h, ci), generator=g, device=dev,
+                         dtype=bf16).relu_()
+        grad = (torch.randn((RES5_N, h, h, co), generator=g, device=dev)
+                * 1e-4).to(bf16)
+        w = torch.randn((co, ci, k, k), generator=g, device=dev) \
+            / (ci * k * k) ** 0.5
+        for what, t in (("activation", xa), ("gradient", grad)):
+            amax = kq.absmax_cuda(t) * 1.25
+            q, s, lay = kq.quantize_given_cuda(t, amax, k)
+            wq, ws = tq.quantize_given_plain(t, amax)
+            check(torch.equal(q, wq) and torch.equal(s, ws)
+                  and torch.equal(lay, tq.wgrad_layout_plain(wq, k)),
+                  f"quantize_given with layout, {what} {tuple(t.shape)} k "
+                  f"{k}: differs from wgrad_layout_plain("
+                  f"quantize_given_plain(x))")
+            del q, lay, wq
+
+        def one():
+            kq.quantize_cuda(xa, False, k)
+            kq.quantize_weight_pair_cuda(w)
+            kq.quantize_cuda(grad, False, k)
+
+        def given():
+            kq.quantize_given_cuda(xa, kq.absmax_cuda(xa), k)
+            kq.quantize_weight_pair_cuda(w)
+            kq.quantize_given_cuda(grad, kq.absmax_cuda(grad), k)
+        turns = {"one": [], "given": []}
+        for name in ("one", "given", "given", "one"):
+            turns[name].append(graph_ms(torch, one if name == "one"
+                                        else given))
+        steps.append(dict(case=f"{h}x{h} {ci}->{co} k{k}", convs=convs,
+                          one_ms=min(turns["one"]),
+                          given_ms=min(turns["given"])))
+        del xa, grad, w
+        torch.cuda.empty_cache()
+    one_ms = sum(c["one_ms"] * c["convs"] for c in steps)
+    given_ms = sum(c["given_ms"] * c["convs"] for c in steps)
+    print(f"[quantize given-scale] absmax + quantize_given against the plain "
+          f"version at the res5 input and gradient, own and larger abs-max, "
+          f"and with K2 wgrad's layout at every res5 shape: identical; res5 "
+          f"input {ms:.4f} ms (2 launches), plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); one res5 forward and backward at W = 1 "
+          f"(graph, turns): one-launch {one_ms:.3f} ms, given-scale "
+          f"{given_ms:.3f} ms")
+    return dict(name="quantize_given", route="cuda",
+                source="coin_tpu_torch/csrc/quantize.cu",
+                replaces="coin_tpu/ops/qconv.py:63", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, step_ms_w1=given_ms,
+                one_launch_step_ms_w1=one_ms, step_cases=steps)
+
+
+def _dp_cfg(root, npz, batch, out):
+    """foggy_fast.yaml as shipped over ``_dp_data``'s set, with the
+    allowed cuts: ``batch`` images a step, the cache and the prototype
+    update from step 0, burn-up after the run, no eval or checkpoint."""
+    from coin_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(REPO, "configs/coin/GDINO/foggy_fast.yaml"))
+    cfg.DATASETS.ROOT = root
+    cfg.DATASETS.TRAIN_UNLABEL = ["chip_smoke_dptrain"]
+    cfg.DATASETS.TEST = ["chip_smoke_dptrain"]
+    cfg.OUTPUT_DIR = out
+    cfg.CLOUD.COLLECT_FILE = npz
+    cfg.CLOUD.BURN_UP_STEP = 10 ** 6
+    cfg.TPU.CACHE_TEACHER_MIN_STEPS = 0
+    cfg.CLOUD.PROTOTYPE_UPDATE_START = 0
+    cfg.TEST.EVAL_PERIOD = 10 ** 9
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
+    cfg.SOLVER.IMG_PER_BATCH_UNLABEL = batch
+    return cfg
+
+
+def _dp_data(root):
+    """4 synthetic 1024 x 2048 Foggy-Cityscapes-classed train images and a
+    cloud store of their jittered ground truth (the npz's path)."""
+    from coin_tpu_torch.data.voc import (CITYSCAPES_CLASSES,
+                                         load_voc_instances,
+                                         make_synthetic_voc,
+                                         register_pascal_voc)
+    from coin_tpu_torch.tools.validate import synth_store
+    voc = os.path.join(root, "foggy")
+    if not os.path.isdir(voc):
+        make_synthetic_voc(voc, num_images=4, class_names=CITYSCAPES_CLASSES,
+                           image_hw=(1024, 2048), seed=SEED + 5,
+                           split="train")
+    register_pascal_voc("chip_smoke_dptrain", "foggy", "train",
+                        CITYSCAPES_CLASSES, ".jpg")
+    npz = os.path.join(root, "GDINO_collect.npz")
+    if not os.path.exists(npz):
+        records = load_voc_instances(voc, "train", CITYSCAPES_CLASSES, ".jpg")
+        synth_store(records, len(CITYSCAPES_CLASSES)).save(npz)
+    return npz
+
+
+def _dp_first_layout_scale(kq, name, into):
+    """Wrap ``kq.<name>`` to keep the scale of its first call with a
+    layout (res5's first conv input in the first training step)."""
+    fn = getattr(kq, name)
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        if len(out) == 3 and "scale" not in into:
+            into["scale"] = out[1].item()
+        return out
+    # the kernel's launcher counts on its module's name, the wrapper here
+    wrapped.launches = 0
+    setattr(kq, name, wrapped)
+
+    def restore():
+        setattr(kq, name, fn)
+        fn.launches += wrapped.launches
+    return restore
+
+
+def _dp_state(tr):
+    """A trainer's trainable parameters and prototypes on the host."""
+    state = {n: p.detach().float().cpu() for n, p in
+             tr.state.model.named_parameters() if p.requires_grad}
+    for f in ("proto", "b_online", "b_offline"):
+        state["prototypes." + f] = getattr(tr.state.prototypes, f).cpu()
+    return state
+
+
+def _dp_train(torch, cfg, steps, counters, scale_fn, before=None):
+    """A CoinTrainer of ``cfg`` trained ``steps`` steps (its collection
+    pass first), the counters zeroed just before: (trainable parameters
+    and prototypes on the host, launches, the first layout scale). The
+    state before training goes into ``before`` when it is given."""
+    from coin_tpu_torch.engine.trainer import CoinTrainer
+    from coin_tpu_torch.kernels import qconv as kq
+    tr = CoinTrainer(cfg)
+    if before is not None:
+        before.update(_dp_state(tr))
+    seen = {}
+    restore = _dp_first_layout_scale(kq, scale_fn, seen)
+    try:
+        for fn in counters:
+            fn.launches = 0
+        tr.train(max_iter=steps)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    state = _dp_state(tr)
+    del tr
+    torch.cuda.empty_cache()
+    return state, launches, seen.get("scale")
+
+
+def _dp_errs(torch, got, want, before):
+    """How far ``got`` is from ``want``: each tensor's largest difference
+    over its largest entry, the largest over the parameters (all of them,
+    those that start at zero, whose values are their updates, and the
+    others), its three worst names with theirs, over the prototypes; and
+    the parameters' updates as the card-vs-CPU step checks read them
+    (``rel_err``: the norm of the difference of the updates, less the f32
+    rounding of the parameters, over the norm of the update)."""
+    entry = {k: float((got[k] - want[k]).abs().max()
+                      / want[k].abs().max().clamp_min(1e-30)) for k in want}
+    params = [k for k in want if not k.startswith("prototypes.")]
+    zero = [k for k in params if not bool(before[k].any())]
+    return dict(
+        params_entry=max(entry[k] for k in params),
+        zero_start_entry=max((entry[k] for k in zero), default=0.0),
+        other_entry=max(entry[k] for k in params if k not in zero),
+        worst=[[k, entry[k]] for k in sorted(params, key=entry.get)[-3:]],
+        prototypes_entry=max(entry[k] for k in want
+                             if k.startswith("prototypes.")),
+        update=max(rel_err(torch, got[k] - before[k], want[k] - before[k],
+                           before[k]) for k in params))
+
+
+def dp_child(rank: int, spec_path: str) -> int:
+    """One of the two ranks of phase 20 (c): gloo on card 0, CUDA tensors
+    through all_reduce and broadcast, then the trainer's steps; rank 0
+    writes its state, launches and first layout scale to ``spec["out"]``,
+    rank 1 its launches to ``spec["out1"]``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=spec["init"], rank=rank,
+                            world_size=2)
+    try:
+        t = torch.full((3,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        b = torch.full((2,), float(rank + 5), device="cuda")
+        dist.broadcast(b, 0)
+        gloo_cuda = t.tolist() == [3.0] * 3 and b.tolist() == [5.0, 5.0] \
+            and t.is_cuda
+        from coin_tpu_torch.parallel import multihost
+        npz = _dp_data(spec["root"])
+        cfg = _dp_cfg(spec["root"], npz, 4, spec["run"])
+        t0 = time.perf_counter()
+        state, launches, scale = _dp_train(torch, cfg, 2, _dp_counters(),
+                                           "quantize_given_cuda")
+        out = {"launches": launches, "gloo_cuda": gloo_cuda,
+               "world": multihost.process_count(),
+               "wall_s": time.perf_counter() - t0}
+        if rank == 0:
+            out.update(state=state, scale=scale)
+        torch.save(out, spec["out"] if rank == 0 else spec["out1"])
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dp_counters():
+    from coin_tpu_torch.kernels.augment import augment_cuda
+    from coin_tpu_torch.kernels.nms import nms_sorted_cuda
+    from coin_tpu_torch.kernels.normalize import normalize_cuda
+    from coin_tpu_torch.kernels.qconv import (absmax_cuda, int8_conv_cuda,
+                                              qconv_dgrad_cuda,
+                                              qconv_fwd_cuda,
+                                              qconv_wgrad_cuda,
+                                              quantize_cuda,
+                                              quantize_given_cuda,
+                                              quantize_weight_cuda,
+                                              quantize_weight_pair_cuda)
+    from coin_tpu_torch.kernels.roi_align import (roi_align_backward_cuda,
+                                                  roi_align_cuda)
+    return [roi_align_cuda, roi_align_backward_cuda, nms_sorted_cuda,
+            normalize_cuda, augment_cuda, quantize_cuda, quantize_weight_cuda,
+            quantize_weight_pair_cuda, qconv_fwd_cuda, qconv_dgrad_cuda,
+            qconv_wgrad_cuda, int8_conv_cuda, absmax_cuda,
+            quantize_given_cuda]
+
+
+def phase_data_parallel(torch, dev, timeout_s: float = 400.0):
+    """Data-parallel training (``parallel/``) on the one card.
+    (b) CoinTrainer of foggy_fast.yaml as shipped (batch 3, int8 res5, full
+    width) over NCCL at world 1 for 4 cached steps after its collection
+    pass, against the same trainer without a process group: the same
+    weights and draws, parameters and prototypes within 1e-3 of their
+    largest entry (K1b's atomics rule out bit for bit). At world 1 the
+    step reduces over no group: (b) shows that the NCCL set-up and the
+    distributed code path leave the trainer's step as it is.
+    (c) In the card's default compute mode: two processes on the card over
+    gloo, foggy_fast.yaml with SOLVER.IMG_PER_BATCH_UNLABEL 4 (3 does not
+    split over 2 ranks), int8 res5 at full width, 2 cached steps, each
+    rank 2 of the 4 images of a batch, against the single-process trainer
+    on the card over the same 4-image batches: the prototypes and every
+    parameter that does not start at zero within 1e-3 of their own largest
+    entry; the biases that start at zero (their values are their updates,
+    sums over the batch that cancel) within 5e-2 of theirs. A rounding
+    difference in the batch's features (cuDNN picks its algorithms by the
+    batch's shape; each rank rounds its bf16 gradients on its own images)
+    shows in those sums: after one step 3.2e-3 on the RPN head's biases in
+    bf16 and 4.4e-3 on the box predictor's in f32, where every other tensor
+    agrees to 1.1e-7, and the second step's near-tied proposals of the
+    random-init RPN turn it into 2.0e-2 on the box predictor's (1.6e-2
+    with res5 in f32: not the int8 res5's doing), on an H100 at 700 W
+    (``tools/dp_gap.py``). The given-scale quantisation launched, and the
+    global int8 scale of res5's first conv equal to the single-process
+    scale up to one bf16 rounding of the abs-max; gloo carries CUDA
+    tensors through all_reduce and broadcast. In an exclusive compute mode
+    (c) does not run: two processes cannot share the card.
+    Returns (launches of (c)'s rank 0, or of (b) when (c) did not run;
+    measurements)."""
+    import tempfile
+    import torch.distributed as dist
+    info = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    mode = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "unknown"
+    info["compute_mode"] = mode
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    counters = _dp_counters()
+    try:
+        npz = _dp_data(root)
+        # ---- (b) world 1 over NCCL against no process group
+        t0 = time.perf_counter()
+        cfg = _dp_cfg(root, npz, 3, os.path.join(root, "run_plain"))
+        check(cfg.TPU.INT8_TRAIN and cfg.TPU.INT8_TRAIN_SCALE == "tensor"
+              and tuple(cfg.TPU.IMAGE_HW) == (608, 1216),
+              "not foggy_fast.yaml's int8 res5")
+        before = {}
+        want, _, _ = _dp_train(torch, cfg, 4, counters, "quantize_cuda",
+                               before)
+        from coin_tpu_torch.parallel.mesh_utils import free_port
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1)
+        try:
+            from coin_tpu_torch.parallel import multihost
+            check(multihost.process_count() == 1
+                  and dist.get_backend() == "nccl", "NCCL world 1")
+            cfg = _dp_cfg(root, npz, 3, os.path.join(root, "run_nccl"))
+            got, launches_b, _ = _dp_train(torch, cfg, 4, counters,
+                                           "quantize_cuda")
+        finally:
+            dist.destroy_process_group()
+        errs_b = _dp_errs(torch, got, want, before)
+        err_b = max(errs_b["params_entry"], errs_b["prototypes_entry"])
+        info["nccl_world1_err"] = err_b
+        info["nccl_world1_errs"] = errs_b
+        info["wall_b_s"] = time.perf_counter() - t0
+        need = [n for n in launches_b if n not in
+                ("quantize_weight_cuda", "absmax_cuda",
+                 "quantize_given_cuda")]
+        print(f"[data parallel (b)] CoinTrainer(foggy_fast.yaml) over NCCL "
+              f"at world 1, collection pass + 4 cached steps, against no "
+              f"process group: parameters and prototypes within "
+              f"{err_b:.3g} of their largest entry (bound 1e-3; "
+              f"{json.dumps(errs_b)}); launches "
+              f"{json.dumps(launches_b)}; {info['wall_b_s']:.1f} s")
+        check(err_b <= 1e-3, f"NCCL world 1 differs by {err_b:.3g}")
+        check(all(launches_b[n] > 0 for n in need),
+              f"a kernel was not launched at NCCL world 1: {launches_b}")
+        del got, want
+        if not mode.lower().startswith("default"):
+            print(f"[data parallel (c)] compute mode {mode!r}: two "
+                  f"processes cannot share the card, (c) not run")
+            info["launches_c"] = None
+            return launches_b, info
+        # ---- (c) two ranks on the card over gloo
+        t0 = time.perf_counter()
+        print("[data parallel (c)] foggy_fast.yaml with "
+              "SOLVER.IMG_PER_BATCH_UNLABEL 4 (the shipped 3 does not split "
+              "over 2 ranks), int8 res5 at full width, 2 cached steps")
+        cfg = _dp_cfg(root, npz, 4, os.path.join(root, "run_single"))
+        before = {}
+        want, _, want_scale = _dp_train(torch, cfg, 2, counters,
+                                        "quantize_cuda", before)
+        spec = {"root": root, "init": f"file://{root}/gloo_store",
+                "run": os.path.join(root, "run_dp"),
+                "out": os.path.join(root, "rank0.pt"),
+                "out1": os.path.join(root, "rank1.pt")}
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child",
+             str(r), spec_path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout_s)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              "data-parallel ranks failed:\n" + "\n".join(
+                  log[-4000:] for log in logs))
+        r0 = torch.load(spec["out"], weights_only=False)
+        r1 = torch.load(spec["out1"], weights_only=False)
+        errs_c = _dp_errs(torch, r0["state"], want, before)
+        launches_c = r0["launches"]
+        scale_rel = abs(r0["scale"] - want_scale) / want_scale
+        info.update(gloo2_errs=errs_c, scale=r0["scale"],
+                    single_scale=want_scale, scale_rel=scale_rel,
+                    wall_c_s=time.perf_counter() - t0,
+                    rank_wall_s=[r0["wall_s"], r1["wall_s"]],
+                    launches_c=launches_c, launches_c_rank1=r1["launches"])
+        print(f"[data parallel (c)] 2 ranks over gloo on one card against "
+              f"the single-process trainer: the prototypes within "
+              f"{errs_c['prototypes_entry']:.3g} and every parameter that "
+              f"does not start at zero within {errs_c['other_entry']:.3g} "
+              f"of their own largest entry (bound 1e-3), those that start "
+              f"at zero within {errs_c['zero_start_entry']:.3g} (bound "
+              f"5e-2: their values are their updates; {json.dumps(errs_c)}"
+              f"); res5's first int8 scale {r0['scale']:.6g} "
+              f"(all-reduced), single process {want_scale:.6g} (rel "
+              f"{scale_rel:.3g}, bound 2^-7); gloo all_reduce and broadcast "
+              f"of CUDA tensors {r0['gloo_cuda'] and r1['gloo_cuda']}; rank "
+              f"0 launches {json.dumps(launches_c)}; rank 1 "
+              f"{json.dumps(r1['launches'])}; ranks' train "
+              f"{r0['wall_s']:.1f} / {r1['wall_s']:.1f} s, phase "
+              f"{info['wall_c_s']:.1f} s (two ranks share one card: no "
+              f"scaling figure)")
+        check(r0["world"] == r1["world"] == 2, "world of 2")
+        check(r0["gloo_cuda"] and r1["gloo_cuda"],
+              "gloo did not carry CUDA tensors")
+        check(max(errs_c["other_entry"], errs_c["prototypes_entry"]) <= 1e-3
+              and errs_c["zero_start_entry"] <= 5e-2,
+              f"2 ranks over gloo differ: {errs_c}")
+        check(scale_rel <= 2.0 ** -7, f"global int8 scale {r0['scale']} "
+              f"against the single-process {want_scale}")
+        check(all(launches_c[n] > 0 for n in launches_c
+                  if n != "quantize_weight_cuda"),
+              f"a kernel was not launched by rank 0: {launches_c}")
+        return launches_c, info
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4867,6 +5325,7 @@ def main() -> int:
                    phase_nms(torch, dev, gen), phase_augment(torch, dev, gen),
                    phase_normalize(torch, dev, gen),
                    phase_quantize(torch, dev),
+                   phase_quantize_given(torch, dev),
                    *phase_qconv(torch, dev),
                    phase_int8_conv(torch, dev),
                    phase_window_attention(torch, dev, gen),
@@ -5033,6 +5492,10 @@ def main() -> int:
                                        eval_counters + [int8_conv_cuda])
     validate_launches, _ = phase_validate_path(torch, dev, trainer_counters)
     torch.cuda.empty_cache()
+    dp_launches, dp_info = phase_data_parallel(torch, dev)
+    print(f"[wall] phase 20 (data parallel) "
+          f"{dp_info['wall_b_s'] + dp_info.get('wall_c_s', 0.0):.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sd = glip_checkpoint(torch)
     print(f"[GLIP checkpoint] {len(sd)} tensors, "
@@ -5056,6 +5519,7 @@ def main() -> int:
              "normalize": ["normalize_cuda"],
              "quantize": ["quantize_cuda", "quantize_weight_cuda",
                           "quantize_weight_pair_cuda"],
+             "quantize_given": ["absmax_cuda", "quantize_given_cuda"],
              "qconv_fwd": ["qconv_fwd_cuda"],
              "qconv_dgrad": ["qconv_dgrad_cuda"],
              "qconv_wgrad": ["qconv_wgrad_cuda"],
@@ -5073,14 +5537,16 @@ def main() -> int:
              "bench_preprocess": pre_launches, "clip_rescore": clip_launches,
              "pretrain": pretrain_launches, "oracle": oracle_launches,
              "fast_head": fast_launches, "validate": validate_launches,
-             "collect_views": views_launches, "loader": loader_launches}
+             "collect_views": views_launches, "loader": loader_launches,
+             "data_parallel": dp_launches}
     main_paths = {"window_attention": "collect", "ms_deform": "collect",
                   "fusion_nms": "collect", "deform_conv": "collect_glip",
                   "roi_align_int8": "int8_roi_trainer",
                   "roi_align_int8_bwd": "int8_roi_trainer",
                   "self_cluster": "share_crops",
                   "resize_bilinear": "bench_preprocess",
-                  "normalize_flip": "bench_preprocess"}
+                  "normalize_flip": "bench_preprocess",
+                  "quantize_given": "data_parallel"}
     for k in kernels:
         fns = by_fn[k["name"]]
         main_path = main_paths.get(k["name"], "trainer")
@@ -5096,6 +5562,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:
+        # one rank of phase 20 (c), started by phase_data_parallel
+        sys.exit(dp_child(int(sys.argv[2]), sys.argv[3]))
     try:
         sys.exit(main())
     except PhaseError as e:

@@ -199,8 +199,8 @@ def default_config() -> CfgNode:
             "IMG_PER_BATCH_UNLABEL": 3,
             # detectron2 auto_scale_workers reference size: 0 = off.
             # When set, trainers rescale batch/LR/schedule by
-            # workers/REFERENCE_WORLD_SIZE, with one worker until the
-            # data-parallel trainer (engine/base.py NUM_WORKERS).
+            # workers/REFERENCE_WORLD_SIZE, the workers being the
+            # process group's ranks (engine/base.py num_workers).
             "REFERENCE_WORLD_SIZE": 0,
             "CHECKPOINT_PERIOD": 1000,
             "PER_MODULE_PARAM_WEIGHT": [{}],

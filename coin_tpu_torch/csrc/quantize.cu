@@ -42,6 +42,13 @@
 //   and written out as 128-byte rows of channels after a 4 x 4 byte
 //   transpose in registers; halo tiles write zeros without reading. So the
 //   wgrad's own layout pass, a re-read of both s8 tensors, leaves the step.
+// - The given-scale mode (`absmax_kernel`, then `quant_tensor_kernel` with
+//   GIVEN), for a scale shared by the ranks of a data-parallel step: one
+//   launch takes the abs-max into one word (a block max, then an atomicMax
+//   on the bits), the caller all-reduces that word over the ranks, and a
+//   second launch reads it and quantises as above, layout included. It
+//   needs no barrier and no scratch. Its bytes are the one-launch path's
+//   plus one more read of x where L2 does not hold it.
 // - Per-sample scales (`quant_sample_kernel`): a block owns whole samples,
 //   so no barrier: abs-max forwards, then quantise backwards through L2.
 // - Both weight quantisations of the int8 dgrad modes
@@ -232,6 +239,7 @@ struct Tensor {
   int8_t* q;
   float* scale;
   unsigned* bar;   // scratch: the barrier, then the partials at kPart
+  const unsigned* given;  // GIVEN: the abs-max's bits, all-reduced
   // the layout (LAYOUT): x is (N, H, W, C); lay (C, Pp) over groups of 128
   // positions, IB images per pixel of the Hg x Wg grid (IB 1: pixels)
   int8_t* lay;
@@ -324,8 +332,9 @@ __device__ __forceinline__ void layout_tile(const Tensor& p, float s,
 }
 
 // One scale for the tensor. VEC: 16-byte loads (without LAYOUT: n a multiple
-// of the vector; with it: C a multiple of 8), x 16-byte aligned.
-template <typename T, bool VEC, bool LAYOUT>
+// of the vector; with it: C a multiple of 8), x 16-byte aligned. GIVEN: the
+// abs-max is read from p.given (no abs-max pass, no barrier).
+template <typename T, bool VEC, bool LAYOUT, bool GIVEN>
 __global__ void __launch_bounds__(kThreads)
 quant_tensor_kernel(Tensor p) {
   constexpr int V = 16 / sizeof(T);
@@ -335,14 +344,19 @@ quant_tensor_kernel(Tensor p) {
   const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long n = p.n;
   const long long nv = VEC ? n / V : 0;
-  unsigned m = max_pass<T>(reinterpret_cast<const uint4*>(x), nv, t0, stride,
-                           0u);
-  for (long long i = nv * V + t0; i < n; i += stride)
-    m = max(m, abs_bits(to_f(x[i])));
-  m = block_max(m);
-  if (threadIdx.x == 0) p.bar[kPart + blockIdx.x] = m;
-  grid_sync(p.bar);
-  const float s = scale_of(partials_max(p.bar + kPart, gridDim.x));
+  float s;
+  if constexpr (GIVEN) {
+    s = scale_of(__ldcg(p.given));
+  } else {
+    unsigned m = max_pass<T>(reinterpret_cast<const uint4*>(x), nv, t0,
+                             stride, 0u);
+    for (long long i = nv * V + t0; i < n; i += stride)
+      m = max(m, abs_bits(to_f(x[i])));
+    m = block_max(m);
+    if (threadIdx.x == 0) p.bar[kPart + blockIdx.x] = m;
+    grid_sync(p.bar);
+    s = scale_of(partials_max(p.bar + kPart, gridDim.x));
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) p.scale[0] = s;
   if constexpr (LAYOUT) {
     const int chunks = (p.C + kTileC - 1) / kTileC;
@@ -355,6 +369,24 @@ quant_tensor_kernel(Tensor p) {
     for (long long i = n - 1 - t0; i >= nv * V; i -= stride)
       p.q[i] = (int8_t)quant(to_f(x[i]), s);
   }
+}
+
+// The abs-max of x's n values into *amax (zeroed before the launch), as the
+// bits of a non-negative float: a block max, then one atomicMax a block.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+absmax_kernel(const T* __restrict__ x, long long n,
+              unsigned* __restrict__ amax) {
+  constexpr int V = 16 / sizeof(T);
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long nv = VEC ? n / V : 0;
+  unsigned m = max_pass<T>(reinterpret_cast<const uint4*>(x), nv, t0, stride,
+                           0u);
+  for (long long i = nv * V + t0; i < n; i += stride)
+    m = max(m, abs_bits(to_f(x[i])));
+  m = block_max(m);
+  if (threadIdx.x == 0) atomicMax(amax, m);
 }
 
 // One scale per segment of `per` values; a block owns whole segments.
@@ -515,10 +547,10 @@ long long positions(int N, int H, int W, int k) {
   return (grid + 15) / 16 * 16;
 }
 
-template <typename T, bool VEC, bool LAYOUT>
+template <typename T, bool VEC, bool LAYOUT, bool GIVEN>
 int launch_tensor(Tensor p, int cap, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
-  auto kernel = quant_tensor_kernel<T, VEC, LAYOUT>;
+  auto kernel = quant_tensor_kernel<T, VEC, LAYOUT, GIVEN>;
   long long want = (p.n / V + 4LL * kThreads - 1) / (4LL * kThreads);
   int grid = resident_blocks((const void*)kernel);
   if (grid > cap) grid = cap;
@@ -527,17 +559,52 @@ int launch_tensor(Tensor p, int cap, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool GIVEN>
 int quantize_tensor(Tensor p, int cap, cudaStream_t st) {
   const bool aligned = (uintptr_t)p.x % 16 == 0;
   if (p.lay) {
     return (aligned && p.C % 8 == 0)
-               ? launch_tensor<T, true, true>(p, cap, st)
-               : launch_tensor<T, false, true>(p, cap, st);
+               ? launch_tensor<T, true, true, GIVEN>(p, cap, st)
+               : launch_tensor<T, false, true, GIVEN>(p, cap, st);
   }
   return (aligned && p.n % (16 / sizeof(T)) == 0)
-             ? launch_tensor<T, true, false>(p, cap, st)
-             : launch_tensor<T, false, false>(p, cap, st);
+             ? launch_tensor<T, true, false, GIVEN>(p, cap, st)
+             : launch_tensor<T, false, false, GIVEN>(p, cap, st);
+}
+
+template <typename T>
+int absmax(const void* x, long long n, unsigned* amax, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (uintptr_t)x % 16 == 0 && n % V == 0;
+  const void* kernel = vec ? (const void*)absmax_kernel<T, true>
+                           : (const void*)absmax_kernel<T, false>;
+  const long long want = (n / V + 4LL * kThreads - 1) / (4LL * kThreads);
+  int grid = resident_blocks(kernel);
+  if (want < grid) grid = want < 1 ? 1 : (int)want;
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  if (vec)
+    absmax_kernel<T, true><<<grid, kThreads, 0, st>>>((const T*)x, n, amax);
+  else
+    absmax_kernel<T, false><<<grid, kThreads, 0, st>>>((const T*)x, n, amax);
+  return (int)cudaGetLastError();
+}
+
+// the layout's fields of p for x as an (N, H, W, C) tensor and a k x k conv;
+// false for shapes the layout does not take
+bool set_layout(Tensor& p, void* lay, int N, int H, int W, int C, int k) {
+  const long long Pp = positions(N, H, W, k);
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 4 || k <= 0 ||
+      (long long)N * H * W * C != p.n || Pp >= (1LL << 31) ||
+      (uintptr_t)lay % 16)
+    return false;
+  const int pad = k / 2;
+  p.lay = (int8_t*)lay; p.N = N; p.H = H; p.W = W; p.C = C;
+  p.IB = k > 1 ? 128 : 1;
+  p.Hg = H + pad; p.Wg = W + pad; p.Pp = Pp;
+  p.groups = k > 1 ? (long long)(N + 127) / 128 * p.Hg * p.Wg
+                   : ((long long)N * H * W + kTileP - 1) / kTileP;
+  return true;
 }
 
 template <typename T>
@@ -582,23 +649,41 @@ extern "C" int coin_quantize(const void* x, int dtype, long long n, int nseg,
   }
   Tensor p{};
   p.x = x; p.n = n; p.q = (int8_t*)q; p.scale = scale; p.bar = scratch;
-  if (lay) {
-    const long long Pp = positions(N, H, W, k);
-    if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 4 || k <= 0 ||
-        (long long)N * H * W * C != n || Pp >= (1LL << 31) ||
-        (uintptr_t)lay % 16)
-      return (int)cudaErrorInvalidValue;
-    const int pad = k / 2;
-    p.lay = (int8_t*)lay; p.N = N; p.H = H; p.W = W; p.C = C;
-    p.IB = k > 1 ? 128 : 1;
-    p.Hg = H + pad; p.Wg = W + pad; p.Pp = Pp;
-    p.groups = k > 1 ? (long long)(N + 127) / 128 * p.Hg * p.Wg
-                     : ((long long)N * H * W + kTileP - 1) / kTileP;
-  }
+  if (lay && !set_layout(p, lay, N, H, W, C, k))
+    return (int)cudaErrorInvalidValue;
   const int cap = words - kPart;
   if (cap < 1) return (int)cudaErrorInvalidValue;
-  return dtype == 0 ? quantize_tensor<float>(p, cap, st)
-                    : quantize_tensor<uint16_t>(p, cap, st);
+  return dtype == 0 ? quantize_tensor<float, false>(p, cap, st)
+                    : quantize_tensor<uint16_t, false>(p, cap, st);
+}
+
+// The given-scale mode, first launch: the abs-max of x's n values (dtype 0 =
+// f32, 1 = bf16) into amax, one u32 holding the bits of a non-negative float
+// (a NaN's bits above every number's), ready for an all-reduce MAX of the
+// words as int32. Returns the CUDA error code.
+extern "C" int coin_absmax(const void* x, int dtype, long long n,
+                           unsigned* amax, void* stream) {
+  if (n <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return dtype == 0 ? absmax<float>(x, n, amax, st)
+                    : absmax<uint16_t>(x, n, amax, st);
+}
+
+// The given-scale mode, second launch: coin_quantize's one scale for the
+// tensor, from the abs-max bits at amax instead of x's own (scale =
+// max(amax, 1e-12) / 127), with the layout on request. No scratch.
+extern "C" int coin_quantize_given(const void* x, int dtype, long long n,
+                                   const unsigned* amax, void* q,
+                                   float* scale, void* lay, int N, int H,
+                                   int W, int C, int k, void* stream) {
+  if (n <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  Tensor p{};
+  p.x = x; p.n = n; p.q = (int8_t*)q; p.scale = scale; p.given = amax;
+  if (lay && !set_layout(p, lay, N, H, W, C, k))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return dtype == 0 ? quantize_tensor<float, true>(p, 1 << 30, st)
+                    : quantize_tensor<uint16_t, true>(p, 1 << 30, st);
 }
 
 // w (O, I, k, k) f32 -> wq (O, k, k, I) and ks (O,), one scale per output

@@ -5,6 +5,11 @@ libjpeg decoder (``coin_tpu_torch.native``) where it builds, else, and for
 any other format, by PIL on a shared thread pool, in the JAX loaders'
 order, so that both packages see the same pixels. Everything photometric
 happens on the device (``data/augment.py``).
+
+Data parallel: ``TrainLoader(rank=, world=)`` yields rank ``rank``'s
+shard of the global batch sequence that one seed gives (its B / W images
+of each global batch of B, decoded alone), and ``TestLoader(rank=,
+world=)`` the whole batches j with j mod W = rank.
 """
 
 from __future__ import annotations
@@ -193,19 +198,23 @@ class _BaseLoader:
 
 class TestLoader(_BaseLoader):
     """Sequential fixed-batch loader (pads the tail by repeating the last
-    index; consumers mask with ``n_valid``)."""
+    index; consumers mask with ``n_valid``). With ``world`` > 1 it yields
+    the batches j of its ``rank`` (j mod world = rank), whole."""
 
     def __init__(self, dataset_name: str, root: str, batch_size: int = 8,
-                 **kw):
+                 rank: int = 0, world: int = 1, **kw):
         super().__init__(dataset_name, root, **kw)
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
 
     def __len__(self):
         return -(-len(self.records) // self.batch_size)
 
     def __iter__(self):
         n = len(self.records)
-        for start in range(0, n, self.batch_size):
+        for j, start in enumerate(range(0, n, self.batch_size)):
+            if j % self.world != self.rank:
+                continue
             idx = list(range(start, min(start + self.batch_size, n)))
             n_valid = len(idx)
             while len(idx) < self.batch_size:
@@ -219,15 +228,22 @@ class TrainLoader(_BaseLoader):
     from ``np.random.RandomState(seed)`` in the JAX loader's sequence of
     draws, so both packages see the same batches for one seed. With
     ``aspect_buckets`` every batch is drawn from the landscape or the
-    portrait images, each group on a canvas of its own."""
+    portrait images, each group on a canvas of its own. With ``world`` >
+    1, ``batch_size`` is the global batch and each batch holds rank
+    ``rank``'s B / W images of it (every rank draws the whole sequence)."""
 
     def __init__(self, dataset_name: str, root: str, batch_size: int = 3,
                  seed: int = 2024, flip: bool = True, prefetch: int = 2,
                  store=None, store_cap: int = 128,
                  store_thresh: Optional[float] = None,
-                 aspect_buckets: bool = False, **kw):
+                 aspect_buckets: bool = False, rank: int = 0,
+                 world: int = 1, **kw):
+        if world > 1 and batch_size % world:
+            raise ValueError(f"TrainLoader: a world of {world} does not "
+                             f"divide the batch of {batch_size}")
         super().__init__(dataset_name, root, **kw)
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.rng = np.random.RandomState(seed)
         self.flip = flip
         self.prefetch = prefetch
@@ -305,6 +321,10 @@ class TrainLoader(_BaseLoader):
                 pos[gi] += self.batch_size
             flips = (self.rng.rand(len(idx)) < 0.5) if self.flip \
                 else np.zeros(len(idx), bool)
+            if self.world > 1:
+                per = self.batch_size // self.world
+                mine = slice(self.rank * per, (self.rank + 1) * per)
+                idx, flips = idx[mine], flips[mine]
             batch = self.pack_batch(idx, flips, self._group_canvas(gi))
             if self.store is not None:
                 batch = self._attach_store(batch)

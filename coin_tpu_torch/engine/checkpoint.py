@@ -10,8 +10,9 @@ the state of the step's random generator. A pre-train state has no
 teacher, CKG net or merge optimizer, and its checkpoint no such entries;
 ``CoinTrainer`` starts from one through ``MODEL.WEIGHTS``. An oracle
 state has no prototypes either. Orbax
-checkpoints of the JAX package are not read;
-``convert_from_jax.load_train_state`` carries a JAX state over in memory.
+checkpoints of the JAX package are not read here: the repo's
+``tools/jax_ckpt_to_torch.py`` converts one into this file. In a process
+group only rank 0 writes (``write=False`` elsewhere); every rank reads.
 """
 
 from __future__ import annotations
@@ -92,10 +93,12 @@ def load_state_tree(state, tree: dict):
 
 
 class Checkpointer:
-    def __init__(self, output_dir: str, prefix: str = "model"):
+    def __init__(self, output_dir: str, prefix: str = "model",
+                 write: bool = True):
         self.dir = os.path.abspath(os.path.join(output_dir, "checkpoints"))
         os.makedirs(self.dir, exist_ok=True)
         self.prefix = prefix
+        self.write = write
 
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, f"{self.prefix}_{step:07d}")
@@ -103,6 +106,8 @@ class Checkpointer:
     def save(self, state: Any, step: int, name: Optional[str] = None,
              extras: Optional[dict] = None) -> str:
         path = os.path.join(self.dir, name) if name else self._path(step)
+        if not self.write:
+            return path
         torch.save(state_tree(state), path)
         if extras:
             with open(path + ".extras.json", "w") as f:

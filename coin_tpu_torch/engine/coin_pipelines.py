@@ -4,6 +4,12 @@ coin_tpu/engine/coin_pipelines.py:27-348).
 
 Random draws come in as tensors: the RPN and ROI subsampling priorities
 (``engine/step_builder.draw_step``).
+
+In a data-parallel step (``parallel/mesh_utils.data_parallel``) each rank
+computes its share of the global batch's losses: the counts, gates and
+prototype sums are global, and the terms that do not depend on the batch
+(the text alignment, the CKG's gradient discrepancy) count 1 / W on each
+rank, so that the ranks' gradients and losses sum to the global step's.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from coin_tpu_torch.engine.state import Prototypes, prototype_ema
 from coin_tpu_torch.models import roi_heads as rh
 from coin_tpu_torch.models import rpn as rpn_lib
 from coin_tpu_torch.ops import losses as L
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.structures import Detections
 
 
@@ -29,8 +36,10 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 def text_align_loss(text_features: torch.Tensor,
                     proto: torch.Tensor) -> torch.Tensor:
     """L1 between the prompt text features and the (detached, normalised)
-    class prototypes."""
-    return (text_features - _normalize(proto).detach()).abs().mean()
+    class prototypes; 1 / W of it on each of W data-parallel ranks."""
+    loss = (text_features - _normalize(proto).detach()).abs().mean()
+    world = mesh_utils.active_world()
+    return loss if world == 1 else loss / world
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
@@ -87,7 +96,7 @@ def pretrain_losses(model, images: torch.Tensor, images_hw: torch.Tensor,
     losses["loss_text_align"] = text_align_loss(text, proto)
     cw = (torch.tensor(cfg.classes_weight, device=scores_f.device)
           if cfg.classes_weight else None)
-    any_fg = (sp_f.group == rh.GROUP_A).any()
+    any_fg = mesh_utils.global_any(sp_f.group == rh.GROUP_A)
     losses["loss_cls"] = torch.where(any_fg, rh.classification_loss(
         scores_f, sp_f, cfg.num_classes, cfg.bg_weight, cfg.loss_type,
         classes_weight=cw, prob_weighted=prob_weighted),
@@ -160,7 +169,7 @@ def student_forward(model, images: torch.Tensor, images_hw: torch.Tensor,
 
     # probability distillation on the C boxes
     losses["loss_distillation"] = torch.where(
-        c_valid_f.any(), rh.kl_mean_elements(
+        mesh_utils.global_any(c_valid_f), rh.kl_mean_elements(
             torch.log(torch.softmax(c_scores_f, dim=-1) + 1e-7), c_probs_f,
             c_valid_f), zero)
 
@@ -174,16 +183,18 @@ def student_forward(model, images: torch.Tensor, images_hw: torch.Tensor,
             & (sp_f.group == rh.GROUP_B)
         kl_b = rh.kl_mean_elements(
             torch.log(torch.softmax(scores_f, dim=-1) + 1e-7), merge_b, conf)
-        losses["loss_cls_b"] = torch.where(conf.any(), kl_b, zero)
+        losses["loss_cls_b"] = torch.where(mesh_utils.global_any(conf),
+                                           kl_b, zero)
 
     # box regression, normalised by the sampled rows while any background
     # row was sampled: class-agnostic, one loss with the online classes;
     # per class, the online and the offline loss, which differ only on the
     # B rows, where the two classes pick different columns
-    calc_bg = (sp_f.group == rh.GROUP_BG).any()
-    total_rows = (sp_f.group != rh.GROUP_PAD).sum().clamp_min(1).float()
-    denom = torch.where(calc_bg, total_rows,
-                        total_rows.new_tensor(float(cfg.roi_batch_size * b)))
+    n_bg, n_rows = mesh_utils.global_sum((sp_f.group == rh.GROUP_BG).sum(),
+                                         (sp_f.group != rh.GROUP_PAD).sum())
+    total_rows = n_rows.clamp_min(1).float()
+    denom = torch.where(n_bg > 0, total_rows, total_rows.new_tensor(
+        float(cfg.roi_batch_size * mesh_utils.global_batch(b))))
     if cfg.cls_agnostic_bbox_reg:
         losses["loss_box_reg"] = rh.box_reg_loss(
             sp_f, deltas_f, cfg.num_classes, use_online_classes=True,
@@ -207,7 +218,9 @@ def merge_losses(merge_model, model, fw: StudentForward,
     one-hot), loss_merge_grad (1 − the cosine between the gradients that
     the A and B MSEs induce on the predictor's ``trans`` MLP; second order
     through ``trans``), and the metric-only loss_merge_a / loss_merge_b.
-    ``model`` holds the student's parameters before this step's update."""
+    ``model`` holds the student's parameters before this step's update.
+    In a data-parallel step both gradients are summed over the ranks
+    before their cosine, the B one differentiably."""
     a_rows = fw.sp.group == rh.GROUP_A
     b_rows = fw.sp.group == rh.GROUP_B
     one_hot_a = rh.one_hot_c1(fw.sp.cls_offline, num_classes)
@@ -239,7 +252,14 @@ def merge_losses(merge_model, model, fw: StudentForward,
     grads_a = torch.autograd.grad(loss_a, [trans[k] for k in keys])
     grads_b = torch.autograd.grad(loss_b, [trans[k] for k in keys],
                                   create_graph=True)
-    losses["loss_merge_grad"] = L.gradient_discrepancy(grads_a, grads_b)
+    world = mesh_utils.active_world()
+    if world > 1:
+        grads_a = mesh_utils.global_sum(*grads_a)
+        grads_b = [mesh_utils.differentiable_sum(g) for g in grads_b]
+    # the same on every rank: 1 / W of it each, whose gradients the
+    # differentiable sum's backward adds up over the ranks
+    losses["loss_merge_grad"] = L.gradient_discrepancy(grads_a, grads_b) \
+        / world
 
     p_all = torch.softmax(fw.scores.detach(), dim=-1)
     losses["loss_merge_a"] = rh.masked_mse(p_all, one_hot_a, a_rows)
@@ -253,7 +273,8 @@ def update_prototypes(prototypes: Prototypes, fw: StudentForward,
                       enabled: bool) -> Prototypes:
     """The three prototype EMAs: ``proto`` over A and background rows by
     offline class; ``b_online`` / ``b_offline`` over A, B and background
-    rows, only when the batch sampled a B row."""
+    rows, only when the batch (the global batch in a data-parallel step)
+    sampled a B row."""
     if not enabled:
         return prototypes
     feats = _normalize(fw.class_feats.detach())
@@ -265,7 +286,7 @@ def update_prototypes(prototypes: Prototypes, fw: StudentForward,
     proto = prototype_ema(prototypes.proto, feats, oh_off, a_rows | bg_rows,
                           rate)
     every = a_rows | b_rows | bg_rows
-    any_b = b_rows.any()
+    any_b = mesh_utils.global_any(b_rows)
     b_online = torch.where(any_b, prototype_ema(prototypes.b_online, feats,
                                                 oh_on, every, rate),
                            prototypes.b_online)

@@ -12,7 +12,11 @@ coin_tpu/engine/collect.py).
   (the reference's clip_rcnn.py:106-132).
 
 The detector is a callable ``detect(images_u8, image_hw) → batched
-Detections`` in canvas coordinates (``models/gdino_detector``).
+Detections`` in canvas coordinates (``models/gdino_detector``). In a
+process group each rank passes a loader of its whole batches
+(``TestLoader(rank=, world=)``: under INT8_COLLECT a batch shares its
+int8 scales, so a batch never splits) and both passes return the union
+of the ranks' stores on every rank.
 INPUT.TEACHER_CLOUD.COLLECT_AUG adds the reference's extra collection
 views (gdino_processor.py:184-302; off in the paper): 'ZOOM' detects a
 centre crop again and merges it into the original view
@@ -35,6 +39,7 @@ from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import zoom_merge
 from coin_tpu_torch.engine.results_store import ResultStore
 from coin_tpu_torch.ops import nms as nms_ops
+from coin_tpu_torch.parallel.multihost import merge_result_stores
 from coin_tpu_torch.structures import Detections
 
 logger = logging.getLogger(__name__)
@@ -149,6 +154,7 @@ def collect_cloud(detector: Callable, loader: TestLoader, num_classes: int,
                     rows = [np.concatenate([a, b])
                             for a, b in zip(rows, extra)]
                 store.put(batch.image_ids[i], view, *rows)
+    store = merge_result_stores(store)
     logger.info("collected cloud results for %d images", len(store))
     return store
 
@@ -182,5 +188,6 @@ def rescore_with_clip(scorer_apply: Callable, store: ResultStore,
                 out.put(batch.image_ids[i], view,
                         (pv["boxes"][valid] / batch.scale[i])[fg],
                         classes[fg], scores[fg], p[fg])
+    out = merge_result_stores(out)
     logger.info("re-scored %d images", len(out))
     return out

@@ -77,11 +77,13 @@ class MetricLogger:
     """Console + metrics.json (+ optional TensorBoard) writer. Values may be
     device scalars (the step's losses): they are buffered as they are and
     read back only at a flush, every ``period`` steps, so the loop does not
-    wait for the card at every step."""
+    wait for the card at every step. With ``write`` False (a rank other
+    than 0 of a process group) it records nothing."""
 
     def __init__(self, output_dir: str, max_iter: int, period: int = 20,
-                 tensorboard: bool = False):
+                 tensorboard: bool = False, write: bool = True):
         os.makedirs(output_dir, exist_ok=True)
+        self.write = write
         self.path = os.path.join(output_dir, "metrics.json")
         self.period = period
         self.max_iter = max_iter
@@ -90,7 +92,7 @@ class MetricLogger:
         self._last_step = None    # last flushed step (iter-time base)
         self._last_logged = None  # last step passed to log()
         self._tb = None
-        if tensorboard:
+        if tensorboard and write:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(log_dir=output_dir)
@@ -104,6 +106,8 @@ class MetricLogger:
         return means
 
     def log(self, step: int, metrics: Dict[str, float]):
+        if not self.write:
+            return
         for k, v in metrics.items():
             self._window[k].append(v)
         self._last_logged = step

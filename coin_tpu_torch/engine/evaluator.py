@@ -1,5 +1,8 @@
 """Evaluation loop: batched inference on the device + host-side VOC
-accumulation (counterpart of coin_tpu/engine/evaluator.py:48-77)."""
+accumulation (counterpart of coin_tpu/engine/evaluator.py:48-77). A
+loader sharded over a process group (``TestLoader(rank=, world=)``) runs
+its whole batches on each rank; the detections are gathered to every
+rank in the single-process order, so the AP is the single-process AP."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from coin_tpu_torch.data.loader import TestLoader
 from coin_tpu_torch.engine import pipelines
 from coin_tpu_torch.evaluation import VOCEvaluator
 from coin_tpu_torch.evaluation.dump import save_detections_pkl
+from coin_tpu_torch.parallel.multihost import all_gather_objects
 
 logger = logging.getLogger(__name__)
 
@@ -35,6 +39,7 @@ def evaluate_detector(model, params: Mapping[str, torch.Tensor],
     text = model.text_features(tokens)
 
     evaluator = VOCEvaluator(loader.spec.class_names)
+    rows = []   # (first index of the batch, image in it, process args)
     for batch, n_valid in loader:
         images = normalize_batch(
             torch.from_numpy(batch.images).to(device, non_blocking=True))
@@ -48,12 +53,17 @@ def evaluate_detector(model, params: Mapping[str, torch.Tensor],
         for i in range(n_valid):
             valid = valid_all[i]
             gt_valid = batch.gt_valid[i]
-            evaluator.process(
+            rows.append((int(batch.indices[0]), i, (
                 batch.image_ids[i], boxes_all[i][valid] / batch.scale[i],
                 scores_all[i][valid], classes_all[i][valid],
                 batch.gt_boxes[i][gt_valid] / batch.scale[i],
                 batch.gt_classes[i][gt_valid],
-                batch.gt_difficult[i][gt_valid])
+                batch.gt_difficult[i][gt_valid])))
+    if getattr(loader, "world", 1) > 1:
+        rows = sorted((r for part in all_gather_objects(rows) for r in part),
+                      key=lambda r: r[:2])
+    for _, _, args in rows:
+        evaluator.process(*args)
     if save_pkl:
         save_detections_pkl(evaluator, save_pkl)
         logger.info("dumped detections to %s", save_pkl)

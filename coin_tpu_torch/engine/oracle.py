@@ -29,7 +29,9 @@ from coin_tpu_torch.engine.state import (TrainState,
                                          default_freeze_predicate, freeze,
                                          trainable)
 from coin_tpu_torch.engine.step_builder import (StepDraws, draw_step,
-                                                 num_anchors)
+                                                 finish_losses, in_step_group,
+                                                 num_anchors, shard_draws)
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.solver import build_optimizer
 from coin_tpu_torch.structures import Detections
 
@@ -62,20 +64,26 @@ def gt_detections(batch: Batch, device) -> Detections:
 
 def build_oracle_step(class_tokens: torch.Tensor,
                       pcfg: pipelines.PipelineConfig,
-                      on_stage: Optional[Callable[[str], None]] = None):
+                      on_stage: Optional[Callable[[str], None]] = None,
+                      group=None):
     """``train_step(state, images_u8, image_hw, gt, draws=None) -> (state,
     losses)``: uint8 images (B, H, W, 3) and the ground truth (B, G) on the
     model's device; ``state`` is updated in place and returned; ``losses``
     are the detached scalars. ``on_stage(name)``, when given, is called as
-    each stage ends: "augment", "forward", "backward", "update"."""
+    each stage ends: "augment", "forward", "backward", "update". With a
+    ``group`` of more than one rank each rank passes its shard of the
+    global batch (``draws``, when given, are the global batch's): the step
+    is data-parallel, as the adaptation step (``step_builder``)."""
     mark = on_stage or (lambda stage: None)
 
     def train_step(state: TrainState, images_u8, image_hw, gt: Detections,
                    draws: Optional[StepDraws] = None):
         b, hh, ww, _ = images_u8.shape
         if draws is None:
-            draws = draw_step(state.generator, b, num_anchors(pcfg, hh, ww),
+            draws = draw_step(state.generator, mesh_utils.global_batch(b),
+                              num_anchors(pcfg, hh, ww),
                               pcfg.post_nms_topk_train + gt.capacity)
+        draws = shard_draws(draws, group)
         strong, _ = preprocess_batch(images_u8, draws.augment, weak=False)
         mark("augment")
         state.optimizer.zero_grad()
@@ -84,13 +92,14 @@ def build_oracle_step(class_tokens: torch.Tensor,
             draws.roi, pcfg)
         mark("forward")
         sum(losses.values()).backward()
+        mesh_utils.sum_gradients(state.model.parameters(), group)
         mark("backward")
         state.optimizer.step()
         state.step += 1
         mark("update")
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, finish_losses(losses)
 
-    return train_step
+    return in_step_group(group, train_step)
 
 
 class OracleTrainer(DetectorTrainerBase):
@@ -102,13 +111,15 @@ class OracleTrainer(DetectorTrainerBase):
                  device="cuda"):
         super().__init__(cfg, class_tokens, device=device)
         self.state = init_oracle_state(self.cfg, self.model, self.cfg.SEED)
-        self._train_step = build_oracle_step(self.tokens, self.pcfg)
+        self._train_step = build_oracle_step(self.tokens, self.pcfg,
+                                             group=self.group)
         self.ap_50 = {}
 
     def train(self, max_iter: Optional[int] = None):
         cfg = self.cfg
         dev = self.device
         max_iter = max_iter or cfg.SOLVER.MAX_ITER
+        self.replicate()
         it = iter(self.train_loader)
         for i in range(int(self.state.step), max_iter):
             batch = next(it)
@@ -135,3 +146,4 @@ class OracleTrainer(DetectorTrainerBase):
         it nothing is loaded, as in the JAX package."""
         if resume:
             self.checkpointer.load_latest(self.state)
+        self.replicate()

@@ -24,16 +24,18 @@ from coin_tpu_torch.data.augment import preprocess_batch
 from coin_tpu_torch.data.loader import TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import coin_pipelines, pipelines
-from coin_tpu_torch.engine.base import (NUM_WORKERS, DetectorTrainerBase,
-                                        auto_scale_workers,
-                                        load_collect_store)
+from coin_tpu_torch.engine.base import (DetectorTrainerBase,
+                                        load_collect_store, rank_kw,
+                                        scaled_cfg)
 from coin_tpu_torch.engine.common import lr_value
 from coin_tpu_torch.engine.results_store import ResultStore
 from coin_tpu_torch.engine.state import (Prototypes, TrainState,
                                          default_freeze_predicate, freeze,
                                          trainable)
 from coin_tpu_torch.engine.step_builder import (StepDraws, draw_step,
-                                                 num_anchors)
+                                                 finish_losses, in_step_group,
+                                                 num_anchors, shard_draws)
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.solver import build_optimizer
 from coin_tpu_torch.structures import Detections
 
@@ -74,14 +76,18 @@ def build_pretrain_step(class_tokens: torch.Tensor,
                         pcfg: pipelines.PipelineConfig,
                         prototype_rate: float, prob_weighted: bool,
                         loss_weights: Optional[Dict[str, float]] = None,
-                        on_stage: Optional[Callable[[str], None]] = None):
+                        on_stage: Optional[Callable[[str], None]] = None,
+                        group=None):
     """``train_step(state, images_u8, image_hw, rcnn, rpn,
     update_prototype, draws=None) -> (state, losses)``: uint8 images
     (B, H, W, 3) and the batched cloud views (RCNN and RPN, with probs) on
     the model's device; ``state`` is updated in place and returned;
     ``losses`` are the weighted, detached scalars. ``on_stage(name)``, when
     given, is called as each stage ends: "augment", "forward",
-    "backward", "update"."""
+    "backward", "update". With a ``group`` of more than one rank each
+    rank passes its shard of the global batch (``draws``, when given, are
+    the global batch's): the step is data-parallel, as the adaptation
+    step (``step_builder``)."""
     mark = on_stage or (lambda stage: None)
 
     def train_step(state: TrainState, images_u8, image_hw, rcnn: Detections,
@@ -89,9 +95,11 @@ def build_pretrain_step(class_tokens: torch.Tensor,
                    draws: Optional[StepDraws] = None):
         b, hh, ww, _ = images_u8.shape
         if draws is None:
-            draws = draw_step(state.generator, b, num_anchors(pcfg, hh, ww),
+            draws = draw_step(state.generator, mesh_utils.global_batch(b),
+                              num_anchors(pcfg, hh, ww),
                               pcfg.post_nms_topk_train + rcnn.capacity,
                               views=2)
+        draws = shard_draws(draws, group, views=2)
         strong, weak = preprocess_batch(images_u8, draws.augment)
         mark("augment")
         tile = lambda t: torch.cat([t, t], 0)
@@ -103,15 +111,16 @@ def build_pretrain_step(class_tokens: torch.Tensor,
             prototype_rate, prob_weighted, loss_weights)
         mark("forward")
         sum(losses.values()).backward()
+        mesh_utils.sum_gradients(state.model.parameters(), group)
         mark("backward")
         state.optimizer.step()
         p = state.prototypes
         state.prototypes = Prototypes(new_proto, p.b_online, p.b_offline)
         state.step += 1
         mark("update")
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, finish_losses(losses)
 
-    return train_step
+    return in_step_group(group, train_step)
 
 
 class PRETrainer(DetectorTrainerBase):
@@ -123,7 +132,7 @@ class PRETrainer(DetectorTrainerBase):
     def __init__(self, cfg, store: Optional[ResultStore] = None,
                  class_tokens: Optional[np.ndarray] = None, device="cuda"):
         device = resolve_device(device)
-        cfg = auto_scale_workers(cfg, NUM_WORKERS)
+        cfg = scaled_cfg(cfg)
         if store is None:
             store = load_collect_store(cfg, "PRETrainer")
         clipart = tuple(cfg.DATASETS.TRAIN_UNLABEL) == ("cliparttrain",)
@@ -132,7 +141,7 @@ class PRETrainer(DetectorTrainerBase):
             batch_size=cfg.SOLVER.IMG_PER_BATCH_UNLABEL, seed=cfg.SEED,
             min_size=cfg.INPUT.MIN_SIZE_TRAIN, max_size=cfg.INPUT.MAX_SIZE,
             store=store, store_cap=cfg.get_path("TPU.CAP_TEACHER", 128),
-            store_thresh=0.5 if clipart else None)
+            store_thresh=0.5 if clipart else None, **rank_kw())
         super().__init__(cfg, class_tokens, train_loader=loader,
                          device=device)
         self.store = store
@@ -141,13 +150,14 @@ class PRETrainer(DetectorTrainerBase):
                                          proto0=self.init_prototypes())
         self._train_step = build_pretrain_step(
             self.tokens, self.pcfg, cfg.CLOUD.PROTOTYPE_UPDATE_WEIGHT,
-            clipart, self.loss_weights)
+            clipart, self.loss_weights, group=self.group)
         self.ap_50 = {}
 
     def train(self, max_iter: Optional[int] = None):
         cfg = self.cfg
         dev = self.device
         max_iter = max_iter or cfg.SOLVER.MAX_ITER
+        self.replicate()
         it = iter(self.train_loader)
         start = int(self.state.step)
         upd_start = cfg.CLOUD.PROTOTYPE_UPDATE_START
@@ -180,3 +190,4 @@ class PRETrainer(DetectorTrainerBase):
         """``resume``: the latest checkpoint of OUTPUT_DIR, whole."""
         if resume:
             self.checkpointer.load_latest(self.state)
+        self.replicate()

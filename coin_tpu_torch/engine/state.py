@@ -26,6 +26,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch import nn
 
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.solver.build import ScheduledSGD
 
 
@@ -102,10 +103,11 @@ def prototype_ema(current: torch.Tensor, feats: torch.Tensor,
                   one_hot: torch.Tensor, valid: torch.Tensor,
                   rate: float) -> torch.Tensor:
     """Classes present among the valid rows move toward their batch mean
-    of (normalised) features; absent classes keep their value."""
+    of (normalised) features; absent classes keep their value. In a
+    data-parallel step the counts and sums are the global batch's."""
     oh = torch.where(valid[:, None], one_hot, torch.zeros_like(one_hot))
-    counts = oh.sum(0)
-    mean = (oh.T @ feats.float()) / counts.clamp_min(1.0)[:, None]
+    counts, sums = mesh_utils.global_sum(oh.sum(0), oh.T @ feats.float())
+    mean = sums / counts.clamp_min(1.0)[:, None]
     new = torch.where((counts > 0)[:, None], mean, current)
     return current * rate + (1.0 - rate) * new
 

@@ -19,11 +19,19 @@ optimizer steps every time; its gradient is zero unless the batch sampled
 a B row and prototype updates have started. Random draws (the strong
 view's values and the RPN and ROI subsampling priorities) come from the
 state's generator, or from the caller as a :class:`StepDraws`.
+
+Data parallel (a ``group`` of W > 1 ranks, each holding B / W images of a
+global batch of B): every rank draws the global batch's draws from its
+generator (the same on every rank) and takes its slice (``shard_draws``),
+computes its share of the losses inside ``mesh_utils.data_parallel``, and
+sums both gradients over the ranks before either optimizer steps; the
+losses it returns are the global step's. The state stays replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -37,6 +45,7 @@ from coin_tpu_torch.engine.state import (Prototypes, TrainState,
                                          trainable)
 from coin_tpu_torch.models.anchors import cell_anchors
 from coin_tpu_torch.models.ckg import CKGNet
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.solver import build_optimizer
 from coin_tpu_torch.structures import Detections, truncate
 
@@ -89,6 +98,38 @@ def draw_step(generator: torch.Generator, batch: int, num_anchors: int,
                        device=dev))
 
 
+def shard_draws(draws: StepDraws, group, views: int = 1) -> StepDraws:
+    """The slice of the global batch's draws for this rank of ``group``
+    (all of them without one): its images' rows of the strong view's
+    values, and of each of the ``views`` trained copies' priorities."""
+    world = mesh_utils.world_size(group)
+    if world == 1:
+        return draws
+    r = mesh_utils.rank(group)
+    return StepDraws(
+        augment=mesh_utils.shard_batch(draws.augment, r, world),
+        rpn=mesh_utils.shard_batch(draws.rpn, r, world, views),
+        roi=mesh_utils.shard_batch(draws.roi, r, world, views))
+
+
+def in_step_group(group, step: Callable) -> Callable:
+    """``step`` run inside ``mesh_utils.data_parallel(group)``."""
+    @functools.wraps(step)
+    def wrapped(*args, **kwargs):
+        with mesh_utils.data_parallel(group):
+            return step(*args, **kwargs)
+    return wrapped
+
+
+def finish_losses(losses: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """The detached losses of a step, summed over the ranks of the
+    enclosing data-parallel group in one all-reduce: the global step's."""
+    names = list(losses)
+    vals = mesh_utils.global_sum(*(losses[k].detach() for k in names))
+    return dict(zip(names, vals))
+
+
 def hyper_from_cfg(cfg) -> StepHyper:
     return StepHyper(
         burn_up=cfg.CLOUD.BURN_UP_STEP,
@@ -135,7 +176,8 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
                            pcfg: pipelines.PipelineConfig,
                            teacher_pcfg: pipelines.PipelineConfig,
                            hyper: StepHyper,
-                           on_stage: Optional[Callable[[str], None]] = None):
+                           on_stage: Optional[Callable[[str], None]] = None,
+                           group=None):
     """Returns ``(train_step, train_step_cached, train_step_cached_two)``.
 
     ``train_step(state, images_u8, image_hw, online_rcnn, online_rpn,
@@ -147,7 +189,10 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
     called as each stage ends: "augment", "teacher" (the EMA, and the
     teacher forward of the live flavor), "student_forward" (matching
     included), "backward", "merge", "update" (both optimizers and the
-    prototype EMA); a timer hangs there."""
+    prototype EMA); a timer hangs there. With a ``group`` of more than one
+    rank each rank passes its shard of the global batch (images and
+    detections; ``draws``, when given, are the global batch's) and the
+    step is data-parallel (see the module's docstring)."""
     h = hyper
     mark = on_stage or (lambda stage: None)
 
@@ -181,6 +226,7 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
         losses = coin_pipelines.apply_loss_weights(fw.losses, h.loss_weights)
         mark("student_forward")
         sum(losses.values()).backward()
+        mesh_utils.sum_gradients(model.parameters(), group)
         mark("backward")
 
         # ---- CKG merge gradient, from the pre-update student ----
@@ -192,9 +238,13 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
         mgrads = torch.autograd.grad(
             mlosses["loss_merge_grad"] + mlosses["loss_merge_base"],
             mparams, allow_unused=True)
-        train_merge = (fw.sp.group == 1).any() & update_prototype
+        mgrads = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(mparams, mgrads)]
+        if group is not None:
+            mgrads = mesh_utils.global_sum(*mgrads)
+        train_merge = mesh_utils.global_any(fw.sp.group == 1) \
+            & update_prototype
         for p, g in zip(mparams, mgrads):
-            g = torch.zeros_like(p) if g is None else g
             p.grad = torch.where(train_merge, g, torch.zeros_like(g))
         mark("merge")
 
@@ -205,13 +255,12 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
             protos, fw, pcfg.num_classes, h.proto_rate, update_prototype)
         state.step += 1
         mark("update")
-        out = {k: v.detach() for k, v in losses.items()}
-        out.update({k: v.detach() for k, v in mlosses.items()})
-        return state, out
+        return state, finish_losses({**losses, **mlosses})
 
     def draws_for(state, images_u8, online, offline_cap):
         b, hh, ww, _ = images_u8.shape
-        return draw_step(state.generator, b, num_anchors(pcfg, hh, ww),
+        return draw_step(state.generator, mesh_utils.global_batch(b),
+                         num_anchors(pcfg, hh, ww),
                          num_candidates(pcfg, online.capacity, offline_cap))
 
     def ema(state):
@@ -222,8 +271,8 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
 
     def train_step(state: TrainState, images_u8, image_hw, online_rcnn,
                    online_rpn, draws: Optional[StepDraws] = None):
-        draws = draws or draws_for(state, images_u8, online_rcnn,
-                                   teacher_pcfg.test_topk)
+        draws = shard_draws(draws or draws_for(
+            state, images_u8, online_rcnn, teacher_pcfg.test_topk), group)
         strong, weak = preprocess_batch(images_u8, draws.augment)
         mark("augment")
         step_two = ema(state)
@@ -237,8 +286,8 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
     def train_step_cached(state: TrainState, images_u8, image_hw,
                           online_rcnn, online_rpn, offline: Detections,
                           draws: Optional[StepDraws] = None):
-        draws = draws or draws_for(state, images_u8, online_rcnn,
-                                   offline.capacity)
+        draws = shard_draws(draws or draws_for(
+            state, images_u8, online_rcnn, offline.capacity), group)
         strong, _ = preprocess_batch(images_u8, draws.augment, weak=False)
         mark("augment")
         return step_body(state, strong, image_hw, online_rcnn, online_rpn,
@@ -247,8 +296,8 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
     def train_step_cached_two(state: TrainState, images_u8, image_hw,
                               online_rcnn, online_rpn, offline: Detections,
                               draws: Optional[StepDraws] = None):
-        draws = draws or draws_for(state, images_u8, online_rcnn,
-                                   offline.capacity)
+        draws = shard_draws(draws or draws_for(
+            state, images_u8, online_rcnn, offline.capacity), group)
         strong, _ = preprocess_batch(images_u8, draws.augment, weak=False)
         mark("augment")
         step_two = ema(state)
@@ -256,4 +305,5 @@ def build_adaptation_steps(class_tokens: torch.Tensor,
         return step_body(state, strong, image_hw, online_rcnn, online_rpn,
                          offline, step_two, draws)
 
-    return train_step, train_step_cached, train_step_cached_two
+    return tuple(in_step_group(group, f) for f in
+                 (train_step, train_step_cached, train_step_cached_two))

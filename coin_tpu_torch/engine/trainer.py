@@ -10,6 +10,9 @@ live teacher runs in every step (``train_step``). The collection pass runs
 the teacher over the train set in both orientations and keeps its
 detections in canvas coordinates; under ``TPU.INT8_COLLECT`` it runs the
 teacher's int8 clone (K2s in every conv, sharing the teacher's weights).
+In a process group each rank trains on its shard of every batch, and the
+collection pass takes whole batches in turn (batch j on rank j mod W),
+its stores unioned on every rank (``multihost.merge_result_stores``).
 """
 
 from __future__ import annotations
@@ -26,15 +29,16 @@ from coin_tpu_torch.data.augment import normalize_batch
 from coin_tpu_torch.data.loader import TestLoader, TrainLoader
 from coin_tpu_torch.device import resolve_device
 from coin_tpu_torch.engine import pipelines
-from coin_tpu_torch.engine.base import (NUM_WORKERS, DetectorTrainerBase,
-                                        auto_scale_workers,
-                                        load_collect_store)
+from coin_tpu_torch.engine.base import (DetectorTrainerBase,
+                                        load_collect_store, rank_kw,
+                                        scaled_cfg)
 from coin_tpu_torch.engine.common import lr_value
 from coin_tpu_torch.engine.pre_train import online_view_to_detections
 from coin_tpu_torch.engine.results_store import ResultStore
 from coin_tpu_torch.engine.step_builder import (build_adaptation_steps,
                                                 hyper_from_cfg,
                                                 init_train_state)
+from coin_tpu_torch.parallel.multihost import merge_result_stores
 
 logger = logging.getLogger(__name__)
 
@@ -43,14 +47,15 @@ class CoinTrainer(DetectorTrainerBase):
     def __init__(self, cfg, store: Optional[ResultStore] = None,
                  class_tokens: Optional[np.ndarray] = None, device="cuda"):
         device = resolve_device(device)
-        cfg = auto_scale_workers(cfg, NUM_WORKERS)
+        cfg = scaled_cfg(cfg)
         if store is None:
             store = load_collect_store(cfg, "CoinTrainer")
         loader = TrainLoader(
             cfg.DATASETS.TRAIN_UNLABEL[0], cfg.DATASETS.ROOT,
             batch_size=cfg.SOLVER.IMG_PER_BATCH_UNLABEL, seed=cfg.SEED,
             min_size=cfg.INPUT.MIN_SIZE_TRAIN, max_size=cfg.INPUT.MAX_SIZE,
-            store=store, store_cap=cfg.get_path("TPU.CAP_TEACHER", 128))
+            store=store, store_cap=cfg.get_path("TPU.CAP_TEACHER", 128),
+            **rank_kw())
         super().__init__(cfg, class_tokens, train_loader=loader,
                          device=device)
         self.store = store
@@ -74,7 +79,8 @@ class CoinTrainer(DetectorTrainerBase):
         self._refresh_epochs = cfg.get_path("TPU.TEACHER_REFRESH_EPOCHS", 0)
         (self._train_step, self._train_step_cached,
          self._train_step_cached_two) = build_adaptation_steps(
-            self.tokens, self.pcfg, self.teacher_pcfg, hyper)
+            self.tokens, self.pcfg, self.teacher_pcfg, hyper,
+            group=self.group)
         self.teacher_store = None
         self._collect_loader = None
         self.ap_50_student = {}
@@ -85,14 +91,16 @@ class CoinTrainer(DetectorTrainerBase):
     def collect_teacher_store(self) -> ResultStore:
         """The teacher's detections over the unlabeled train set, one pass
         per orientation (the loader flips the valid region on the host, so
-        the cache serves flipped samples exactly), in canvas coordinates."""
+        the cache serves flipped samples exactly), in canvas coordinates.
+        In a process group each rank runs its whole batches and the shards
+        are unioned on every rank."""
         if self._collect_loader is None:
             self._collect_loader = TestLoader(
                 self.cfg.DATASETS.TRAIN_UNLABEL[0], self.cfg.DATASETS.ROOT,
                 batch_size=max(self.cfg.SOLVER.IMG_PER_BATCH_UNLABEL, 4),
                 min_size=self.cfg.INPUT.MIN_SIZE_TRAIN,
                 max_size=self.cfg.INPUT.MAX_SIZE,
-                canvas_hw=self.train_loader.canvas_hw)
+                canvas_hw=self.train_loader.canvas_hw, **rank_kw())
         model = self.state.teacher
         if self.cfg.get_path("TPU.INT8_COLLECT", False):
             model = model.clone(quant_convs=True)
@@ -122,6 +130,7 @@ class CoinTrainer(DetectorTrainerBase):
                     store.put(batch.image_ids[i], view, d["boxes"][i][v],
                               d["classes"][i][v], d["scores"][i][v],
                               d["probs"][i][v])
+        store = merge_result_stores(store)
         logger.info("cached teacher predictions for %d images%s",
                     len(store), " (both orientations)" if both else "")
         return store
@@ -146,6 +155,7 @@ class CoinTrainer(DetectorTrainerBase):
         cfg = self.cfg
         dev = self.device
         max_iter = max_iter or cfg.SOLVER.MAX_ITER
+        self.replicate()
         it = iter(self.train_loader)
         start = int(self.state.step)
         burn_up = cfg.CLOUD.BURN_UP_STEP
@@ -208,7 +218,13 @@ class CoinTrainer(DetectorTrainerBase):
         """``resume``: the latest checkpoint of OUTPUT_DIR, whole. Otherwise
         MODEL.WEIGHTS: 'ckpt' or 'ckpt+collect.npz' starts fresh from a
         checkpoint's student weights and prototypes (the teacher a copy of
-        the student), with the store of the npz."""
+        the student), with the store of the npz. Every rank loads; rank 0's
+        state is then broadcast."""
+        self._load(resume)
+        self.replicate()
+
+    @torch.no_grad()
+    def _load(self, resume: bool):
         if resume:
             self.checkpointer.load_latest(self.state)
             latest = self.checkpointer.latest_path()

@@ -1,7 +1,9 @@
 """Launchers of K2, the int8 training convolution, and K2s, the int8 serving
 convolution: ``csrc/quantize.cu`` (dynamic quantisation of activations and
 gradients, one launch per tensor, writing K2 wgrad's layout beside the s8
-values on request; both weight quantisations of a conv in one launch),
+values on request; the given-scale mode of a data-parallel step, an
+abs-max launch and a quantise launch with an all-reduce between them;
+both weight quantisations of a conv in one launch),
 ``csrc/qconv.cu`` (the s8 convolution with its f32 rescale, written in f32
 or bf16: a ``wgmma`` implicit GEMM for the K2 forward, the K2 dgrad and
 K2s, and a direct kernel for the stem's 3 channels) and
@@ -58,10 +60,12 @@ def _require_cuda(what: str, *tensors: torch.Tensor) -> None:
 
 
 def _quant_scratch(dev: torch.device) -> torch.Tensor:
-    """The quantiser's barrier and partials on ``dev``: zeroed once, left
-    as the kernels find it by every launch. Launches that share it run in
-    one stream's order, as the port's are."""
-    t = _scratch.get(dev)
+    """The quantiser's barrier and partials on ``dev`` for the current
+    stream: zeroed once, left as the kernels find it by every launch.
+    Launches that share one run in its stream's order; a launch from
+    another stream (a side stream, a rank's) gets a scratch of its own."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _scratch.get(key)
     if t is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("quantize: launch once before capturing a "
@@ -69,7 +73,7 @@ def _quant_scratch(dev: torch.device) -> torch.Tensor:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         t = torch.zeros(_SCRATCH_HEAD + 8 * sms, dtype=torch.int32,
                         device=dev)
-        _scratch[dev] = t
+        _scratch[key] = t
     return t
 
 
@@ -113,6 +117,72 @@ def quantize_cuda(x: torch.Tensor, per_sample: bool, layout_k=None):
 
 
 quantize_cuda.launches = 0
+
+
+def _layout_out(x: torch.Tensor, layout_k, what: str):
+    """K2 wgrad's (C, Pp) layout buffer for x (N, H, W, C), and the
+    launch's shape arguments."""
+    from coin_tpu_torch.ops.qconv import wgrad_positions
+    if x.dim() != 4 or x.shape[-1] % 4:
+        raise ValueError(f"{what}: a layout needs (N, H, W, C), C a "
+                         f"multiple of 4; got {tuple(x.shape)}")
+    lay = torch.empty((x.shape[-1], wgrad_positions(*x.shape[:3],
+                                                    layout_k)),
+                      dtype=torch.int8, device=x.device)
+    return lay, (*x.shape, layout_k)
+
+
+def absmax_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The given-scale mode's first launch: max |x| of an f32 or bf16
+    tensor on a CUDA device as a (1,) f32 tensor (a NaN if x holds one),
+    whose int32 view an all-reduce MAX combines across ranks."""
+    _require_cuda("absmax_cuda", x)
+    if x.dtype not in _DTYPES or x.numel() == 0:
+        raise TypeError(f"absmax_cuda: {x.dtype} {tuple(x.shape)} (f32 or "
+                        f"bf16, not empty)")
+    x = x.contiguous()
+    amax = torch.empty((1,), dtype=torch.float32, device=x.device)
+    err = _fn("quantize", "coin_absmax", [_P, _I, _L, _P, _P])(
+        x.data_ptr(), _DTYPES[x.dtype], x.numel(), amax.data_ptr(),
+        _stream(x))
+    check(err, "absmax")
+    absmax_cuda.launches += 1
+    return amax
+
+
+absmax_cuda.launches = 0
+
+
+def quantize_given_cuda(x: torch.Tensor, amax: torch.Tensor, layout_k=None):
+    """The given-scale mode's second launch: x (f32 or bf16) on a CUDA
+    device quantised with one scale, max(amax, 1e-12) / 127, from the
+    (1,) f32 ``amax`` on the same device (the all-reduced abs-maxima of
+    the ranks) → (q int8 of x's shape, scale (1,)), and with ``layout_k``
+    K2 wgrad's layout of q third, as :func:`quantize_cuda` writes it."""
+    _require_cuda("quantize_given_cuda", x, amax)
+    if x.dtype not in _DTYPES or x.numel() == 0:
+        raise TypeError(f"quantize_given_cuda: {x.dtype} "
+                        f"{tuple(x.shape)} (f32 or bf16, not empty)")
+    if amax.dtype != torch.float32 or amax.numel() != 1:
+        raise TypeError(f"quantize_given_cuda: amax {amax.dtype} "
+                        f"{tuple(amax.shape)} (one f32)")
+    x, amax = x.contiguous(), amax.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((1,), dtype=torch.float32, device=x.device)
+    lay, dims = None, (0, 0, 0, 0, 0)
+    if layout_k is not None:
+        lay, dims = _layout_out(x, layout_k, "quantize_given_cuda")
+    err = _fn("quantize", "coin_quantize_given",
+              [_P, _I, _L, _P, _P, _P, _P] + [_I] * 5 + [_P])(
+        x.data_ptr(), _DTYPES[x.dtype], x.numel(), amax.data_ptr(),
+        q.data_ptr(), scale.data_ptr(),
+        None if lay is None else lay.data_ptr(), *dims, _stream(x))
+    check(err, "quantize_given")
+    quantize_given_cuda.launches += 1
+    return (q, scale) if lay is None else (q, scale, lay)
+
+
+quantize_given_cuda.launches = 0
 
 
 def _weight(what: str, w: torch.Tensor, max_k: int = 0) -> torch.Tensor:

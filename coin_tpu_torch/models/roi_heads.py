@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from coin_tpu_torch.models.rpn import _take, topk_stable
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.ops import boxes as box_ops
 from coin_tpu_torch.ops import losses as L
 from coin_tpu_torch.ops import matcher as M
@@ -188,7 +189,8 @@ def box_reg_loss(sp: SampledProposals, deltas: torch.Tensor,
     """L1 box regression over fg rows, normalised by the sampled count (or
     ``normalizer``). ``deltas`` (S, 4) class-agnostic, or (S, 4 · C) per
     class: each row's own class (online or offline) picks its column,
-    clipped to [0, C − 1] (background rows pick column 0 and are masked)."""
+    clipped to [0, C − 1] (background rows pick column 0 and are masked).
+    The sampled count is the global batch's in a data-parallel step."""
     cls = sp.cls_online if use_online_classes else sp.cls_offline
     fg = (cls >= 0) & (cls < num_classes)
     if deltas.shape[-1] != 4:
@@ -200,18 +202,20 @@ def box_reg_loss(sp: SampledProposals, deltas: torch.Tensor,
     per_row = L.smooth_l1(deltas, gt_deltas, beta=0.0).sum(-1)
     total = torch.where(fg, per_row, torch.zeros_like(per_row)).sum()
     if normalizer is None:
-        normalizer = (sp.group != GROUP_PAD).sum().clamp_min(1)
+        normalizer = mesh_utils.global_sum(
+            (sp.group != GROUP_PAD).sum())[0].clamp_min(1)
     return total / normalizer
 
 
 def kl_mean_elements(log_p: torch.Tensor, q: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """torch KLDivLoss(reduction='mean') over valid rows: Σ q·(log q −
-    log p) / (#valid rows × C)."""
+    log p) / (#valid rows × C), the rows counted over the global batch in
+    a data-parallel step."""
     per_elem = q * (torch.log(q.clamp_min(1e-20)) - log_p)
     total = torch.where(valid[:, None], per_elem,
                         torch.zeros_like(per_elem)).sum()
-    cnt = valid.sum() * log_p.shape[-1]
+    cnt = mesh_utils.global_sum(valid.sum())[0] * log_p.shape[-1]
     return torch.where(cnt > 0, total / cnt.clamp_min(1),
                        torch.zeros_like(total))
 
@@ -220,7 +224,7 @@ def masked_mse(p: torch.Tensor, q: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     se = (p - q) ** 2
     total = torch.where(valid[:, None], se, torch.zeros_like(se)).sum()
-    cnt = valid.sum() * p.shape[-1]
+    cnt = mesh_utils.global_sum(valid.sum())[0] * p.shape[-1]
     return torch.where(cnt > 0, total / cnt.clamp_min(1),
                        torch.zeros_like(total))
 

@@ -20,6 +20,7 @@ from coin_tpu_torch.ops import boxes as box_ops
 from coin_tpu_torch.ops import losses as L
 from coin_tpu_torch.ops import matcher as M
 from coin_tpu_torch.ops import nms as nms_ops
+from coin_tpu_torch.parallel import mesh_utils
 from coin_tpu_torch.structures import Detections
 
 RPN_DELTA_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
@@ -107,16 +108,20 @@ def rpn_losses(anchors: torch.Tensor, obj_logits: torch.Tensor,
                deltas: torch.Tensor, targets: RPNTargets,
                batch_size: int = 256, calc_bg: bool = True,
                with_distillation: bool = False) -> dict:
-    """Batched RPN losses: obj_logits (B, R), deltas (B, R, 4)."""
+    """Batched RPN losses: obj_logits (B, R), deltas (B, R, 4). In a
+    data-parallel step the normalisers count the global batch."""
     labels = targets.labels
     pos = labels == 1
     valid = (labels >= 0) if calc_bg else pos
+    counts = mesh_utils.global_sum(
+        valid.sum(), *([targets.distill_labels.sum()] if with_distillation
+                       else []))
     y = pos.to(obj_logits.dtype)
     bce = -(y * F.logsigmoid(obj_logits)
             + (1.0 - y) * F.logsigmoid(-obj_logits))
     obj_loss = torch.where(valid, bce, torch.zeros_like(bce)).sum()
-    normalizer = batch_size * labels.shape[0]
-    cls_norm = normalizer if calc_bg else valid.sum().clamp_min(1)
+    normalizer = batch_size * mesh_utils.global_batch(labels.shape[0])
+    cls_norm = normalizer if calc_bg else counts[0].clamp_min(1)
     gt_deltas = box_ops.encode_deltas(anchors[None], targets.matched_boxes,
                                       RPN_DELTA_WEIGHTS)
     loc = L.smooth_l1(deltas, gt_deltas, beta=0.0).sum(-1)
@@ -134,7 +139,7 @@ def rpn_losses(anchors: torch.Tensor, obj_logits: torch.Tensor,
             return qq * (torch.log(qq.clamp_min(1e-20))
                          - torch.log(pp + 1e-7))
         kl = kl_term(q, p) + kl_term(1.0 - q, 1.0 - p)
-        cnt = mask.sum()
+        cnt = counts[1]
         total = torch.where(mask, kl, torch.zeros_like(kl)).sum()
         out["loss_rpn_distillation"] = torch.where(
             cnt > 0, total / (2.0 * cnt).clamp_min(1.0),

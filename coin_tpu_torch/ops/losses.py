@@ -2,7 +2,9 @@
 coin_tpu/ops/losses.py:19-107).
 
 Every loss does its own safe reduction: the mean over valid rows, and
-exactly 0.0 when no row is valid.
+exactly 0.0 when no row is valid. In a data-parallel step the count is
+the global batch's (``parallel/mesh_utils.global_sum``), so each rank's
+loss is its share of the global mean.
 """
 
 from __future__ import annotations
@@ -11,9 +13,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from coin_tpu_torch.parallel import mesh_utils
+
 
 def masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    cnt = valid.sum()
+    cnt, = mesh_utils.global_sum(valid.sum())
     total = torch.where(valid, x, torch.zeros_like(x)).sum()
     return torch.where(cnt > 0, total / cnt.clamp_min(1),
                        torch.zeros_like(total))

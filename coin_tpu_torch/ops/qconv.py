@@ -11,8 +11,12 @@ takes the weight gradient either in s8 x s8 with per-tensor scales from the
 saved s8 activation, kept in K2 wgrad's layout (mode ``qt=1``), or exactly
 in the activation's dtype. ``int8_conv`` (K2s) is the serving forward.
 
-On a CUDA tensor each step runs a kernel (``kernels/qconv.py``); on a CPU
-tensor its plain version here. The plain versions compute the integer sums
+In a data-parallel step (``parallel/mesh_utils.data_parallel`` over more
+than one rank) a per-tensor scale is the global batch's, as on the JAX
+mesh: the given-scale mode takes the rank's abs-max, all-reduces the
+maximum, then quantises with it; the res5 input and its gradient both.
+Otherwise one launch does both. On a CUDA tensor each step runs a kernel
+(``kernels/qconv.py``); on a CPU tensor its plain version here. The plain versions compute the integer sums
 exactly (on the CPU one s8 matrix product of the conv's taps,
 ``torch._int_mm``, while no sum can reach 2**31; else an f64 convolution
 of the s8 values: every partial sum is an integer below 2**53), wrap them
@@ -32,6 +36,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from coin_tpu_torch.parallel import mesh_utils
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -61,6 +67,21 @@ def quantize_plain(x: torch.Tensor, per_sample: bool = False):
         s = _scale(xf.abs().amax().reshape(1))
         view = s
     return _quant(xf, view), s
+
+
+def absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the given-scale mode's abs-max: max |x| as a (1,)
+    f32 tensor (NaN when x holds one)."""
+    return x.float().abs().amax().reshape(1)
+
+
+def quantize_given_plain(x: torch.Tensor, amax: torch.Tensor):
+    """Plain version of the given-scale mode's quantisation: x with the
+    one scale max(amax, 1e-12) / 127 of a given (1,) abs-max (the
+    all-reduced maximum of the ranks') → (q int8 of x's shape, scale (1,)).
+    With x's own abs-max it is :func:`quantize_plain` per tensor."""
+    s = _scale(amax.float().reshape(1))
+    return _quant(x.float(), s), s
 
 
 def quantize_weight_plain(w: torch.Tensor, per_input: bool = False):
@@ -228,13 +249,26 @@ def qconv_wgrad_plain(xq: torch.Tensor, gq: torch.Tensor, xs: torch.Tensor,
 
 
 # ----------------------------------------------------------- dispatch
-def quantize(x: torch.Tensor, per_sample: bool = False, layout_k=None):
+def quantize(x: torch.Tensor, per_sample: bool = False, layout_k=None,
+             group=None):
     """(q, scale) of x; with ``layout_k`` also K2 wgrad's layout of q for a
-    k x k conv, written by the same kernel launch on a CUDA tensor."""
-    if x.is_cuda:
+    k x k conv, written by the same kernel launch on a CUDA tensor. With a
+    ``group`` of more than one rank a per-tensor scale is the group's:
+    the given-scale mode (an abs-max launch, the all-reduce MAX, a quantise
+    launch that writes the same outputs)."""
+    if mesh_utils.world_size(group) > 1 and not per_sample:
+        if x.is_cuda:
+            from coin_tpu_torch.kernels.qconv import (absmax_cuda,
+                                                      quantize_given_cuda)
+            amax = mesh_utils.global_max_(absmax_cuda(x), group)
+            return quantize_given_cuda(x, amax, layout_k)
+        amax = mesh_utils.global_max_(absmax_plain(x), group)
+        q, s = quantize_given_plain(x, amax)
+    elif x.is_cuda:
         from coin_tpu_torch.kernels.qconv import quantize_cuda
         return quantize_cuda(x, per_sample, layout_k)
-    q, s = quantize_plain(x, per_sample)
+    else:
+        q, s = quantize_plain(x, per_sample)
     if layout_k is None:
         return q, s
     return q, s, wgrad_layout_plain(q, layout_k)
@@ -312,26 +346,27 @@ class Int8TrainConv(torch.autograd.Function):
     between) and, in mode 1, writes K2 wgrad's layout of the s8 activation
     beside its NHWC values; it saves the layout, not the NHWC tensor. The
     backward's quantisation of the gradient does the same for the
-    gradient."""
+    gradient. In a data-parallel step the per-tensor scales of both are
+    the global batch's (``group``, kept for the backward)."""
 
     @staticmethod
     def forward(ctx, x, w, stride, wgrad_int8, per_sample, dgrad_int8,
-                out_dtype):
+                out_dtype, group):
         int8_res = wgrad_int8 and dgrad_int8 and stride == 1 \
             and not per_sample
         dgrad_i8 = dgrad_int8 and stride == 1
         k = w.shape[-1]
         if int8_res:
-            xq, xs, xt = quantize(x, layout_k=k)
+            xq, xs, xt = quantize(x, layout_k=k, group=group)
         else:
-            xq, xs = quantize(x, per_sample)
+            xq, xs = quantize(x, per_sample, group=group)
         if dgrad_i8:
             wq, ks, wt, ks_i = quantize_weight_pair(w)
         else:
             wq, ks = quantize_weight(w)
         out = _conv("fwd", xq, wq, xs, ks, stride, k // 2, out_dtype)
         ctx.meta = (stride, per_sample, dgrad_i8, int8_res, x.dtype,
-                    tuple(x.shape), tuple(w.shape), w.dtype)
+                    tuple(x.shape), tuple(w.shape), w.dtype, group)
         # mode 1 keeps the s8 activation, laid out for the wgrad, and its
         # scale, not x: half the bytes of a bf16 activation, and no
         # requantisation in the backward
@@ -346,7 +381,7 @@ class Int8TrainConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         stride, per_sample, dgrad_i8, int8_res, x_dtype, x_shape, w_shape, \
-            w_dtype = ctx.meta
+            w_dtype, group = ctx.meta
         if int8_res:
             xt, xs, wt, ks_i = ctx.saved_tensors
         elif dgrad_i8:
@@ -359,9 +394,9 @@ class Int8TrainConv(torch.autograd.Function):
         g = g.contiguous()
         if dgrad_i8:
             if int8_res:
-                gq, gs, gt = quantize(g, layout_k=k)
+                gq, gs, gt = quantize(g, layout_k=k, group=group)
             else:
-                gq, gs = quantize(g, per_sample)
+                gq, gs = quantize(g, per_sample, group=group)
             dx = _conv("dgrad", gq, wt, gs, ks_i, 1, p, x_dtype)
         else:
             dx = _nhwc(torch.nn.grad.conv2d_input(
@@ -373,7 +408,7 @@ class Int8TrainConv(torch.autograd.Function):
             dw = torch.nn.grad.conv2d_weight(
                 _nchw(x), w_shape, _nchw(g.to(x.dtype)), stride=stride,
                 padding=p)
-        return dx, dw.to(w_dtype), None, None, None, None, None
+        return dx, dw.to(w_dtype), None, None, None, None, None, None
 
 
 def int8_train_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -385,14 +420,16 @@ def int8_train_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     function returns it, or its rounding to ``out_dtype``, written by the
     kernel. Gradients: dx in x's dtype, dw in w's. Where no gradient is
     taken (inference, a teacher's forward) only the forward's operands are
-    quantised."""
+    quantised. Inside a data-parallel step a per-tensor scale is the
+    global batch's (``mesh_utils.active_group``)."""
+    group = mesh_utils.active_group()
     if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         k = w.shape[-1]
-        xq, xs = quantize(x.contiguous(), per_sample)
+        xq, xs = quantize(x.contiguous(), per_sample, group=group)
         wq, ks = quantize_weight(w)
         return _conv("fwd", xq, wq, xs, ks, stride, k // 2, out_dtype)
     return Int8TrainConv.apply(x.contiguous(), w, stride, wgrad_int8,
-                               per_sample, dgrad_int8, out_dtype)
+                               per_sample, dgrad_int8, out_dtype, group)
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

@@ -3,7 +3,8 @@ repo's train_net.py, with its flags and its dispatch on CLOUD.Trainer).
 
     python -m coin_tpu_torch.tools.train_net --config CFG [--eval-only]
         [--resume] [--test_model_role student|teacher] [--data-root DIR]
-        [--device cuda|cpu] [KEY VALUE ...]
+        [--device cuda|cpu] [--num-gpus N] [--num-machines M]
+        [--machine-rank R] [--dist-url tcp://HOST:PORT] [KEY VALUE ...]
 
 Stage 2 of a recipe, the pre-train on stage 1b's ``CLIP_collect.npz``:
 ``--config configs/coin/PRETRAINS/CLIPDET_foggy.yaml``, which writes
@@ -13,9 +14,19 @@ Stage 2 of a recipe, the pre-train on stage 1b's ``CLIP_collect.npz``:
 ``--config configs/coin/ORACLE/foggy.yaml``. ``--eval-only`` evaluates
 (the latest checkpoint with ``--resume``); the GDINO_test, GLIP_test and
 CLIP_test trainers only
-evaluate. ``DATASETS.CUSTOM`` registers VOC-layout datasets. The launcher
-flags of the reference CLI (``--num-gpus`` and the like) are accepted and
-ignored. Runs on the card unless ``--device cpu``.
+evaluate. ``DATASETS.CUSTOM`` registers VOC-layout datasets. Runs on the
+card unless ``--device cpu``.
+
+Data parallel, as detectron2's ``launch``: ``--num-gpus N`` starts N
+processes on this machine, one per card, in a process group of N x
+``--num-machines`` ranks (NCCL; gloo with ``--device cpu``), this machine
+holding ranks ``--machine-rank`` x N onwards, meeting at ``--dist-url``
+(a free local port on one machine). ``torchrun --nproc_per_node N -m
+coin_tpu_torch.tools.train_net ...`` works too. The global batch
+(SOLVER.IMG_PER_BATCH_UNLABEL, scaled first by SOLVER.REFERENCE_WORLD_SIZE
+when that is set) must be a multiple of the ranks; the shipped batch of 3
+runs on 1 or 3 cards. Only rank 0 writes the log file, the snapshot,
+checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -37,14 +48,14 @@ def parse_args(argv=None):
                    help="override DATASETS.ROOT")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
-    # the reference CLI's launcher flags: accepted and ignored
-    p.add_argument("--num-gpus", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--num-machines", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--machine-rank", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--dist-url", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--num-gpus", type=int, default=1,
+                   help="processes on this machine, one per card")
+    p.add_argument("--num-machines", type=int, default=1)
+    p.add_argument("--machine-rank", type=int, default=0,
+                   help="this machine's index among --num-machines")
+    p.add_argument("--dist-url", default="auto",
+                   help="the process group's rendezvous, tcp://HOST:PORT "
+                        "(auto: a free local port, one machine)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                    help="KEY VALUE config overrides")
     return p.parse_args(argv)
@@ -52,10 +63,12 @@ def parse_args(argv=None):
 
 def setup(args):
     """The config of ``args`` (YAML, overrides, ``--data-root``), its
-    datasets registered, OUTPUT_DIR with its log, seeds and snapshot."""
+    datasets registered, OUTPUT_DIR with its log, seeds and snapshot (the
+    log file and the snapshot on rank 0 only)."""
     from coin_tpu_torch.config import load_config
     from coin_tpu_torch.data.voc import register_pascal_voc
-    from coin_tpu_torch.utils.setup import default_setup
+    from coin_tpu_torch.parallel.multihost import is_main_process
+    from coin_tpu_torch.utils.setup import default_setup, seed_all
     cfg = load_config(args.config or None, args.opts)
     if args.data_root:
         cfg.DATASETS.ROOT = args.data_root
@@ -63,15 +76,20 @@ def setup(args):
         register_pascal_voc(spec["NAME"], spec["DIRNAME"], spec["SPLIT"],
                             spec["CLASSES"], spec.get("EXT", ".jpg"))
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    main_rank = is_main_process()
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if main_rank:
+        handlers.append(logging.FileHandler(os.path.join(cfg.OUTPUT_DIR,
+                                                         "log.txt")))
     logging.basicConfig(
-        level=logging.INFO,
-        format="[%(asctime)s %(name)s] %(message)s",
-        handlers=[logging.StreamHandler(sys.stdout),
-                  logging.FileHandler(os.path.join(cfg.OUTPUT_DIR,
-                                                   "log.txt"))])
+        level=logging.INFO if main_rank else logging.WARNING,
+        format="[%(asctime)s %(name)s] %(message)s", handlers=handlers)
     logging.getLogger(__name__).info("config: %s  trainer: %s",
                                      args.config, cfg.CLOUD.Trainer)
-    default_setup(cfg)
+    if main_rank:
+        default_setup(cfg)
+    else:
+        seed_all(cfg.SEED)
     return cfg
 
 
@@ -102,9 +120,24 @@ def build_trainer(cfg, device="cuda"):
 
 
 def main(argv=None):
-    """Evaluation returns the results; training returns the trainer."""
-    from coin_tpu_torch.device import resolve_device
+    """Evaluation returns the results; training returns the trainer (of
+    this process; None when it launched ranks of its own)."""
+    from coin_tpu_torch.parallel import mesh_utils
     args = parse_args(argv)
+    if args.num_gpus * args.num_machines > 1:
+        mesh_utils.launch(run, args.num_gpus, args.num_machines,
+                          args.machine_rank, args.dist_url, args=(args,),
+                          device=args.device)
+        return None
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:   # under torchrun
+        mesh_utils.init_distributed(device=args.device)
+    return run(args)
+
+
+def run(args):
+    """One rank's run of the parsed ``args`` (the whole run without a
+    process group)."""
+    from coin_tpu_torch.device import resolve_device
     device = resolve_device(args.device)
     cfg = setup(args)
     trainer = build_trainer(cfg, device)

@@ -354,7 +354,8 @@ def test_normalize_batch_every_value_matches_jax(constants):
 # ------------------------------------------- package and device contract
 def test_port_imports_nothing_of_jax_or_coin_tpu():
     """Every module of coin_tpu_torch (the K10, CLIP, pre-train, CLI, A/B
-    harness, native decoder, loader and zoom-merge modules named) imports
+    harness, native decoder, loader, zoom-merge, parallel and utils
+    modules named) imports
     in a fresh interpreter without pulling in jax, flax or coin_tpu."""
     code = """
 import pkgutil, importlib, sys
@@ -373,7 +374,9 @@ new = {'coin_tpu_torch.' + m for m in (
     'models.clip_scorer', 'engine.clip_setup', 'engine.pre_train',
     'tools.train_net', 'evaluation.testing', 'utils.setup',
     'engine.oracle', 'evaluation.dump', 'tools.validate', 'tools.ab_compare', 'data.voc',
-    'native', 'data.loader', 'engine.zoom_merge')}
+    'native', 'data.loader', 'engine.zoom_merge', 'parallel',
+    'parallel.multihost', 'parallel.mesh_utils', 'utils.profiling',
+    'utils.visualize')}
 assert new <= set(names), new - set(names)
 print(len(names))
 """
@@ -504,3 +507,72 @@ def test_cuda_launchers_refuse_cpu_tensors(which):
     }[which]
     with pytest.raises(ValueError, match="CUDA"):
         call()
+
+
+# ------------------------------------------------------------- utils/
+@pytest.mark.parametrize("labels", ["names", "classes", "none"])
+def test_draw_detections_matches_jax(tmp_path, labels):
+    """utils/visualize.draw_detections: the same image, pixel for pixel, as
+    the JAX package's (boxes, colours by class, label text), given numpy
+    arrays or tensors; the saved PNG reads back as the returned image."""
+    from coin_tpu.utils.visualize import draw_detections as jdraw
+    from coin_tpu_torch.utils.visualize import draw_detections
+    rng = np.random.RandomState(3)
+    image = rng.randint(0, 256, (60, 90, 3)).astype(np.uint8)
+    xy = rng.uniform(0, 50, (9, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(5, 40, (9, 2))], 1)
+    scores = rng.uniform(0, 1, 9).astype(np.float32)
+    classes = np.arange(9) % 9
+    kw = {"names": dict(scores=scores, classes=classes,
+                        class_names=[f"c{i}" for i in range(9)]),
+          "classes": dict(classes=classes), "none": {}}[labels]
+    want = np.asarray(jdraw(image, boxes, **kw))
+    got = draw_detections(image, boxes, save_path=str(tmp_path / "a.png"),
+                          **kw)
+    np.testing.assert_array_equal(np.asarray(got), want)
+    from PIL import Image
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")),
+                                  want)
+    tkw = {k: torch.from_numpy(np.asarray(v)) if k != "class_names" else v
+           for k, v in kw.items()}
+    np.testing.assert_array_equal(np.asarray(draw_detections(
+        torch.from_numpy(image), torch.from_numpy(boxes), **tkw)), want)
+
+
+def test_iteration_timer_matches_jax(monkeypatch):
+    """utils/profiling.IterationTimer: the JAX class's windows, averages
+    and order of reads, under one patched perf_counter."""
+    import coin_tpu.utils.profiling as jprof
+    import coin_tpu_torch.utils.profiling as tprof
+    ticks = iter(np.cumsum(np.random.RandomState(1).uniform(0.01, 1, 400)))
+    clock = {"t": 0.0}
+    monkeypatch.setattr(jprof.time, "perf_counter", lambda: clock["t"])
+    timers = [jprof.IterationTimer(window=3), tprof.IterationTimer(window=3)]
+    assert all(t.avg_iter == t.avg_data == 0.0 for t in timers)
+    for step in range(7):
+        for call in ("before_data", "after_data", "after_step"):
+            clock["t"] = float(next(ticks))
+            for t in timers:
+                getattr(t, call)()
+        if step == 3:   # a step without a data wait
+            clock["t"] = float(next(ticks))
+            for t in timers:
+                t.after_step()
+        j, p = timers
+        assert list(p.iter_times) == list(j.iter_times)
+        assert list(p.data_times) == list(j.data_times)
+        assert p.avg_iter == j.avg_iter and p.avg_data == j.avg_data
+    assert len(timers[1].iter_times) == 3
+
+
+def test_trace_context_writes_a_chrome_trace(tmp_path):
+    """utils/profiling.trace_context: a torch.profiler trace of the block,
+    written as Chrome trace JSON that names the ops run inside it."""
+    import json
+    from coin_tpu_torch.utils.profiling import trace_context
+    with trace_context(str(tmp_path / "trace")) as prof:
+        torch.ones(8, 8).matmul(torch.ones(8, 8))
+    assert prof is not None
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("matmul" in e.get("name", "") for e in events)

@@ -704,7 +704,8 @@ def test_cli_refuses_oracle_and_unknown_names(monkeypatch, name, error,
 def test_cli_test_trainers_only_evaluate(data, tmp_path, monkeypatch,
                                          capsys):
     """A *_test trainer, which has no ``train``, runs as ``--eval-only``
-    and prints the JAX package's table of its results."""
+    and prints the JAX package's table of its results (``--num-gpus 1``:
+    in this process, no process group)."""
     from coin_tpu_torch.engine import test as ttest
     results = {"AP": 12.5, "AP50": 30.25, "AP75": 10.0, "AP50-car": 40.5,
                "AP50-person": 20.0}
@@ -723,7 +724,7 @@ def test_cli_test_trainers_only_evaluate(data, tmp_path, monkeypatch,
     cfg.CLOUD.Trainer = "GDINO_test"
     cfg.OUTPUT_DIR = str(tmp_path / "eval")
     got = train_net.main(["--config", _yaml(tmp_path / "e.yaml", cfg),
-                          "--device", "cpu", "--num-gpus", "8"])
+                          "--device", "cpu", "--num-gpus", "1"])
     assert got == results and calls == [("load", False), ("test",)]
     assert jtesting.print_csv_format(results) in capsys.readouterr().out
     shutil.rmtree(tmp_path / "eval" / "code_snapshot", ignore_errors=True)

@@ -479,3 +479,43 @@ def test_bf16_cotangent_is_quantised_as_it_arrives(out):
     np.testing.assert_array_equal(_as_f32(grads[0][0]), _as_f32(jdx))
     np.testing.assert_array_equal(
         grads[0][1].numpy().transpose(2, 3, 1, 0), np.asarray(jdw))
+
+
+EXACT_CONV_CASES = {
+    # (lhs shape, rhs shape, dimension numbers, stride, padding): res5's
+    # forward (contraction 1170: one operand in parts), a strided 1 x 1
+    # (whole operands) and K2's wgrad (contraction 9000: both in parts)
+    "fwd3x3": ((2, 5, 5, 130), (3, 3, 130, 4), ("NHWC", "HWIO", "NHWC"), 1,
+               1),
+    "fwd1x1_s2": ((3, 6, 6, 16), (1, 1, 16, 8), ("NHWC", "HWIO", "NHWC"),
+                  2, 0),
+    "wgrad": ((40, 15, 15, 3), (40, 15, 15, 2), ("CHWN", "IHWO", "HWNC"),
+              1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXACT_CONV_CASES))
+def test_exact_int8_conv_is_xla_s8_convolution(case):
+    """tests/jax_int8_conv.py's f32 route of the JAX package's s8 x s8 →
+    s32 convolutions gives XLA's integer convolution bit for bit, over the
+    whole s8 range, under jit and through the package's ``_conv_i8``."""
+    from coin_tpu.ops import qconv as jq
+    from tests.jax_int8_conv import exact_conv, exact_int8_convs
+    ls, rs, dn, s, p = EXACT_CONV_CASES[case]
+    rng = np.random.RandomState(7)
+    lhs = rng.randint(-128, 128, ls).astype(np.int8)
+    rhs = rng.randint(-128, 128, rs).astype(np.int8)
+    lhs.flat[:2] = (-128, 127)
+    rhs.flat[:2] = (-128, -128)
+    args = ((s, s), [(p, p)] * 2)
+    conv = lambda f: jax.jit(lambda a, b: f(
+        a, b, *args, dimension_numbers=dn,
+        preferred_element_type=jnp.int32))
+    want = np.asarray(conv(lax.conv_general_dilated)(lhs, rhs))
+    got = np.asarray(conv(exact_conv(lax.conv_general_dilated))(lhs, rhs))
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    with exact_int8_convs():
+        via = np.asarray(jax.jit(lambda a, b: jq._conv_i8(
+            a, b, *args, dn=dn))(lhs, rhs))
+    np.testing.assert_array_equal(via, want)

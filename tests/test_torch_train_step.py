@@ -79,6 +79,7 @@ updates 0.147, the CKG 0.540 (without excess precision; its f32 step
 
 import dataclasses
 import os
+import shutil
 import types
 
 import jax
@@ -99,6 +100,7 @@ from coin_tpu_torch.engine import pipelines as tpipe
 from coin_tpu_torch.engine import step_builder as tsb
 from coin_tpu_torch.models.detector import OpenVocabularyRCNN
 from coin_tpu_torch.structures import Detections
+from tests.jax_int8_conv import exact_int8_convs
 from tests.test_torch_augment import jax_augment_draws
 from tests.test_torch_models import CANVAS, NUM_CLASSES, tiny_pair
 from tests.test_torch_models import two_torch_threads  # noqa: F401
@@ -119,8 +121,8 @@ BF16_LOSS_REL = 2e-2
 BF16_REL = 0.2
 BF16_REL_MERGE = 0.4
 BF16_OWN_GAP = 1.25
-# XLA's CPU int8 convolution is slow: the int8 steps sample 8 RoIs per
-# image (16 res5 crops with the C boxes) instead of 32
+# the int8 steps sample 8 RoIs per image (16 res5 crops with the C boxes)
+# instead of 32: their stated tolerances were measured so
 ROI_BATCH = {"cached_int8": 8, "cached_int8_roi": 8}
 # the JAX model of each cached flavor beside the f32 one (flax clone fields)
 VARIANTS = {"cached_int8": dict(quant_train_res5=1),
@@ -165,6 +167,16 @@ def _dets(rng, n_valid, cap, anchor_boxes=None):
                 scores=probs[..., :C].max(-1).astype(np.float32),
                 classes=np.where(valid, classes, -1).astype(np.int32),
                 valid=valid, probs=probs.astype(np.float32))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_int8_convs():
+    """The JAX int8 steps' s8 x s8 → s32 convolutions through
+    tests/jax_int8_conv.py: the same s32 sums from f32 convolutions of
+    4-bit parts, where XLA's CPU integer convolution is about 100 times
+    slower."""
+    with exact_int8_convs():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -519,3 +531,62 @@ def test_load_train_state_carries_every_field(setup):
     frozen = {n for n, p in state.model.named_parameters()
               if not p.requires_grad}
     assert frozen and set(_flat(j0.params)).isdisjoint(frozen)
+
+
+def _same_tree(got, want, path=""):
+    """Two ``engine.checkpoint.state_tree`` trees equal leaf for leaf."""
+    assert type(got) is type(want), path
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same_tree(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), path
+    else:
+        assert got == want, path
+
+
+@pytest.mark.parametrize("kind", ["adaptation", "pretrain"])
+def test_jax_orbax_checkpoint_converts_to_the_port_checkpoint(setup, kind,
+                                                              tmp_path):
+    """ROADMAP 21b: the JAX state saved by the JAX package's Checkpointer
+    (orbax), converted by tools/jax_ckpt_to_torch.py and read by the
+    port's Checkpointer equals the checkpoint tree of ``load_train_state``
+    of the same state in memory, field for field (student and frozen
+    leaves, both optimizers' momentum and counts, teacher and CKG net,
+    prototypes, step); the step generator is seeded SEED + 1 + step. The
+    pre-train state is the same state without teacher and CKG fields, as
+    the JAX PRETrainer's."""
+    from coin_tpu.engine.checkpoint import Checkpointer as JCheckpointer
+    from coin_tpu_torch.engine.checkpoint import Checkpointer, state_tree
+    from coin_tpu_torch.engine.pre_train import init_pretrain_state
+    from tools import jax_ckpt_to_torch
+    j0 = setup.base.replace(step=jnp.asarray(7))
+    if kind == "pretrain":
+        j0 = j0.replace(teacher_params=None, merge_params=None,
+                        merge_opt_state=None)
+    jpath = JCheckpointer(str(tmp_path / "jax")).save(j0, 7)
+    cfg = setup.cfg.clone()
+    cfg.TPU.TEXT_LAYERS, cfg.TPU.TEXT_WIDTH, cfg.TPU.TEXT_HEADS = 2, 64, 2
+    try:
+        path = jax_ckpt_to_torch.convert(cfg, jpath, str(tmp_path / "port"),
+                                         num_classes=C)
+        assert os.path.basename(path) == "model_0000007"
+        tg = Checkpointer(str(tmp_path / "port")).load_tree(path)
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)
+    model = OpenVocabularyRCNN(num_classes=C, text_layers=2, text_width=64,
+                               text_heads=2)
+    tokens = torch.from_numpy(np.asarray(setup.tokens)).long()
+    if kind == "pretrain":
+        want = init_pretrain_state(setup.cfg, model, 0,
+                                   torch.zeros((C + 1, model.text_dim)))
+    else:
+        want = tsb.init_train_state(setup.cfg, model, tokens, seed=0)
+    load_train_state(want, jax.device_get(dataclasses.replace(j0, rng=None)))
+    tw = state_tree(want)
+    gen = torch.Generator().manual_seed(cfg.SEED + 1 + 7)
+    assert torch.equal(tg.pop("generator"), gen.get_state())
+    tw.pop("generator")
+    assert ("teacher" in tg) == (kind == "adaptation")
+    _same_tree(tg, tw)

@@ -48,6 +48,7 @@ from coin_tpu_torch.data.loader import TrainLoader
 from coin_tpu_torch.engine import pipelines as tpipe
 from coin_tpu_torch.engine.results_store import ResultStore
 from coin_tpu_torch.engine.trainer import CoinTrainer
+from tests.jax_int8_conv import exact_int8_convs
 from tests.test_adaptation_e2e import synth_store
 from tests.test_torch_inference import _inputs, _tcfg
 from tests.test_torch_models import tiny_pair
@@ -99,6 +100,50 @@ def _settings(cfg, root, out):
     cfg.CLOUD.PROTOTYPE_UPDATE_START = 1
     cfg.CLOUD.CLASSES_WEIGHT = [1.0, 1.0, 0.9]
     return cfg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jitted_jax_init():
+    """The JAX trainers of this module draw their initial variables through
+    one jitted ``model.init`` instead of flax's op-by-op init (about 450
+    small XLA compiles, 40 s of a JAX trainer's construction on the CPU).
+    The same key gives the same draws; a few leaves (the box predictor's
+    kernels, the prompt embeddings) land one ulp away, and every test here
+    holds the port to the JAX trainer's own converted state, whatever its
+    values."""
+    from coin_tpu.engine import base as jbase
+    cls = jbase.DetectorTrainerBase
+    eager = cls.init_variables
+
+    def init_variables(self):
+        """coin_tpu/engine/base.py ``init_variables``, its init jitted."""
+        canvas = self.train_loader.canvas_hw
+        variables = jax.jit(self.model.init)(
+            jax.random.key(self.cfg.SEED),
+            jnp.zeros((1, *canvas, 3), jnp.float32),
+            jnp.asarray(self.class_tokens),
+            jnp.asarray([[[0, 0, 32, 32]]], jnp.float32))
+        clip_path = self.cfg.get_path("TPU.CLIP_WEIGHTS", "")
+        if clip_path:
+            from coin_tpu.engine.clip_setup import load_clip_into_variables
+            variables, _ = load_clip_into_variables(
+                variables, clip_path, self.cfg.MODEL.RESNETS.DEPTH,
+                region_clip_path=self.cfg.get_path(
+                    "TPU.REGION_CLIP_WEIGHTS", ""))
+        return variables
+    cls.init_variables = init_variables
+    yield
+    cls.init_variables = eager
+
+
+@pytest.fixture(autouse=True, scope="module")
+def fast_jax_int8_convs():
+    """The JAX package's s8 x s8 → s32 convolutions (its int8 res5, its
+    int8 backbone) through tests/jax_int8_conv.py: the same s32 sums from
+    f32 convolutions of 4-bit parts, where XLA's CPU integer convolution
+    is about 100 times slower."""
+    with exact_int8_convs():
+        yield
 
 
 @pytest.fixture(scope="module")
